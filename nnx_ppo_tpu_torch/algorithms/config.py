@@ -1,0 +1,94 @@
+"""Configuration dataclasses. A copy of ``nnx_ppo_tpu/algorithms/config.py``
+(``PPOConfig``, ``EvalConfig``, ``VideoConfig``, ``TrainConfig``,
+``TrainResult``) with the same fields and defaults.
+
+Of the replay options the port runs the time-major fused replay with
+shuffled minibatches (``fused_replay=True``, ``rollout_layout`` "auto" or
+"time_major", ``replay_store_dtype="float32"``,
+``shuffle_minibatches=True``); ``ppo_step`` raises
+``NotImplementedError`` for the others. For a replay-time-static network
+the batch-major layout gives the same losses as the time-major one.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Optional
+
+from nnx_ppo_tpu_torch.algorithms.types import LoggingLevel, TrainingState
+
+
+@dataclass(frozen=True)
+class PPOConfig:
+    """Core PPO algorithm parameters."""
+
+    n_envs: int = 256
+    rollout_length: int = 20
+    total_steps: int = 512_000
+    gae_lambda: float = 0.95
+    discounting_factor: float = 0.99
+    clip_range: float = 0.2
+    learning_rate: float = 1e-4
+    normalize_advantages: bool = True
+    combine_advantages: bool = False
+    n_epochs: int = 4
+    n_minibatches: int = 4
+    critic_loss_weight: float = 1.0
+    # Linearly decay the learning rate to 0 over the run (one schedule
+    # step per minibatch update). Ignored when a custom optimizer is given.
+    anneal_lr: bool = False
+    gradient_clipping: Optional[float] = None
+    weight_decay: Optional[float] = None
+    logging_level: LoggingLevel = LoggingLevel.LOSSES
+    logging_percentiles: Optional[tuple[int, ...]] = None
+    fused_replay: bool = True
+    rollout_layout: str = "auto"
+    replay_store_dtype: str = "float32"
+    shuffle_minibatches: bool = True
+    # PPO iterations per train_ppo call of ppo_multi_step.
+    steps_per_call: int = 1
+
+
+@dataclass(frozen=True)
+class EvalConfig:
+    """Evaluation rollout configuration."""
+
+    enabled: bool = True
+    every_steps: int = 50_000
+    n_envs: int = 64
+    max_episode_length: int = 1000
+    logging_level: LoggingLevel = LoggingLevel.BASIC
+    logging_percentiles: Optional[tuple[int, ...]] = (0, 25, 50, 75, 100)
+
+
+@dataclass(frozen=True)
+class VideoConfig:
+    """Video recording configuration (not ported yet: ``train_ppo``
+    raises when it is enabled)."""
+
+    enabled: bool = False
+    every_steps: int = 200_000
+    episode_length: int = 1000
+    render_kwargs: tuple[tuple[str, Any], ...] = (("height", 480), ("width", 640))
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Complete training configuration."""
+
+    ppo: PPOConfig = field(default_factory=PPOConfig)
+    eval: EvalConfig = field(default_factory=EvalConfig)
+    video: VideoConfig = field(default_factory=VideoConfig)
+    seed: int = 17
+    checkpoint_every_steps: int = 500_000
+
+
+@dataclass
+class TrainResult:
+    """Result of train_ppo: final state, metrics, eval history."""
+
+    training_state: TrainingState
+    final_metrics: dict[str, Any]
+    eval_history: list[dict[str, Any]]
+    total_steps: int
+    total_iterations: int

@@ -1,0 +1,137 @@
+"""Rollouts. Port of ``nnx_ppo_tpu/algorithms/rollout.py``
+(``single_transition`` and ``unroll_env`` :24-87, ``eval_rollout`` :111).
+
+Environments are batched natively, so one call steps all ``B`` envs. All
+draws (sampler noise, env resets) come, in a fixed order, from the one
+``generator`` the caller passes. Call these under ``torch.no_grad()``
+when they feed training: rollouts carry no gradient.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import Any, Optional
+
+import torch
+
+from nnx_ppo_tpu_torch.algorithms.types import Transition
+from nnx_ppo_tpu_torch.core.struct import tree_map, tree_stack, tree_where
+from nnx_ppo_tpu_torch.networks.types import ModuleState, StatefulModule
+
+
+def single_transition(
+    env: Any,
+    networks: StatefulModule,
+    carry: tuple[ModuleState, Any],
+    generator: torch.Generator,
+) -> tuple[tuple[ModuleState, Any], Transition]:
+    """One batched env step: net forward -> env.step -> auto-reset both
+    the env state and the net carry where ``done``."""
+    network_state, env_state = carry
+    out = networks(network_state, env_state.obs, None, generator)
+    ppo_output = out.output
+    next_env_state = env.step(env_state, ppo_output.actions)
+    done = next_env_state.done != 0
+    truncated = next_env_state.info.get("truncated")
+    if truncated is None:
+        truncated = torch.zeros_like(done)
+    transition = Transition(
+        obs=env_state.obs,
+        network_output=ppo_output,
+        rewards=next_env_state.reward,
+        done=done,
+        truncated=truncated.to(torch.bool),
+        next_obs=next_env_state.obs,
+        metrics={"env": next_env_state.metrics, "net": out.metrics},
+        rollout_extras=out.rollout_extras,
+    )
+
+    reset_states = env.reset(done.shape[0], generator)
+    next_env_state = tree_where(done, reset_states, next_env_state)
+    reset_network_states = networks.reset_state(out.next_state)
+    next_network_state = tree_where(done, reset_network_states, out.next_state)
+    return (next_network_state, next_env_state), transition
+
+
+def unroll_env(
+    env: Any,
+    env_state: Any,
+    networks: StatefulModule,
+    network_state: ModuleState,
+    unroll_length: int,
+    generator: torch.Generator,
+) -> tuple[ModuleState, Any, Transition]:
+    """Run :func:`single_transition` for ``unroll_length`` steps and
+    stack the transitions time-major ``[T, B, ...]``."""
+    carry = (network_state, env_state)
+    transitions = []
+    for _ in range(unroll_length):
+        carry, transition = single_transition(env, networks, carry, generator)
+        transitions.append(transition)
+    rollout = tree_stack(transitions)
+    value_shapes = tree_map(lambda v: v.shape, rollout.network_output.value_estimates)
+    reward_shapes = tree_map(lambda r: r.shape, rollout.rewards)
+    if value_shapes != reward_shapes:
+        raise ValueError(
+            "value_estimates shapes must match rewards shapes (per reward key): "
+            f"{value_shapes} vs {reward_shapes}"
+        )
+    final_network_state, final_env_state = carry
+    return final_network_state, final_env_state, rollout
+
+
+def _add_reward_metrics(
+    out: dict,
+    name: str,
+    reward: Any,
+    percentile_levels: Optional[tuple[int, ...]],
+) -> None:
+    """Recursively build named metrics from a reward tree."""
+    if isinstance(reward, Mapping):
+        for k, v in reward.items():
+            _add_reward_metrics(out, f"{name}/{k}", v, percentile_levels)
+    elif percentile_levels is not None:
+        q = torch.tensor(percentile_levels, dtype=reward.dtype, device=reward.device)
+        for pl, p in zip(percentile_levels, torch.quantile(reward, q / 100.0)):
+            out[f"{name}/p{int(pl)}"] = p
+    else:
+        out[f"{name}/mean"] = reward.mean()
+        out[f"{name}/std"] = reward.std(correction=0)
+
+
+@torch.no_grad()
+def eval_rollout(
+    env: Any,
+    networks: StatefulModule,
+    n_envs: int,
+    max_episode_length: int,
+    generator: torch.Generator,
+    logging_percentiles: Optional[tuple[int, ...]] = None,
+) -> dict[str, torch.Tensor]:
+    """Fresh-env evaluation: done latches, reward accumulates only while
+    alive; emits lifespan and per-reward-key episode reward stats."""
+    env_state = env.reset(n_envs, generator)
+    network_state = networks.initialize_state(n_envs)
+    cuml_reward = tree_map(torch.zeros_like, env_state.reward)
+    lifespan = torch.zeros(n_envs, device=env_state.done.device)
+    for _ in range(max_episode_length):
+        out = networks(network_state, env_state.obs, None, generator)
+        next_env_state = env.step(env_state, out.output.actions)
+        was_done = env_state.done != 0
+        now_done = (next_env_state.done != 0) | was_done
+        next_env_state = next_env_state.replace(done=now_done.to(next_env_state.done.dtype))
+        cuml_reward = tree_map(
+            lambda c, r: c + torch.where(was_done, 0.0, r),
+            cuml_reward,
+            next_env_state.reward,
+        )
+        lifespan = lifespan + torch.where(now_done, 0.0, 1.0)
+        env_state, network_state = next_env_state, out.next_state
+
+    metrics = dict(lifespan_mean=lifespan.mean(), lifespan_std=lifespan.std(correction=0))
+    _add_reward_metrics(metrics, "episode_reward", cuml_reward, logging_percentiles)
+    if logging_percentiles is not None:
+        q = torch.tensor(logging_percentiles, dtype=lifespan.dtype, device=lifespan.device)
+        for pl, p in zip(logging_percentiles, torch.quantile(lifespan, q / 100.0)):
+            metrics[f"lifespan/p{int(pl)}"] = p
+    return metrics

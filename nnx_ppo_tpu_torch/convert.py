@@ -1,0 +1,77 @@
+"""Carry weights and data across from the JAX package.
+
+No JAX counterpart. The JAX package's modules are pytrees whose field
+names match the port's attribute names (``layers``, ``action``,
+``value``, ``kernel``, ``bias``, ``mean``, ``M2``, ``counter``), and the
+Dense kernel keeps its ``[in, out]`` layout here, so weights load by
+name with no transpose. This module takes numpy leaves only: the caller
+turns JAX arrays into numpy (for example
+``jax.tree.map(np.asarray, partition_params(net)[0])``) and nothing here
+imports JAX.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import Any, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def _child(node: Any, name: str) -> Any:
+    """Field ``name`` of a nested-dict node or of an object node (such as
+    a JAX module dataclass holding numpy leaves); None when absent."""
+    if node is None:
+        return None
+    if isinstance(node, Mapping):
+        return node.get(name)
+    return getattr(node, name, None)
+
+
+@torch.no_grad()
+def load_jax_leaves(module: nn.Module, tree: Any) -> nn.Module:
+    """Copy the numpy leaves of ``tree`` into ``module``'s parameters and
+    buffers of the same names, recursively; ``None`` leaves (such as the
+    positions a params/stats partition leaves empty) are skipped.
+    Returns ``module``."""
+    tensors = list(module.named_parameters(recurse=False)) + list(
+        module.named_buffers(recurse=False)
+    )
+    for name, tensor in tensors:
+        value = _child(tree, name)
+        if value is None:
+            continue
+        value = np.asarray(value)
+        if tuple(value.shape) != tuple(tensor.shape):
+            raise ValueError(
+                f"{type(module).__name__}.{name}: expected shape "
+                f"{tuple(tensor.shape)}, got {value.shape}"
+            )
+        tensor.copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
+    for name, child in module.named_children():
+        subtree = _child(tree, name)
+        if isinstance(child, nn.ModuleList):
+            if subtree is not None and len(subtree) != len(child):
+                raise ValueError(
+                    f"{type(module).__name__}.{name}: {len(child)} layers, "
+                    f"tree has {len(subtree)}"
+                )
+            for i, layer in enumerate(child):
+                load_jax_leaves(layer, None if subtree is None else subtree[i])
+        else:
+            load_jax_leaves(child, subtree)
+    return module
+
+
+def to_torch(tree: Any, device: Optional[torch.device | str] = None) -> Any:
+    """Nested dicts / lists / tuples of numpy arrays -> the same nest of
+    tensors on ``device`` (``None`` stays ``None``)."""
+    if tree is None:
+        return None
+    if isinstance(tree, Mapping):
+        return {k: to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_torch(v, device) for v in tree)
+    return torch.tensor(np.asarray(tree), device=device)

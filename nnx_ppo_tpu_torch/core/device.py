@@ -1,0 +1,23 @@
+"""Device selection for the port's entry points.
+
+No JAX counterpart: the JAX package takes its device from the backend.
+Here every entry point takes ``device=`` (default ``"cuda"``), and asking
+for a device that is not present raises instead of carrying on quietly
+on the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device) -> torch.device:
+    """``torch.device(device)``, or ``RuntimeError`` when it is a CUDA
+    device and no GPU is present."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} was asked for but no CUDA device is "
+            "present; pass device='cpu' to run on the CPU"
+        )
+    return device

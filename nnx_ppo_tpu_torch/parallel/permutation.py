@@ -1,0 +1,68 @@
+"""Minibatch permutation indices on one device.
+
+Port of ``nnx_ppo_tpu/parallel/permutation.py:26-134`` for a single
+shard with shuffled minibatches: every epoch permutes all envs and cuts
+the permutation into ``n_minibatches`` equal rows. The permutations come
+from the caller's generator, or are injected as ``selectors`` (a test
+pins them to the JAX package's).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Optional
+
+import torch
+
+
+def minibatch_permutations(
+    generator: torch.Generator, n_envs: int, n_epochs: int, n_minibatches: int
+) -> torch.Tensor:
+    """All epoch x minibatch env-index permutations: int64
+    ``[n_epochs * n_minibatches, n_envs // n_minibatches]``; minibatch
+    ``m`` of epoch ``e`` gathers ``x[:, inds[e * M + m]]``."""
+    if n_envs % n_minibatches != 0:
+        raise ValueError(
+            f"n_envs ({n_envs}) must be divisible by n_minibatches ({n_minibatches})"
+        )
+    perms = [
+        torch.randperm(n_envs, generator=generator, device=generator.device)
+        for _ in range(n_epochs)
+    ]
+    return torch.stack(perms).reshape(n_epochs * n_minibatches, n_envs // n_minibatches)
+
+
+def minibatch_plan(
+    n_envs: int,
+    n_epochs: int,
+    n_minibatches: int,
+    *,
+    generator: Optional[torch.Generator] = None,
+    selectors: Optional[torch.Tensor] = None,
+) -> tuple[
+    torch.Tensor,
+    Callable[[Any, torch.Tensor], Any],
+    Callable[[Any, torch.Tensor], Any],
+]:
+    """``(selectors, take_seq, take_batch)`` for the E·M updates.
+
+    ``take_seq`` extracts a minibatch from a time-major ``[T, B, ...]``
+    buffer, ``take_batch`` from a per-env ``[B, ...]`` leaf. Pass
+    ``selectors`` to use given permutations instead of drawing them.
+    """
+    if selectors is None:
+        if generator is None:
+            raise ValueError("minibatch_plan needs a generator or selectors")
+        selectors = minibatch_permutations(generator, n_envs, n_epochs, n_minibatches)
+    elif tuple(selectors.shape) != (n_epochs * n_minibatches, n_envs // n_minibatches):
+        raise ValueError(
+            f"selectors must be [{n_epochs * n_minibatches}, "
+            f"{n_envs // n_minibatches}], got {tuple(selectors.shape)}"
+        )
+
+    def take_seq(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
+        return x[:, inds]
+
+    def take_batch(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
+        return x[inds]
+
+    return selectors, take_seq, take_batch
