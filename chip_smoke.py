@@ -1,29 +1,40 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (nnx_ppo_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--learn N] [--variants]
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. device: the card's name and power limit, from nvidia-smi;
-2. build: every hand-written kernel of the training path, compiled with
-   nvcc from the sources in nnx_ppo_tpu_torch/csrc/;
+2. build: every hand-written kernel of the training paths (GAE and the
+   physics control step), compiled with nvcc from the sources in
+   nnx_ppo_tpu_torch/csrc/, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the training path's shapes (and a ragged one), then timed with CUDA
-   events against the plain version;
-4. path: the flagship training step at its full width (CartpoleBalance
-   with a 500-step time limit, 1024 envs, T=30, actor 64x4, critic
-   256x2, obs normalization, 4 epochs x 4 shuffled minibatches, adam)
-   through new_training_state and ppo_multi_step, with every kernel's
-   launch count set to 0 just before and read just after;
-5. reference: the PPO loss and its gradients on the card against the
-   same computation on the CPU (plain versions) for one minibatch.
+   the training paths' shapes (and a ragged one), then timed with CUDA
+   events and torch.profiler against the plain version;
+4. paths, each through new_training_state and ppo_multi_step with every
+   kernel's launch count set to 0 just before and read just after:
+   the flagship (CartpoleBalance with a 500-step time limit, 1024 envs,
+   T=30, actor 64x4, critic 256x2, obs normalization, 4 epochs x 4
+   shuffled minibatches, adam), and the physics leg (QuadrupedJoystick
+   with domain randomization, pushes and rough terrain, held factor,
+   2048 envs, T=20, Concat encoder 128+32, actor 128, two critic heads,
+   per-key GAE with combined advantages, shuffled and then contiguous
+   minibatches);
+5. reference: for each path the PPO loss and its gradients on the card
+   against the same computation on the CPU (plain versions) for one
+   minibatch, and one env step of the physics leg on the card (kernel)
+   against the CPU (plain version) from the same state, action and
+   draws.
 
 It prints a ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``. With no CUDA device it exits 1 and
-prints no result. ``--profile DIR`` also writes a torch.profiler table
-of one training step to DIR; ``--learn N`` also trains the flagship for
-N iterations through train_ppo and prints its eval curve.
+prints no result. ``--profile DIR`` also writes torch.profiler tables
+of one training step of each path to DIR; ``--learn N`` also trains the
+flagship for N iterations through train_ppo and prints its eval curve;
+``--variants`` also builds the control-step kernel with fused
+multiply-adds and prints its error and time beside the shipped build's,
+and times the shipped build at 64 and 128 threads per block.
 """
 
 from __future__ import annotations
@@ -41,8 +52,11 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 
-FLAGSHIP_STEPS_CHECKED = 3
-FLAGSHIP_STEPS_TIMED = 10
+FLAGSHIP_STEPS_CHECKED = 2
+FLAGSHIP_STEPS_TIMED = 5
+PHYSICS_STEPS_CHECKED = 2
+PHYSICS_STEPS_TIMED = 5
+PHYSICS_STEPS_NOSHUFFLE = 3
 
 
 def check(ok: bool, what: str) -> None:
@@ -108,12 +122,19 @@ def gae_inputs(T: int, B: int, seed: int, device, torch):
     return [torch.tensor(a, device=device) for a in arrays]
 
 
-def kernel_phase(torch) -> dict:
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of bytes over the
+    memory rate and operations over the float32 peak."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_FLOPS_PER_S
+    return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def gae_kernel_phase(torch) -> dict:
     from nnx_ppo_tpu_torch.ops.gae import gae_cuda, gae_scan
 
     lam, gamma = 0.95, 0.99
     max_err = 0.0
-    for i, (T, B) in enumerate([(30, 256), (30, 1024), (7, 1000)]):
+    for i, (T, B) in enumerate([(30, 256), (20, 512), (30, 1024), (7, 1000)]):
         args = gae_inputs(T, B, seed=i, device="cuda", torch=torch)
         check(bool(args[3].any() and args[4].any()), "done and truncation flags are set")
         got = gae_cuda(*args, lam, gamma)
@@ -125,18 +146,23 @@ def kernel_phase(torch) -> dict:
         max_err = max(max_err, err)
         print(f"gae [{T}, {B}]: max_abs_err {err:.3g} (rtol 1e-6, atol 1e-6)")
 
-    # The training path's shape: one minibatch, T=30, B=1024/4.
-    T, B = 30, 256
-    args = gae_inputs(T, B, seed=0, device="cuda", torch=torch)
-    ms = time_ms(lambda: gae_cuda(*args, lam, gamma), 500, torch)
-    kernel_device_ms = device_ms_per_call(
-        lambda: gae_cuda(*args, lam, gamma), 100, "gae_kernel", torch
-    )
-    plain_ms = time_ms(lambda: gae_scan(*args, lam, gamma), 50, torch)
-    n_bytes = (5 * T + 1) * B * 4
-    n_flops = 10 * T * B
-    bound_s = max(n_bytes / HBM_BYTES_PER_S, n_flops / FP32_FLOPS_PER_S)
-    bound_by = "bytes" if n_bytes / HBM_BYTES_PER_S >= n_flops / FP32_FLOPS_PER_S else "operations"
+    # The training paths' shapes: one minibatch of the flagship (T=30,
+    # B=1024/4) and of the physics leg (T=20, B=2048/4).
+    timed = {}
+    for T, B in [(30, 256), (20, 512)]:
+        args = gae_inputs(T, B, seed=0, device="cuda", torch=torch)
+        n_bytes = (5 * T + 1) * B * 4
+        bound, bound_by = bound_ms(n_bytes, 10 * T * B)
+        timed[(T, B)] = {
+            "ms": time_ms(lambda: gae_cuda(*args, lam, gamma), 500, torch),
+            "kernel_device_ms": device_ms_per_call(
+                lambda: gae_cuda(*args, lam, gamma), 100, "gae_kernel", torch
+            ),
+            "plain_ms": time_ms(lambda: gae_scan(*args, lam, gamma), 50, torch),
+            "bound_ms": bound,
+            "bound_by": bound_by,
+        }
+    flagship_shape, physics_shape = timed[(30, 256)], timed[(20, 512)]
     return {
         "name": "gae",
         "route": "cuda",
@@ -144,14 +170,183 @@ def kernel_phase(torch) -> dict:
         "replaces": "nnx_ppo_tpu/ops/gae.py:105",
         "launches": None,
         "max_abs_err": max_err,
+        "ms": flagship_shape["ms"],
+        "plain_ms": flagship_shape["plain_ms"],
+        "bound_ms": flagship_shape["bound_ms"],
+        "bound_by": flagship_shape["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes GAE
+        "shape": [30, 256],
+        "kernel_device_ms": flagship_shape["kernel_device_ms"],
+        "at_20x512": physics_shape,
+    }
+
+
+DR_RANGES = dict(
+    mass_scale=(0.8, 1.2), friction=(0.4, 1.0), damping_scale=(0.9, 1.1), gain_scale=(0.9, 1.1)
+)
+ROUGH = dict(seed=2, amplitude=0.03, wavelength=1.5)
+
+# The control-step configurations checked against the plain version:
+# name -> (batch, exact, full feature set).
+CONTROL_STEP_CASES = {
+    "held, full features, B=2048": (2048, False, True),
+    "exact, full features, B=2048": (2048, True, True),
+    "held, flat ground, no extras, B=1000": (1000, False, False),
+}
+
+
+def control_step_case(name: str, torch):
+    """(plan, args on the card) of one control-step configuration: the
+    quadruped at kp=60, 10 substeps of 2 ms, states near the standing
+    pose with some feet in contact."""
+    from nnx_ppo_tpu_torch.physics.cuda_step import ControlStepPlan
+    from nnx_ppo_tpu_torch.physics.models.quadruped import default_qpos, make_quadruped
+    from nnx_ppo_tpu_torch.physics.terrain import rough_terrain
+    from nnx_ppo_tpu_torch.physics.testing import standing_states
+
+    B, exact, full = CONTROL_STEP_CASES[name]
+    model = make_quadruped()
+    terrain = rough_terrain(**ROUGH) if full else None
+    plan = ControlStepPlan(
+        model, 60.0, 0.002, 10, exact, terrain=terrain,
+        dr_fields=tuple(DR_RANGES) if full else (), has_push=full,
+    )
+    arrays = standing_states(
+        model, default_qpos(model), B, seed=3, terrain=terrain,
+        n_extra_dr=4 if full else 0, has_push=full,
+    )
+    keys = ("qpos", "qvel", "target") + (("extra",) if full else ())
+    return plan, [torch.tensor(arrays[k], device="cuda") for k in keys]
+
+
+def control_step_errors(plan, args, torch) -> dict:
+    """Kernel against plain version on the card, at the stated tolerance:
+    float32 on both; ten substeps; qpos 2e-4, qvel 2e-3, normals rtol
+    5e-3 / atol 5e-2 (the contact switch phi > 0 and the 6000 N/m contact
+    stiffness amplify rounding)."""
+    got = plan.cuda(*args)
+    want = plan.plain(*args)
+    torch.cuda.synchronize()
+    check(bool((want[2] > 0).any() and (want[2] == 0).any()), "some feet touch, some do not")
+    for x in got:
+        check(bool(torch.isfinite(x).all()), "kernel output is finite")
+    errs = {k: (g - w).abs().max().item() for k, g, w in zip(("qpos", "qvel", "normals"), got, want)}
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=2e-4)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=2e-3)
+    torch.testing.assert_close(got[2], want[2], rtol=5e-3, atol=5e-2)
+    return errs
+
+
+def count_plain_operations(plan, args, torch) -> float:
+    """Float operations per env of one control step, counted from one
+    call of the plain version: every elementwise arithmetic op it runs
+    counts one operation per output element (sin, cos, sqrt, sinc and
+    division count one each)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    arithmetic = {
+        "add", "sub", "rsub", "mul", "div", "neg", "sqrt", "sin", "cos", "sinc", "pow",
+        "clamp", "clamp_min", "clamp_max", "where", "gt", "reciprocal",
+    }
+    counted = {"ops": 0}
+
+    class Counter(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.overloadpacket.__name__ in arithmetic and torch.is_tensor(out):
+                counted["ops"] += out.numel()
+            return out
+
+    small = [a[:8] for a in args]
+    with Counter():
+        plan.plain(*small)
+    return counted["ops"] / 8
+
+
+def control_step_kernel_phase(torch, variants: bool) -> dict:
+    from nnx_ppo_tpu_torch.ops import cuda_build
+    from nnx_ppo_tpu_torch.physics import cuda_step
+
+    max_err = 0.0
+    cases = {}
+    for name in CONTROL_STEP_CASES:
+        plan, args = control_step_case(name, torch)
+        before = cuda_step.control_step_cuda.launches
+        errs = control_step_errors(plan, args, torch)
+        check(cuda_step.control_step_cuda.launches == before + 1, "the wrapper counted its launch")
+        max_err = max(max_err, errs["qpos"], errs["qvel"])
+        cases[name] = (plan, args)
+        print(f"control_step {name}: max_abs_err qpos {errs['qpos']:.3g} (atol 2e-4) "
+              f"qvel {errs['qvel']:.3g} (atol 2e-3) normals {errs['normals']:.3g} "
+              "(rtol 5e-3, atol 5e-2)")
+
+    # The physics leg's shape: 2048 envs, all feature lanes, held factor.
+    plan, args = cases["held, full features, B=2048"]
+    model = plan.model
+    ms = time_ms(lambda: plan.cuda(*args), 50, torch)
+    kernel_device_ms = device_ms_per_call(lambda: plan.cuda(*args), 20, "control_step_kernel", torch)
+    plain_ms = time_ms(lambda: plan.plain(*args), 2, torch)
+    exact_plan, exact_args = cases["exact, full features, B=2048"]
+    exact_ms = time_ms(lambda: exact_plan.cuda(*exact_args), 20, torch)
+    B = args[0].shape[0]
+    bytes_per_env = 4 * (model.nq + model.nv + model.nj + plan.n_extra
+                         + model.nq + model.nv + plan.n_geoms)
+    ops_per_env = count_plain_operations(plan, args, torch)
+    bound, bound_by = bound_ms(bytes_per_env * B, ops_per_env * B)
+    print(f"control_step: {bytes_per_env} bytes and {ops_per_env:.0f} float operations per env "
+          f"and control step; exact-mode kernel {exact_ms:.4f} ms")
+    result = {
+        "name": "control_step",
+        "route": "cuda",
+        "source": "nnx_ppo_tpu_torch/csrc/control_step.cu",
+        "replaces": "nnx_ppo_tpu/physics/pallas_step.py:330",
+        "launches": None,
+        "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": bound_s * 1e3,
+        "bound_ms": bound,
         "bound_by": bound_by,
-        "library_ms": None,  # no single PyTorch call computes GAE
-        "shape": [T, B],
+        "library_ms": None,  # no single PyTorch call computes a control step
+        "shape": [B, model.nq],
         "kernel_device_ms": kernel_device_ms,
+        "exact_ms": exact_ms,
+        "ops_per_env": ops_per_env,
+        "bytes_per_env": bytes_per_env,
     }
+    if variants:
+        # The same source with fused multiply-adds left on (nvcc's
+        # default), beside the shipped build, inside this one run.
+        shipped = cuda_step.KERNEL_FLAGS
+        try:
+            cuda_step.KERNEL_FLAGS = tuple(f for f in shipped if f != "-fmad=false")
+            fma_plan, _ = control_step_case("held, full features, B=2048", torch)
+            cuda_build.build([fma_plan.kernel_spec])
+            got, want = fma_plan.cuda(*args), plan.plain(*args)
+            errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+            fma_ms = time_ms(lambda: fma_plan.cuda(*args), 50, torch)
+        finally:
+            cuda_step.KERNEL_FLAGS = shipped
+        again_ms = time_ms(lambda: plan.cuda(*args), 50, torch)
+        print(f"control_step with fused multiply-adds: max_abs_err qpos {errs[0]:.3g} qvel "
+              f"{errs[1]:.3g} normals {errs[2]:.3g}; {fma_ms:.4f} ms against {again_ms:.4f} ms "
+              "without (shipped)")
+        result["fma"] = {"qpos": errs[0], "qvel": errs[1], "normals": errs[2], "ms": fma_ms,
+                         "shipped_ms": again_ms}
+        # The shipped build at other block sizes (the same 2048 threads).
+        by_threads = {}
+        shipped_threads = cuda_step.THREADS_PER_BLOCK
+        try:
+            for threads in (32, 64, 128, 32):
+                cuda_step.THREADS_PER_BLOCK = threads
+                by_threads.setdefault(threads, []).append(
+                    time_ms(lambda: plan.cuda(*args), 50, torch)
+                )
+        finally:
+            cuda_step.THREADS_PER_BLOCK = shipped_threads
+        print("control_step ms by threads per block: "
+              + "; ".join(f"{k}: {', '.join(f'{v:.4f}' for v in vs)}" for k, vs in by_threads.items()))
+        result["ms_by_threads_per_block"] = by_threads
+    return result
 
 
 def flagship(torch):
@@ -171,9 +366,99 @@ def flagship(torch):
     return env, networks, config, make_optimizer(config.learning_rate)
 
 
-def path_phase(torch, kernels: dict, profile_dir: str | None) -> dict:
-    from nnx_ppo_tpu_torch.algorithms import new_training_state, ppo_multi_step, ppo_step
+def physics_leg(torch):
+    """The physics leg: env, network, config and optimizer."""
+    from nnx_ppo_tpu_torch.algorithms import PPOConfig, make_optimizer
+    from nnx_ppo_tpu_torch.envs import QuadrupedJoystick
+    from nnx_ppo_tpu_torch.networks import (
+        Concat, Dense, NormalTanhSampler, Parallel, PPOAdapter, Sequential, make_mlp,
+    )
+    from nnx_ppo_tpu_torch.physics import DomainRandomization
+    from nnx_ppo_tpu_torch.physics.terrain import rough_terrain
+    from nnx_ppo_tpu_torch.wrappers import EpisodeWrapper
+
+    env = EpisodeWrapper(
+        QuadrupedJoystick(
+            reuse_mass_matrix=True,
+            randomize=DomainRandomization(**DR_RANGES),
+            push_prob=0.02, push_force=50.0,
+            terrain=rough_terrain(**ROUGH),
+        ),
+        max_len=500,
+    )
+    proprio = env.observation_size["proprio"]
+    n_act = env.action_size
+    g = torch.Generator().manual_seed(0)
+    enc = Concat.create(
+        proprio=Dense.create(proprio, 128, g, torch.relu),
+        command=Dense.create(3, 32, g, torch.relu),
+    )
+    actor = Sequential.create([
+        Dense.create(160, 128, g, torch.relu),
+        Dense.create(128, 2 * n_act, g),
+        NormalTanhSampler.create(entropy_weight=1e-3),
+    ])
+    critic = Parallel.create(
+        tracking=make_mlp([160, 128, 1], g, activation_last_layer=False),
+        penalty=make_mlp([160, 128, 1], g, activation_last_layer=False),
+    )
+    networks = Sequential.create([enc, PPOAdapter.create(action=actor, value=critic)])
+    config = PPOConfig(n_envs=2048, rollout_length=20, combine_advantages=True)
+    return env, networks, config, make_optimizer(config.learning_rate)
+
+
+def check_finite(history: dict, torch) -> None:
+    for name, v in history.items():
+        check(bool(torch.isfinite(torch.as_tensor(v)).all()), f"{name} is finite")
+
+
+def profile_step(torch, env, ts, config, optimizer, step_ms: float, profile_dir: str, label: str):
+    """One profiled ppo_step: kernels per step, device busy time, idle
+    share, and the share of each hand-written kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnx_ppo_tpu_torch.algorithms import ppo_step
+
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ts, _ = ppo_step(env, ts, config, optimizer)
+        torch.cuda.synchronize()
+    # Kernels only: user annotations (such as the optimizer's step
+    # range) also carry a device time, as torch.profiler's table skips.
+    device_events = [
+        e for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+    ]
+    busy_ms = sum(e.self_device_time_total for e in device_events) / 1e3
+    n_launches = sum(e.count for e in device_events)
+    print(
+        f"profile {label}: {n_launches} device kernels, device busy {busy_ms:.2f} ms per "
+        f"ppo_step; unprofiled step {step_ms:.2f} ms; device idle share "
+        f"{1 - busy_ms / step_ms:.3f}"
+    )
+    for kernel in ("control_step_kernel", "gae_kernel"):
+        events = [e for e in device_events if kernel in e.key]
+        if events:
+            ms = sum(e.self_device_time_total for e in events) / 1e3
+            print(
+                f"profile {label}: {kernel} {sum(e.count for e in events)} launches, "
+                f"{ms:.3f} ms, {ms / busy_ms:.3f} of device busy time, "
+                f"{ms / step_ms:.3f} of the step"
+            )
+    path = os.path.join(profile_dir, f"{label}_ppo_step_profile.txt")
+    with open(path, "w") as f:
+        f.write(prof.key_averages().table(sort_by="cuda_time_total", row_limit=60))
+        f.write("\n")
+        f.write(prof.key_averages().table(sort_by="cpu_time_total", row_limit=40))
+    print(f"profile {label}: {path}")
+    return ts
+
+
+def flagship_path_phase(torch, kernels: list, profile_dir: str | None) -> dict:
+    from nnx_ppo_tpu_torch.algorithms import new_training_state, ppo_multi_step
     from nnx_ppo_tpu_torch.ops.gae import gae_cuda
+    from nnx_ppo_tpu_torch.physics.cuda_step import control_step_cuda
 
     env, networks, config, optimizer = flagship(torch)
     per_step = config.n_envs * config.rollout_length
@@ -191,8 +476,7 @@ def path_phase(torch, kernels: dict, profile_dir: str | None) -> dict:
     first_s = time.perf_counter() - t0
     check(ts.steps_taken == FLAGSHIP_STEPS_CHECKED * per_step, f"steps_taken {ts.steps_taken}")
     check(gae_cuda.launches == updates * FLAGSHIP_STEPS_CHECKED, f"gae launches {gae_cuda.launches}")
-    for name, v in history.items():
-        check(bool(torch.isfinite(torch.as_tensor(v)).all()), f"{name} is finite")
+    check_finite(history, torch)
 
     t0 = time.perf_counter()
     ts, history = ppo_multi_step(
@@ -204,43 +488,17 @@ def path_phase(torch, kernels: dict, profile_dir: str | None) -> dict:
     n_steps = FLAGSHIP_STEPS_CHECKED + FLAGSHIP_STEPS_TIMED
     check(ts.steps_taken == n_steps * per_step, f"steps_taken {ts.steps_taken}")
     check(launches["gae_cuda"] == updates * n_steps, f"launches {launches}")
-    for name, v in history.items():
-        check(bool(torch.isfinite(torch.as_tensor(v)).all()), f"{name} is finite")
+    check(control_step_cuda.launches == 0, "the flagship launches no control step")
+    check_finite(history, torch)
 
+    step_ms = timed_s / FLAGSHIP_STEPS_TIMED * 1e3
     if profile_dir:
-        os.makedirs(profile_dir, exist_ok=True)
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            ts, _ = ppo_step(env, ts, config, optimizer)
-            torch.cuda.synchronize()
-        # Kernels only: user annotations (such as the optimizer's step
-        # range) also carry a device time, as torch.profiler's table skips.
-        device_events = [
-            e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-        ]
-        busy_ms = sum(e.self_device_time_total for e in device_events) / 1e3
-        n_launches = sum(e.count for e in device_events)
-        step_ms = timed_s / FLAGSHIP_STEPS_TIMED * 1e3
-        print(
-            f"profile: {n_launches} device kernels, device busy {busy_ms:.2f} ms per "
-            f"ppo_step; unprofiled step {step_ms:.2f} ms; device idle share "
-            f"{1 - busy_ms / step_ms:.3f}"
-        )
-        path = os.path.join(profile_dir, "flagship_ppo_step_profile.txt")
-        with open(path, "w") as f:
-            f.write(prof.key_averages().table(sort_by="cuda_time_total", row_limit=60))
-            f.write("\n")
-            f.write(prof.key_averages().table(sort_by="cpu_time_total", row_limit=40))
-        print(f"profile: {path}")
-
+        ts = profile_step(torch, env, ts, config, optimizer, step_ms, profile_dir, "flagship")
     return {
         "launches": launches,
         "first_call_s": first_s,
         "train_sps_first_call": FLAGSHIP_STEPS_CHECKED * per_step / first_s,
-        "step_ms": timed_s / FLAGSHIP_STEPS_TIMED * 1e3,
+        "step_ms": step_ms,
         "train_sps": FLAGSHIP_STEPS_TIMED * per_step / timed_s,
         "state": ts,
         "actor_loss": float(history["losses/actor/mean"][-1]),
@@ -248,7 +506,85 @@ def path_phase(torch, kernels: dict, profile_dir: str | None) -> dict:
     }
 
 
-def reference_phase(torch, ts) -> float:
+def physics_path_phase(torch, kernels: list, profile_dir: str | None) -> dict:
+    """The physics leg at full width: 2 checked + 5 timed steps with
+    shuffled minibatches, then 3 timed steps with contiguous ones."""
+    from nnx_ppo_tpu_torch.algorithms import new_training_state, ppo_multi_step
+    from nnx_ppo_tpu_torch.ops.gae import gae_cuda
+    from nnx_ppo_tpu_torch.physics.cuda_step import control_step_cuda
+
+    env, networks, config, optimizer = physics_leg(torch)
+    per_step = config.n_envs * config.rollout_length
+    # Per ppo_step: one control step per rollout step, one GAE per
+    # minibatch update and reward key.
+    control_per_step = config.rollout_length
+    gae_per_step = config.n_epochs * config.n_minibatches * 2
+
+    def check_counts(n_steps: int) -> None:
+        check(control_step_cuda.launches == control_per_step * n_steps,
+              f"control_step launches {control_step_cuda.launches} after {n_steps} steps")
+        check(gae_cuda.launches == gae_per_step * n_steps,
+              f"gae launches {gae_cuda.launches} after {n_steps} steps")
+
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts = new_training_state(env, networks, config.n_envs, seed=0, optimizer=optimizer, device="cuda")
+    ts, history = ppo_multi_step(
+        env, ts, config, optimizer, PHYSICS_STEPS_CHECKED, return_history=True
+    )
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    check(ts.steps_taken == PHYSICS_STEPS_CHECKED * per_step, f"steps_taken {ts.steps_taken}")
+    check_counts(PHYSICS_STEPS_CHECKED)
+    check_finite(history, torch)
+    check(ts.env_states.obs["proprio"].shape == (config.n_envs, 42), "proprio obs shape")
+
+    t0 = time.perf_counter()
+    ts, history = ppo_multi_step(
+        env, ts, config, optimizer, PHYSICS_STEPS_TIMED, return_history=True
+    )
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    check_counts(PHYSICS_STEPS_CHECKED + PHYSICS_STEPS_TIMED)
+    check_finite(history, torch)
+
+    noshuffle = dataclasses.replace(config, shuffle_minibatches=False)
+    t0 = time.perf_counter()
+    ts, history_ns = ppo_multi_step(
+        env, ts, noshuffle, optimizer, PHYSICS_STEPS_NOSHUFFLE, return_history=True
+    )
+    torch.cuda.synchronize()
+    noshuffle_s = time.perf_counter() - t0
+    n_steps = PHYSICS_STEPS_CHECKED + PHYSICS_STEPS_TIMED + PHYSICS_STEPS_NOSHUFFLE
+    launches = {k.__name__: k.launches for k in kernels}
+    check(ts.steps_taken == n_steps * per_step, f"steps_taken {ts.steps_taken}")
+    check_counts(n_steps)
+    check_finite(history_ns, torch)
+
+    step_ms = timed_s / PHYSICS_STEPS_TIMED * 1e3
+    if profile_dir:
+        ts = profile_step(torch, env, ts, config, optimizer, step_ms, profile_dir, "physics")
+    return {
+        "launches": launches,
+        "n_steps": n_steps,
+        "first_call_s": first_s,
+        "step_ms": step_ms,
+        "physics_sps": PHYSICS_STEPS_TIMED * per_step / timed_s,
+        "noshuffle_step_ms": noshuffle_s / PHYSICS_STEPS_NOSHUFFLE * 1e3,
+        "physics_sps_noshuffle": PHYSICS_STEPS_NOSHUFFLE * per_step / noshuffle_s,
+        "state": ts,
+        "env": env,
+        "config": config,
+        "actor_loss": float(history["losses/actor/mean"][-1]),
+        "critic_tracking_loss": float(history["losses/critic/tracking/mean"][-1]),
+        "trunk_height": float(history["env/trunk_height/mean"][-1])
+        if "env/trunk_height/mean" in history else float("nan"),
+    }
+
+
+def loss_reference_phase(torch, label: str, env, config, ts, n_gae: int) -> float:
     """Loss and gradients on the card (GAE kernel) against the CPU (plain
     GAE) for one full-width minibatch of a fresh rollout."""
     from nnx_ppo_tpu_torch.algorithms import ppo_loss
@@ -257,18 +593,18 @@ def reference_phase(torch, ts) -> float:
     from nnx_ppo_tpu_torch.core.struct import tree_map
     from nnx_ppo_tpu_torch.ops.gae import gae_cuda
 
-    env, _, config, _ = flagship(torch)
     net_gpu = ts.networks
     with torch.no_grad():
         _, _, rollout = unroll_env(
             env, ts.env_states, net_gpu, ts.network_states, config.rollout_length, ts.generator
         )
-    sel = torch.arange(256, device="cuda")
+    width = config.n_envs // config.n_minibatches
+    sel = torch.arange(width, device="cuda")
     view = ReplayMinibatch.from_rollout(rollout).gather(sel, lambda x, s: x[:, s], lambda x, s: x[s])
     kw = dict(
         clip_range=config.clip_range,
         normalize_advantages=True,
-        combine_advantages=False,
+        combine_advantages=config.combine_advantages,
         discounting_factor=config.discounting_factor,
         gae_lambda=config.gae_lambda,
         critic_loss_weight=1.0,
@@ -278,12 +614,14 @@ def reference_phase(torch, ts) -> float:
     view_cpu = tree_map(lambda x: x.cpu(), view)
     before = gae_cuda.launches
     net_gpu.zero_grad(set_to_none=True)
-    loss_gpu, _ = ppo_loss(net_gpu, tree_map(lambda x: x[:256], ts.network_states), view, **kw)
+    loss_gpu, _ = ppo_loss(net_gpu, tree_map(lambda x: x[:width], ts.network_states), view, **kw)
     loss_gpu.backward()
-    check(gae_cuda.launches == before + 1, "the loss on the card launched the GAE kernel")
-    loss_cpu, _ = ppo_loss(net_cpu, tree_map(lambda x: x[:256].cpu(), ts.network_states), view_cpu, **kw)
+    check(gae_cuda.launches == before + n_gae, "the loss on the card launched the GAE kernel")
+    loss_cpu, _ = ppo_loss(
+        net_cpu, tree_map(lambda x: x[:width].cpu(), ts.network_states), view_cpu, **kw
+    )
     loss_cpu.backward()
-    # float32 on both; sums over 7680 samples in another order.
+    # float32 on both; sums over T * width samples in another order.
     torch.testing.assert_close(loss_gpu.cpu(), loss_cpu, rtol=1e-4, atol=1e-5)
     max_rel = 0.0
     for p_gpu, p_cpu in zip(net_gpu.parameters(), net_cpu.parameters()):
@@ -291,9 +629,54 @@ def reference_phase(torch, ts) -> float:
         scale = p_cpu.grad.abs().max().clamp(min=1e-12)
         max_rel = max(max_rel, ((p_gpu.grad.cpu() - p_cpu.grad).abs().max() / scale).item())
     net_gpu.zero_grad(set_to_none=True)
-    print(f"reference: loss cuda {loss_gpu.item():.6f} cpu {loss_cpu.item():.6f}; "
+    print(f"reference {label}: loss cuda {loss_gpu.item():.6f} cpu {loss_cpu.item():.6f}; "
           f"max grad diff / max |grad| {max_rel:.3g}")
     return abs(loss_gpu.item() - loss_cpu.item())
+
+
+def env_step_reference_phase(torch, env) -> None:
+    """One step of the physics leg's env on the card (control-step kernel)
+    against the CPU (plain version): same state, action and draws.
+    float32; one control step of ten substeps: qpos 2e-4, qvel 2e-3; obs
+    2e-3 (it holds qvel); rewards 1e-4; contact force rtol 5e-3 / atol
+    5e-2."""
+    from nnx_ppo_tpu_torch.core.struct import tree_map
+    from nnx_ppo_tpu_torch.physics.cuda_step import control_step_cuda
+
+    legged, B = env.env, 128
+    generator = torch.Generator(device="cuda")
+    generator.manual_seed(11)
+    state = legged.reset(B, generator)
+    action = 2.4 * torch.rand((B, legged.action_size), generator=generator, device="cuda") - 1.2
+    push = legged._draw_push(B, generator)
+    push = (torch.arange(B, device="cuda") % 4 == 0, push[1])  # one env in four is pushed
+    resample = legged._draw_resample(B, generator)
+    before = control_step_cuda.launches
+    on_card = legged._step_from(state, action, push, resample, None)
+    check(control_step_cuda.launches == before + 1, "env.step on the card launched the kernel")
+    to_cpu = lambda tree: tree_map(lambda x: x.cpu(), tree)
+    on_cpu = legged._step_from(
+        to_cpu(state), action.cpu(), to_cpu(push), to_cpu(resample), None
+    )
+    check(control_step_cuda.launches == before + 1, "env.step on the CPU ran the plain version")
+    torch.cuda.synchronize()
+    got, want = to_cpu(on_card), on_cpu
+    check(bool((want.metrics["contact_force"] > 0).any()), "feet are in contact")
+    torch.testing.assert_close(got.data["qpos"], want.data["qpos"], rtol=0, atol=2e-4)
+    torch.testing.assert_close(got.data["qvel"], want.data["qvel"], rtol=0, atol=2e-3)
+    for key in want.obs:
+        torch.testing.assert_close(got.obs[key], want.obs[key], rtol=0, atol=2e-3)
+    for key in want.reward:
+        torch.testing.assert_close(got.reward[key], want.reward[key], rtol=0, atol=1e-4)
+    torch.testing.assert_close(got.done, want.done, rtol=0, atol=0)
+    torch.testing.assert_close(
+        got.metrics["contact_force"], want.metrics["contact_force"], rtol=5e-3, atol=5e-2
+    )
+    print(
+        "reference env.step: max_abs_err qpos "
+        f"{(got.data['qpos'] - want.data['qpos']).abs().max().item():.3g} qvel "
+        f"{(got.data['qvel'] - want.data['qvel']).abs().max().item():.3g} over {B} envs"
+    )
 
 
 def learning_phase(torch, iterations: int) -> None:
@@ -324,6 +707,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR", default=None)
     parser.add_argument("--learn", metavar="ITERATIONS", type=int, default=0)
+    parser.add_argument("--variants", action="store_true")
     args = parser.parse_args()
 
     import torch
@@ -336,32 +720,75 @@ def main() -> int:
 
     from nnx_ppo_tpu_torch.ops import cuda_build
     from nnx_ppo_tpu_torch.ops.gae import gae_cuda
+    from nnx_ppo_tpu_torch.physics.cuda_step import control_step_cuda
 
     card = card_line()
     print(f"card: {card}")
 
     t0 = time.perf_counter()
-    cuda_build.build(["gae"])
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
+    specs = {control_step_case(name, torch)[0].kernel_spec for name in CONTROL_STEP_CASES}
+    # With --profile, also print what ptxas says of each kernel
+    # (registers, stack, spills).
+    cuda_build.build(["gae", *sorted(specs)], verbose=bool(args.profile))
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a, {1 + len(specs)} libraries "
+          "at once)")
 
-    kernel = kernel_phase(torch)
-    path = path_phase(torch, [gae_cuda], args.profile)
-    kernel["launches"] = path["launches"]["gae_cuda"]
-    reference_phase(torch, path["state"])
+    wrappers = [gae_cuda, control_step_cuda]
+    gae_kernel = gae_kernel_phase(torch)
+    control_kernel = control_step_kernel_phase(torch, args.variants)
+
+    flagship_path = flagship_path_phase(torch, wrappers, args.profile)
+    flagship_env, _, flagship_config, _ = flagship(torch)
+    loss_reference_phase(torch, "flagship", flagship_env, flagship_config,
+                         flagship_path["state"], n_gae=1)
+
+    physics_path = physics_path_phase(torch, wrappers, args.profile)
+    loss_reference_phase(torch, "physics", physics_path["env"], physics_path["config"],
+                         physics_path["state"], n_gae=2)
+    env_step_reference_phase(torch, physics_path["env"])
     if args.learn:
         learning_phase(torch, args.learn)
 
+    # Launches on the main paths only (the comparisons above do not
+    # count: every count was set to 0 just before each path).
+    by_path = {
+        "flagship": flagship_path["launches"],
+        "physics": physics_path["launches"],
+    }
+    gae_kernel["launches"] = sum(p["gae_cuda"] for p in by_path.values())
+    gae_kernel["launches_by_path"] = {k: p["gae_cuda"] for k, p in by_path.items()}
+    control_kernel["launches"] = sum(p["control_step_cuda"] for p in by_path.values())
+    control_kernel["launches_by_path"] = {k: p["control_step_cuda"] for k, p in by_path.items()}
+    for kernel in (gae_kernel, control_kernel):
+        check(kernel["launches"] > 0, f"{kernel['name']} was launched on a main path")
+
     print(
         f"flagship: {FLAGSHIP_STEPS_CHECKED + FLAGSHIP_STEPS_TIMED} ppo_steps, "
-        f"gae launches {kernel['launches']}, actor loss {path['actor_loss']:.5f}, "
-        f"critic loss {path['critic_loss']:.5f}"
+        f"gae launches {by_path['flagship']['gae_cuda']}, actor loss "
+        f"{flagship_path['actor_loss']:.5f}, critic loss {flagship_path['critic_loss']:.5f}"
     )
     print(
-        f"train_sps {path['train_sps']:.1f} (step {path['step_ms']:.2f} ms over "
+        f"train_sps {flagship_path['train_sps']:.1f} (step {flagship_path['step_ms']:.2f} ms over "
         f"{FLAGSHIP_STEPS_TIMED} steps; first call incl. set-up "
-        f"{path['train_sps_first_call']:.1f}) on {card}"
+        f"{flagship_path['train_sps_first_call']:.1f}) on {card}"
     )
-    print(json.dumps({"kernels": [kernel]}))
+    print(
+        f"physics: {physics_path['n_steps']} ppo_steps, control_step launches "
+        f"{by_path['physics']['control_step_cuda']}, gae launches {by_path['physics']['gae_cuda']}, "
+        f"actor loss {physics_path['actor_loss']:.5f}, critic loss (tracking) "
+        f"{physics_path['critic_tracking_loss']:.5f}"
+    )
+    print(
+        f"physics_sps {physics_path['physics_sps']:.1f} (step {physics_path['step_ms']:.2f} ms over "
+        f"{PHYSICS_STEPS_TIMED} steps, shuffled; first call incl. set-up "
+        f"{physics_path['first_call_s']:.2f} s) on {card}"
+    )
+    print(
+        f"physics_sps_noshuffle {physics_path['physics_sps_noshuffle']:.1f} (step "
+        f"{physics_path['noshuffle_step_ms']:.2f} ms over {PHYSICS_STEPS_NOSHUFFLE} steps, "
+        f"contiguous minibatches) on {card}"
+    )
+    print(json.dumps({"kernels": [gae_kernel, control_kernel]}))
     print(f"card: {card}")
     name = torch.cuda.get_device_name(0)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

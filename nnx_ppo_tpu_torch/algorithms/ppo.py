@@ -16,6 +16,9 @@ Kept from the JAX package:
   leading dims;
 * GAE (``ops/gae.py``) under no gradient, once per minibatch and reward
   key: the CUDA kernel for CUDA tensors, the plain version on the CPU.
+  Observations, rewards and value estimates may be dicts (one value
+  head per reward key); ``combine_advantages`` sums the per-key
+  advantages for the actor.
 
 The optimizer is adam (or adamw) as optax computes it, with PyTorch's
 plain per-tensor implementation (``foreach=False``, not fused).
@@ -197,7 +200,6 @@ def _check_supported(config: PPOConfig) -> None:
     unported = {
         "fused_replay": (config.fused_replay, True),
         "replay_store_dtype": (config.replay_store_dtype, "float32"),
-        "shuffle_minibatches": (config.shuffle_minibatches, True),
     }
     for name, (value, ported) in unported.items():
         if value != ported:
@@ -222,13 +224,15 @@ def ppo_update(
     """The update phase of :func:`ppo_step`: E·M minibatch gradient
     updates of ``networks`` (in place) on one rollout, replayed from the
     pre-rollout ``network_states``. Minibatches come from ``generator``
-    unless ``selectors`` pins them. Returns the loss metrics stacked over
-    the updates (leading dim E·M)."""
+    unless ``selectors`` pins them (or ``config.shuffle_minibatches`` is
+    off: then they are fixed contiguous env blocks). Returns the loss
+    metrics stacked over the updates (leading dim E·M)."""
     view = ReplayMinibatch.from_rollout(rollout_data)
     selectors, take_seq, take_batch = minibatch_plan(
         config.n_envs,
         config.n_epochs,
         config.n_minibatches,
+        shuffle=config.shuffle_minibatches,
         generator=generator,
         selectors=selectors,
     )

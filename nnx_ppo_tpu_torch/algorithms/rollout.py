@@ -2,8 +2,10 @@
 (``single_transition`` and ``unroll_env`` :24-87, ``eval_rollout`` :111).
 
 Environments are batched natively, so one call steps all ``B`` envs. All
-draws (sampler noise, env resets) come, in a fixed order, from the one
-``generator`` the caller passes. Call these under ``torch.no_grad()``
+draws (sampler noise, draws inside ``env.step``, env resets) come, in a
+fixed order, from the one ``generator`` the caller passes. Observations,
+rewards and value estimates may be dicts (per-key rewards need per-key
+value heads). Call these under ``torch.no_grad()``
 when they feed training: rollouts carry no gradient.
 """
 
@@ -30,7 +32,7 @@ def single_transition(
     network_state, env_state = carry
     out = networks(network_state, env_state.obs, None, generator)
     ppo_output = out.output
-    next_env_state = env.step(env_state, ppo_output.actions)
+    next_env_state = env.step(env_state, ppo_output.actions, generator)
     done = next_env_state.done != 0
     truncated = next_env_state.info.get("truncated")
     if truncated is None:
@@ -116,7 +118,7 @@ def eval_rollout(
     lifespan = torch.zeros(n_envs, device=env_state.done.device)
     for _ in range(max_episode_length):
         out = networks(network_state, env_state.obs, None, generator)
-        next_env_state = env.step(env_state, out.output.actions)
+        next_env_state = env.step(env_state, out.output.actions, generator)
         was_done = env_state.done != 0
         now_done = (next_env_state.done != 0) | was_done
         next_env_state = next_env_state.replace(done=now_done.to(next_env_state.done.dtype))

@@ -2,9 +2,12 @@
 
 No JAX counterpart. The JAX package's modules are pytrees whose field
 names match the port's attribute names (``layers``, ``action``,
-``value``, ``kernel``, ``bias``, ``mean``, ``M2``, ``counter``), and the
-Dense kernel keeps its ``[in, out]`` layout here, so weights load by
-name with no transpose. This module takes numpy leaves only: the caller
+``value``, ``components`` and the child names of ``Concat`` /
+``Parallel``, ``kernel``, ``bias``, ``mean``, ``M2``, ``counter``), and
+the Dense kernel keeps its ``[in, out]`` layout here, so weights load by
+name with no transpose. :func:`legged_state_data` turns the ``data`` of a
+vmapped JAX ``LeggedJoystick`` state into the port's batched one. This
+module takes numpy leaves only: the caller
 turns JAX arrays into numpy (for example
 ``jax.tree.map(np.asarray, partition_params(net)[0])``) and nothing here
 imports JAX.
@@ -19,6 +22,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from nnx_ppo_tpu_torch.physics.randomize import FIELDS as DR_FIELDS
+from nnx_ppo_tpu_torch.physics.randomize import DomainParams
 
 def _child(node: Any, name: str) -> Any:
     """Field ``name`` of a nested-dict node or of an object node (such as
@@ -75,3 +80,16 @@ def to_torch(tree: Any, device: Optional[torch.device | str] = None) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_torch(v, device) for v in tree)
     return torch.tensor(np.asarray(tree), device=device)
+
+
+def legged_state_data(data: Mapping, device: Optional[torch.device | str] = None) -> dict:
+    """``State.data`` of a batched (vmapped) JAX ``LeggedJoystick`` state,
+    as numpy leaves, -> the port's ``State.data``: ``qpos``, ``qvel``,
+    ``cmd``, ``prev_action`` as ``[B, ...]`` tensors and ``dr`` as a
+    :class:`DomainParams` of ``[B]`` tensors. The JAX per-env ``key`` has
+    no counterpart (the port draws from one generator) and is dropped."""
+    out = {k: to_torch(data[k], device) for k in ("qpos", "qvel", "cmd", "prev_action")}
+    dr = data.get("dr")
+    if dr is not None:
+        out["dr"] = DomainParams(**{name: to_torch(_child(dr, name), device) for name in DR_FIELDS})
+    return out

@@ -80,5 +80,7 @@ class CartpoleBalance:
         )
         return self._state(q)
 
-    def step(self, state: State, action: torch.Tensor) -> State:
+    def step(self, state: State, action: torch.Tensor, generator=None) -> State:
+        # The cart-pole draws nothing in step; the generator is ignored.
+        del generator
         return self._state(self._physics(state.data["q"], action))

@@ -1,14 +1,17 @@
-"""Sequential container. Port of ``nnx_ppo_tpu/networks/containers.py:40``.
+"""Containers. Port of ``nnx_ppo_tpu/networks/containers.py``:
+``Sequential`` (:40), ``_NamedContainer`` (:127), ``Concat`` (:186) and
+``Parallel`` (:221). ``Splitter`` (:247) is not ported yet.
 
-Carry and extras are per-layer tuples; metrics are keyed by integer
-layer index; regularization losses are summed. ``Concat``, ``Parallel``
-and ``Splitter`` are not on this slice's path.
+``Sequential``: carry and extras are per-layer tuples; metrics are keyed
+by integer layer index. The named containers: carry, extras and metrics
+are dicts keyed by child name. Regularization losses are summed.
 """
 
 from __future__ import annotations
 
-from typing import Any, Iterable
+from typing import Any, Callable, Iterable, Optional
 
+import torch
 from torch import nn
 
 from nnx_ppo_tpu_torch.networks.types import (
@@ -96,3 +99,114 @@ class Sequential(StatefulModule):
             reg_seq = reg_seq + reg
             finals.append(final)
         return x, reg_seq, tuple(finals)
+
+
+def _named_components(
+    name: str, modules: Optional[dict[str, StatefulModule]], kwargs: dict
+) -> dict[str, StatefulModule]:
+    if modules is not None and kwargs:
+        raise ValueError(
+            f"{name}: pass either a positional dict or keyword arguments, not both"
+        )
+    components = modules if modules is not None else kwargs
+    if not components:
+        raise ValueError(f"{name} requires at least one component")
+    # Sorted by name, as the JAX package keeps them (its pytrees re-sort
+    # dict keys), so that Concat's output layout is the same in both.
+    return dict(sorted(components.items()))
+
+
+class _NamedContainer(StatefulModule):
+    """Shared routing for dict-keyed containers."""
+
+    def __init__(self, components: dict[str, StatefulModule]):
+        super().__init__()
+        self.components = nn.ModuleDict(_named_components(type(self).__name__, components, {}))
+
+    @classmethod
+    def create(cls, modules: Optional[dict[str, StatefulModule]] = None, /, **kwargs):
+        return cls(_named_components(cls.__name__, modules, kwargs))
+
+    def _run_children(self, state, rollout_extras, generator, input_for: Callable[[str], Any]):
+        new_state: dict[str, ModuleState] = {}
+        new_extras: dict[str, Any] = {}
+        outputs: dict[str, Any] = {}
+        reg_loss: Any = 0.0
+        metrics: dict[str, Any] = {}
+        for key, component in self.components.items():
+            child_extras = None if rollout_extras is None else rollout_extras[key]
+            out = component(state[key], input_for(key), child_extras, generator)
+            new_state[key] = out.next_state
+            new_extras[key] = out.rollout_extras
+            outputs[key] = out.output
+            reg_loss = reg_loss + out.regularization_loss
+            metrics[key] = out.metrics
+        return new_state, new_extras, outputs, reg_loss, metrics
+
+    def initialize_state(self, batch_size: int) -> ModuleState:
+        return {k: c.initialize_state(batch_size) for k, c in self.components.items()}
+
+    def reset_state(self, prev_state) -> ModuleState:
+        return {k: c.reset_state(prev_state[k]) for k, c in self.components.items()}
+
+    def update_statistics(self, rollout_extras) -> "_NamedContainer":
+        for k, c in self.components.items():
+            c.update_statistics(rollout_extras[k])
+        return self
+
+    def __getitem__(self, key: str) -> StatefulModule:
+        return self.components[key]
+
+    @property
+    def replay_time_static(self) -> bool:
+        return all(c.replay_time_static for c in self.components.values())
+
+    def _replay_children_sequence(self, state, done_seq, extras_seq, input_for):
+        outputs: dict[str, Any] = {}
+        finals: dict[str, ModuleState] = {}
+        reg_seq: Any = 0.0
+        for key, component in self.components.items():
+            child_extras = None if extras_seq is None else extras_seq[key]
+            out, reg, final = component.replay_sequence(
+                state[key], input_for(key), done_seq, child_extras
+            )
+            outputs[key] = out
+            finals[key] = final
+            reg_seq = reg_seq + reg
+        return outputs, reg_seq, finals
+
+
+class Concat(_NamedContainer):
+    """Per-key dispatch + concat: dict input, single-tensor output.
+
+    Each named child sees the upstream's same-named entry; child outputs
+    are concatenated along the last axis in sorted name order.
+    """
+
+    def forward(self, state, x, rollout_extras=None, generator=None) -> ModuleOutput:
+        new_state, new_extras, outputs, reg_loss, metrics = self._run_children(
+            state, rollout_extras, generator, lambda key: x[key]
+        )
+        concated = torch.cat([outputs[k] for k in self.components], dim=-1)
+        return ModuleOutput(new_state, concated, reg_loss, metrics, new_extras)
+
+    def replay_sequence(self, state, obs_seq, done_seq, extras_seq):
+        outputs, reg_seq, finals = self._replay_children_sequence(
+            state, done_seq, extras_seq, lambda key: obs_seq[key]
+        )
+        return torch.cat([outputs[k] for k in self.components], dim=-1), reg_seq, finals
+
+
+class Parallel(_NamedContainer):
+    """Same input to every named child → dict output (fan-out to heads)."""
+
+    def forward(self, state, x, rollout_extras=None, generator=None) -> ModuleOutput:
+        new_state, new_extras, outputs, reg_loss, metrics = self._run_children(
+            state, rollout_extras, generator, lambda key: x
+        )
+        return ModuleOutput(new_state, outputs, reg_loss, metrics, new_extras)
+
+    def replay_sequence(self, state, obs_seq, done_seq, extras_seq):
+        return self._replay_children_sequence(
+            state, done_seq, extras_seq, lambda key: obs_seq
+        )

@@ -55,6 +55,19 @@ def make_mlp_layers(
     return layers
 
 
+def make_mlp(
+    sizes: Sequence[int],
+    generator: torch.Generator,
+    activation: Callable = torch.relu,
+    activation_last_layer: bool = True,
+    initializer_scale: float = 1.0,
+) -> Sequential:
+    """An MLP as a Sequential of Dense layers."""
+    return Sequential.create(
+        make_mlp_layers(sizes, generator, activation, activation_last_layer, initializer_scale)
+    )
+
+
 def make_mlp_actor_critic(
     obs_size: int,
     action_size: int,

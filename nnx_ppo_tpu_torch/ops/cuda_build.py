@@ -4,9 +4,11 @@ No JAX counterpart (Pallas kernels compile inside ``jax.jit``). Each
 ``nnx_ppo_tpu_torch/csrc/<name>.cu`` exports plain C entry points; it is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/kernels/`` at the repository root (listed in ``.gitignore``) and
-loaded with ``ctypes``. The library's file name carries a hash of the
-source and flags, so an edited source is rebuilt and an unchanged one is
-reused. Nothing is built at import time: the first caller builds.
+loaded with ``ctypes``. A source may be specialised by ``-D`` defines
+(array sizes of ``control_step.cu``); the library's file name carries a
+hash of the source and all flags, defines included, so an edited source
+or another size is built anew and an unchanged one is reused. Nothing is
+built at import time: the first caller builds.
 """
 
 from __future__ import annotations
@@ -17,7 +19,9 @@ import os
 import shutil
 import subprocess
 import tempfile
+from collections.abc import Mapping, Sequence
 from pathlib import Path
+from typing import Union
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -31,7 +35,16 @@ NVCC_FLAGS = (
     "-fPIC",
 )
 
-_LOADED: dict[str, ctypes.CDLL] = {}
+_LOADED: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}
+
+# A kernel to build: its name, or (name, extra nvcc flags) for a source
+# that is specialised by ``-D`` defines (or other flags).
+Spec = Union[str, tuple[str, Sequence[str]]]
+
+
+def define_flags(defines: Mapping[str, int]) -> tuple[str, ...]:
+    """``-DNAME=value`` flags, in name order."""
+    return tuple(f"-D{k}={int(v)}" for k, v in sorted(defines.items()))
 
 
 def _nvcc() -> str:
@@ -41,42 +54,63 @@ def _nvcc() -> str:
     return nvcc
 
 
-def library_path(name: str) -> Path:
+def _normalize(spec: Spec) -> tuple[str, tuple[str, ...]]:
+    if isinstance(spec, str):
+        return spec, ()
+    name, flags = spec
+    return name, tuple(flags)
+
+
+def library_path(name: str, flags: Sequence[str] = ()) -> Path:
+    """Where the library of ``name`` built with the extra ``flags``
+    lives: the file name carries a hash of source, base flags and extra
+    flags (defines included)."""
     source = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(source + " ".join((*NVCC_FLAGS, *flags)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
-def build(names: list[str]) -> dict[str, Path]:
-    """Compile every kernel in ``names`` that is not built yet, one
-    ``nvcc`` process per source, all started together."""
+def build(specs: Sequence[Spec], verbose: bool = False) -> dict[tuple[str, tuple[str, ...]], Path]:
+    """Compile every kernel in ``specs`` that is not built yet, one
+    ``nvcc`` process per library, all started together. ``verbose``
+    prints what nvcc and ptxas (``-v``: registers, stack, spills) say."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    keys = [_normalize(spec) for spec in specs]
     procs = {}
-    for name in names:
-        target = library_path(name)
-        if target.exists():
+    for key in keys:
+        name, flags = key
+        target = library_path(name, flags)
+        if target.exists() or key in procs:
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), tmp)
+        cmd = [_nvcc(), *NVCC_FLAGS, *flags]
+        if verbose:
+            cmd += ["-Xptxas", "-v"]
+        cmd += ["-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+        procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), tmp)
     failures = []
-    for name, (proc, tmp) in procs.items():
+    for (name, flags), (proc, tmp) in procs.items():
         output, _ = proc.communicate()
+        text = output.decode(errors="replace")
         if proc.returncode != 0:
             os.unlink(tmp)
-            failures.append(f"{name}.cu:\n{output.decode(errors='replace')}")
+            failures.append(f"{name}.cu {' '.join(flags)}:\n{text}")
         else:
-            os.replace(tmp, library_path(name))
+            os.replace(tmp, library_path(name, flags))
+            if verbose and text.strip():
+                print(f"nvcc {name}.cu {' '.join(flags)}:\n{text.strip()}")
     if failures:
         raise RuntimeError("nvcc failed for " + "\n".join(failures))
-    return {name: library_path(name) for name in names}
+    return {key: library_path(*key) for key in keys}
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built on first use."""
-    lib = _LOADED.get(name)
+def load(name: str, flags: Sequence[str] = ()) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (with the extra ``flags``),
+    built on first use."""
+    key = (name, tuple(flags))
+    lib = _LOADED.get(key)
     if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name]))
-        _LOADED[name] = lib
+        lib = ctypes.CDLL(str(build([key])[key]))
+        _LOADED[key] = lib
     return lib

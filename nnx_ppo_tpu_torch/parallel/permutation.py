@@ -1,10 +1,12 @@
 """Minibatch permutation indices on one device.
 
-Port of ``nnx_ppo_tpu/parallel/permutation.py:26-134`` for a single
-shard with shuffled minibatches: every epoch permutes all envs and cuts
-the permutation into ``n_minibatches`` equal rows. The permutations come
-from the caller's generator, or are injected as ``selectors`` (a test
-pins them to the JAX package's).
+Port of ``nnx_ppo_tpu/parallel/permutation.py:26-168`` for a single
+shard. Shuffled (the default): every epoch permutes all envs and cuts the
+permutation into ``n_minibatches`` equal rows; the permutations come from
+the caller's generator, or are injected as ``selectors`` (a test pins
+them to the JAX package's). Unshuffled (``shuffle=False``): minibatch
+``m`` is the contiguous env block ``[m·k, (m+1)·k)`` in every epoch, taken
+as a slice (a view: no gather, no copy).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ def minibatch_plan(
     n_epochs: int,
     n_minibatches: int,
     *,
+    shuffle: bool = True,
     generator: Optional[torch.Generator] = None,
     selectors: Optional[torch.Tensor] = None,
 ) -> tuple[
@@ -48,7 +51,26 @@ def minibatch_plan(
     ``take_seq`` extracts a minibatch from a time-major ``[T, B, ...]``
     buffer, ``take_batch`` from a per-env ``[B, ...]`` leaf. Pass
     ``selectors`` to use given permutations instead of drawing them.
+    With ``shuffle=False`` the selectors are the minibatch numbers
+    ``tile(arange(M), E)`` (on the host) and the extractors slice.
     """
+    if not shuffle:
+        if selectors is not None:
+            raise ValueError("selectors cannot be injected with shuffle=False")
+        if n_envs % n_minibatches != 0:
+            raise ValueError(
+                f"n_envs ({n_envs}) must be divisible by n_minibatches ({n_minibatches})"
+            )
+        k_quota = n_envs // n_minibatches
+
+        def block(m) -> slice:
+            return slice(int(m) * k_quota, (int(m) + 1) * k_quota)
+
+        return (
+            torch.arange(n_minibatches).repeat(n_epochs),
+            lambda x, m: x[:, block(m)],
+            lambda x, m: x[block(m)],
+        )
     if selectors is None:
         if generator is None:
             raise ValueError("minibatch_plan needs a generator or selectors")

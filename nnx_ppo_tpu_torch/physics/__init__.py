@@ -1,0 +1,28 @@
+"""Articulated rigid-body physics of the port (``nnx_ppo_tpu/physics``):
+the model description, terrain, domain randomization, the SoA substep and
+the control-step kernel. The generic engine, the depth-wise engine, MJCF
+import and scenes are not ported yet."""
+
+from nnx_ppo_tpu_torch.physics.model import BALL, FREE, HINGE, SLIDE, Model, ModelBuilder
+from nnx_ppo_tpu_torch.physics.randomize import (
+    DomainParams,
+    DomainRandomization,
+    privileged_vector,
+)
+from nnx_ppo_tpu_torch.physics.terrain import HeightGrid, Terrain, rough_terrain, stairs
+
+__all__ = [
+    "BALL",
+    "DomainParams",
+    "DomainRandomization",
+    "FREE",
+    "HINGE",
+    "HeightGrid",
+    "Model",
+    "ModelBuilder",
+    "SLIDE",
+    "Terrain",
+    "privileged_vector",
+    "rough_terrain",
+    "stairs",
+]

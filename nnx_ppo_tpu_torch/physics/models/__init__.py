@@ -1,0 +1,3 @@
+from nnx_ppo_tpu_torch.physics.models.quadruped import make_quadruped
+
+__all__ = ["make_quadruped"]

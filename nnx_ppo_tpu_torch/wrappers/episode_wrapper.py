@@ -4,7 +4,9 @@ Port of ``nnx_ppo_tpu/wrappers/episode_wrapper.py``. Keeps
 ``info["step_counter"]`` (int32) and sets ``info["truncated"]`` (bool)
 at ``max_len``; truncation forces ``done`` (float32). Initial step
 counters are staggered, drawn in ``[0, max_len // 2)``, so episodes
-across the batch do not truncate in lockstep.
+across the batch do not truncate in lockstep. ``step`` forwards the
+caller's generator to the wrapped env (envs that draw in ``step`` need
+it; the others ignore it).
 """
 
 from __future__ import annotations
@@ -21,8 +23,8 @@ class EpisodeWrapper:
         self.env = env
         self.max_len = max_len
 
-    def step(self, state: State, action: torch.Tensor) -> State:
-        next_state = self.env.step(state, action)
+    def step(self, state: State, action: torch.Tensor, generator=None) -> State:
+        next_state = self.env.step(state, action, generator)
         step_counter = state.info["step_counter"] + 1
         truncated = step_counter >= self.max_len
         if "truncated" in next_state.info:

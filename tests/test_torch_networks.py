@@ -24,9 +24,14 @@ from nnx_ppo_tpu.wrappers import EpisodeWrapper as JaxEpisodeWrapper
 from nnx_ppo_tpu_torch.convert import load_jax_leaves, to_torch
 from nnx_ppo_tpu_torch.envs import CartpoleBalance, State
 from nnx_ppo_tpu_torch.networks import (
+    Concat,
     Dense,
     Normalizer,
     NormalTanhSampler,
+    Parallel,
+    PPOAdapter,
+    Sequential,
+    make_mlp,
     make_mlp_actor_critic,
 )
 from nnx_ppo_tpu_torch.networks.sampling_layers import softplus
@@ -282,3 +287,150 @@ def test_named_activations_match_jax(activation):
         np.asarray(JAX_ACTIVATIONS[activation](jnp.asarray(x))),
         **TOL,
     )
+
+
+# -- Concat / Parallel: the physics leg's actor-critic ---------------------------
+
+PHYSICS_WIDTHS = (16, 8, 16)  # proprio encoder, command encoder, hidden
+
+
+def jax_physics_net(seed=0, widths=PHYSICS_WIDTHS):
+    """bench.py's physics network (Concat encoder, Parallel critic heads)
+    at narrow widths."""
+    from nnx_ppo_tpu.networks import Concat as JConcat
+    from nnx_ppo_tpu.networks import Parallel as JParallel
+    from nnx_ppo_tpu.networks import PPOAdapter as JPPOAdapter
+    from nnx_ppo_tpu.networks import Sequential as JSequential
+    from nnx_ppo_tpu.networks import make_mlp as jax_make_mlp
+
+    enc_p, enc_c, hidden = widths
+    k = jax.random.split(jax.random.key(seed), 7)
+    enc = JConcat.create(
+        proprio=JaxDense.create(42, enc_p, k[0], jax.nn.relu),
+        command=JaxDense.create(3, enc_c, k[1], jax.nn.relu),
+    )
+    actor = JSequential.create([
+        JaxDense.create(enc_p + enc_c, hidden, k[2], jax.nn.relu),
+        JaxDense.create(hidden, 24, k[3]),
+        JaxSampler.create(k[4], entropy_weight=1e-3),
+    ])
+    critic = JParallel.create(
+        tracking=jax_make_mlp([enc_p + enc_c, hidden, 1], k[5], activation_last_layer=False),
+        penalty=jax_make_mlp([enc_p + enc_c, hidden, 1], k[6], activation_last_layer=False),
+    )
+    return JSequential.create([enc, JPPOAdapter.create(action=actor, value=critic)])
+
+
+def port_physics_net(jax_net=None, widths=PHYSICS_WIDTHS, seed=0):
+    enc_p, enc_c, hidden = widths
+    g = torch.Generator().manual_seed(seed)
+    enc = Concat.create(
+        proprio=Dense.create(42, enc_p, g, torch.relu),
+        command=Dense.create(3, enc_c, g, torch.relu),
+    )
+    actor = Sequential.create([
+        Dense.create(enc_p + enc_c, hidden, g, torch.relu),
+        Dense.create(hidden, 24, g),
+        NormalTanhSampler.create(entropy_weight=1e-3),
+    ])
+    critic = Parallel.create(
+        tracking=make_mlp([enc_p + enc_c, hidden, 1], g, activation_last_layer=False),
+        penalty=make_mlp([enc_p + enc_c, hidden, 1], g, activation_last_layer=False),
+    )
+    net = Sequential.create([enc, PPOAdapter.create(action=actor, value=critic)])
+    return net if jax_net is None else carried_across(jax_net, net)
+
+
+def test_named_containers_sort_and_check_their_components():
+    g = torch.Generator().manual_seed(0)
+    concat = Concat.create(zeta=Dense.create(2, 3, g), alpha=Dense.create(4, 5, g))
+    assert list(concat.components) == ["alpha", "zeta"]  # sorted, as the JAX pytrees are
+    assert concat["alpha"].kernel.shape == (4, 5) and concat.replay_time_static
+    x = {"alpha": torch.ones(6, 4), "zeta": torch.ones(6, 2)}
+    out = concat(concat.initialize_state(6), x)
+    assert out.output.shape == (6, 8) and set(out.next_state) == {"alpha", "zeta"}
+    torch.testing.assert_close(out.output[:, :5], concat["alpha"]((), x["alpha"]).output)
+    assert concat.reset_state(out.next_state) == {"alpha": (), "zeta": ()}
+    with pytest.raises(ValueError, match="at least one"):
+        Parallel.create()
+    with pytest.raises(ValueError, match="not both"):
+        Parallel.create({"a": Dense.create(1, 1, g)}, b=Dense.create(1, 1, g))
+
+
+def test_concat_parallel_weights_carry_across_by_name():
+    jax_net = jax_physics_net()
+    net = port_physics_net(jax_net)
+    jax_params = jax.tree.leaves(partition_params(jax_net)[0])
+    torch_params = [p.detach().numpy() for p in net.parameters()]
+    assert len(jax_params) == len(torch_params) == 16  # 8 Dense layers
+    # Same traversal order: both keep named children sorted.
+    for a, b in zip(jax_params, torch_params):
+        np.testing.assert_array_equal(np.asarray(a), b)
+    np.testing.assert_array_equal(
+        net[0]["command"].kernel.detach().numpy(),
+        np.asarray(jax_net.layers[0].components["command"].kernel),
+    )
+
+
+def test_concat_parallel_forward_and_replay_match_jax():
+    """rtol = atol = 1e-5: float32 matmuls of width <= 42 and the
+    sampler's log-likelihood sums."""
+    jax_net = jax_physics_net()
+    net = port_physics_net(jax_net)
+    T, B = 3, 5
+    rng = np.random.RandomState(7)
+    obs = {"proprio": rng.randn(T, B, 42).astype(np.float32),
+           "command": rng.randn(T, B, 3).astype(np.float32)}
+    jax_state = jax_net.initialize_state(B)
+    jax_outs = []
+    for step in range(T):
+        out = jax_net(jax_state, {k: jnp.asarray(v[step]) for k, v in obs.items()})
+        jax_state = out.next_state
+        jax_outs.append(out)
+    jax_seq = jax.tree.map(lambda *xs: np.stack(xs), *[np_leaves(o) for o in jax_outs])
+
+    out0 = net(
+        net.initialize_state(B), {k: torch.from_numpy(v[0]) for k, v in obs.items()},
+        to_torch(np_leaves(jax_outs[0].rollout_extras)),
+    )
+    want0 = jax_outs[0].output
+    assert set(out0.output.value_estimates) == {"penalty", "tracking"}
+    np.testing.assert_allclose(out0.output.actions.detach().numpy(), np.asarray(want0.actions), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        out0.output.loglikelihoods.detach().numpy(), np.asarray(want0.loglikelihoods), rtol=1e-5, atol=1e-5
+    )
+    for key in ("penalty", "tracking"):
+        got = out0.output.value_estimates[key]
+        assert got.shape == (B,)
+        np.testing.assert_allclose(
+            got.detach().numpy(), np.asarray(want0.value_estimates[key]), rtol=1e-5, atol=1e-5
+        )
+
+    output, reg, final = net.replay_sequence(
+        net.initialize_state(B), to_torch(obs), torch.zeros(T, B, dtype=torch.bool),
+        to_torch(jax_seq.rollout_extras),
+    )
+    assert final == net.initialize_state(B)
+    np.testing.assert_allclose(
+        output.loglikelihoods.detach().numpy(), jax_seq.output.loglikelihoods, rtol=1e-5, atol=1e-5
+    )
+    for key in ("penalty", "tracking"):
+        np.testing.assert_allclose(
+            output.value_estimates[key].detach().numpy(), jax_seq.output.value_estimates[key],
+            rtol=1e-5, atol=1e-5,
+        )
+    np.testing.assert_allclose(reg.detach().numpy(), jax_seq.regularization_loss, rtol=1e-5, atol=1e-6)
+
+
+def test_rollout_forward_through_concat_draws_from_the_generator():
+    net = port_physics_net()
+    obs = {"proprio": torch.randn(4, 42), "command": torch.randn(4, 3)}
+    a = net(net.initialize_state(4), obs, None, torch.Generator().manual_seed(1))
+    b = net(net.initialize_state(4), obs, None, torch.Generator().manual_seed(1))
+    c = net(net.initialize_state(4), obs, None, torch.Generator().manual_seed(2))
+    torch.testing.assert_close(a.output.actions, b.output.actions)
+    assert not torch.equal(a.output.actions, c.output.actions)
+    assert a.output.actions.shape == (4, 12)
+    extras = a.rollout_extras
+    assert set(extras[0]) == {"command", "proprio"} and set(extras[1]["value"]) == {"penalty", "tracking"}
+    net.update_statistics(extras)  # no statistics anywhere: must route without error

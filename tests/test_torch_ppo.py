@@ -287,7 +287,7 @@ def test_train_ppo_cpu_smoke():
     [
         dict(checkpoint_fn=lambda ts, s: None),
         dict(config=TrainConfig(video=dataclasses.replace(TrainConfig().video, enabled=True))),
-        dict(config=TrainConfig(ppo=PPOConfig(shuffle_minibatches=False))),
+        dict(config=TrainConfig(ppo=PPOConfig(replay_store_dtype="bfloat16"))),
         dict(config=TrainConfig(ppo=PPOConfig(rollout_layout="batch_major"))),
     ],
 )
@@ -324,3 +324,140 @@ def test_package_imports_neither_jax_nor_the_jax_package():
     )
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip()) >= 20
+
+
+# -- dict observations and rewards: the physics leg's loss ----------------------
+
+
+def _physics_rollout(jax_net, T, B, seed):
+    """A JAX Transition with dict obs, dict rewards and dict values: obs,
+    rewards and flags from numpy, the network's outputs from the JAX net."""
+    from nnx_ppo_tpu.algorithms.types import Transition as JaxTransition
+
+    rng = np.random.RandomState(seed)
+    obs = {"proprio": rng.randn(T + 1, B, 42).astype(np.float32),
+           "command": rng.randn(T + 1, B, 3).astype(np.float32)}
+    state = jax_net.initialize_state(B)
+    outs = []
+    for step in range(T):
+        out = jax_net(state, {k: jnp.asarray(v[step]) for k, v in obs.items()})
+        state = out.next_state
+        outs.append(out)
+    stacked = jax.tree.map(lambda *xs: jnp.stack(xs), *outs)
+    done = rng.rand(T, B) < 0.15
+    return JaxTransition(
+        obs={k: jnp.asarray(v[:-1]) for k, v in obs.items()},
+        network_output=stacked.output,
+        rewards={"tracking": jnp.asarray(rng.rand(T, B).astype(np.float32)),
+                 "penalty": jnp.asarray(-0.1 * rng.rand(T, B).astype(np.float32))},
+        done=jnp.asarray(done),
+        truncated=jnp.asarray(done & (rng.rand(T, B) < 0.5)),
+        next_obs={k: jnp.asarray(v[1:]) for k, v in obs.items()},
+        metrics={},
+        rollout_extras=stacked.rollout_extras,
+    )
+
+
+@pytest.mark.parametrize("combine", [True, False], ids=["combined_advantages", "per_key"])
+def test_ppo_loss_with_dict_rewards_matches_jax(combine):
+    """The physics network (Concat encoder, Parallel critic), per-key
+    GAE, team-summed advantages. rtol 1e-4 / atol 1e-6, as for the
+    flagship loss: float32 sums over T·B terms in another order."""
+    from test_torch_networks import jax_physics_net, port_physics_net
+
+    jax_net = jax_physics_net(seed=1)
+    T_, B_ = 6, 10
+    rollout_data = _physics_rollout(jax_net, T_, B_, seed=5)
+    params, rest = partition_params(jax_net)
+    params = jax.tree.map(lambda p: p * 1.05, params)
+    kw = dict(LOSS_KW, combine_advantages=combine)
+    if not combine:
+        # Without combining, a dict of advantages needs a dict of
+        # log-likelihoods; the physics net has one policy, so only the
+        # combined form is defined for it in both packages.
+        with pytest.raises(Exception):
+            jax_ppo_loss(params, rest, jax_net.initialize_state(B_), rollout_data,
+                         logging_level=JaxLoggingLevel.LOSSES, fused_replay=True, **kw)
+        net = port_physics_net(jax_net)
+        with pytest.raises(Exception):
+            ppo_loss(net, net.initialize_state(B_), port_transition(rollout_data),
+                     logging_level=LoggingLevel.LOSSES, **kw)
+        return
+
+    def loss_fn(p):
+        return jax_ppo_loss(
+            p, rest, jax_net.initialize_state(B_), rollout_data,
+            logging_level=JaxLoggingLevel.LOSSES, fused_replay=True, **kw,
+        )
+
+    (jax_loss, jax_metrics), jax_grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
+    net = port_physics_net(jax_net)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.mul_(1.05)
+    loss, metrics = ppo_loss(
+        net, net.initialize_state(B_), port_transition(rollout_data),
+        logging_level=LoggingLevel.LOSSES, **kw,
+    )
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jax_loss), rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(
+        metrics["losses/actor"].item(), float(jax_metrics["losses/actor"]), rtol=1e-4, atol=1e-6
+    )
+    for key in ("tracking", "penalty"):
+        np.testing.assert_allclose(
+            metrics["losses/critic"][key].item(), float(jax_metrics["losses/critic"][key]),
+            rtol=1e-4, atol=1e-6,
+        )
+    jax_grad_leaves = jax.tree.leaves(jax_grads)
+    torch_grads = [p.grad.numpy() for p in net.parameters()]
+    assert len(jax_grad_leaves) == len(torch_grads) == 16
+    for g_jax, g_torch in zip(jax_grad_leaves, torch_grads):
+        np.testing.assert_allclose(g_torch, np.asarray(g_jax), rtol=1e-4, atol=1e-6)
+
+
+def test_unshuffled_minibatch_plan_matches_jax():
+    """shuffle_minibatches=False: the same selectors and the same
+    contiguous env blocks as the JAX plan."""
+    from nnx_ppo_tpu.parallel.permutation import minibatch_plan as jax_minibatch_plan
+    from nnx_ppo_tpu_torch.parallel.permutation import minibatch_plan
+
+    n_envs, E, M = 12, 3, 4
+    jax_sel, jax_take_seq, jax_take_batch = jax_minibatch_plan(n_envs, E, M, shuffle=False)
+    sel, take_seq, take_batch = minibatch_plan(n_envs, E, M, shuffle=False)
+    np.testing.assert_array_equal(sel.numpy(), np.asarray(jax_sel))
+    x = np.random.RandomState(0).randn(5, n_envs, 3).astype(np.float32)
+    for m in sel.tolist():
+        np.testing.assert_array_equal(
+            take_seq(torch.from_numpy(x), m).numpy(), np.asarray(jax_take_seq(jnp.asarray(x), m))
+        )
+        np.testing.assert_array_equal(
+            take_batch(torch.from_numpy(x[0]), m).numpy(),
+            np.asarray(jax_take_batch(jnp.asarray(x[0]), m)),
+        )
+    with pytest.raises(ValueError, match="divisible"):
+        minibatch_plan(10, E, M, shuffle=False)
+    with pytest.raises(ValueError, match="selectors"):
+        minibatch_plan(n_envs, E, M, shuffle=False, selectors=sel)
+
+
+def test_unshuffled_update_phase_uses_contiguous_blocks(jax_setup):
+    """ppo_update with shuffle_minibatches=False equals ppo_update with
+    the block selectors injected."""
+    _, _, ts, rollout_data, _ = jax_setup
+    optimizer = make_optimizer(3e-4)
+    port_rollout = port_transition(rollout_data)
+    results = []
+    for shuffle in (False, True):
+        net = port_network(ts.networks)
+        config = PPOConfig(n_envs=N_ENVS, rollout_length=T, learning_rate=3e-4,
+                           shuffle_minibatches=shuffle)
+        k = N_ENVS // config.n_minibatches
+        blocks = torch.arange(N_ENVS).reshape(config.n_minibatches, k).repeat(config.n_epochs, 1)
+        ppo_update(
+            net, optimizer.init(net.parameters()), net.initialize_state(N_ENVS), port_rollout,
+            config, optimizer, selectors=blocks if shuffle else None,
+        )
+        results.append([p.detach().clone() for p in net.parameters()])
+    for a, b in zip(*results):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
