@@ -6,8 +6,9 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. device: the card's name and power limit, from nvidia-smi;
-2. build: every hand-written kernel of the training paths (GAE and the
-   physics control step), compiled with nvcc from the sources in
+2. build: every hand-written kernel of the training paths (GAE, the
+   physics control step with its substeps entry point, the plane
+   sampler), compiled with nvcc from the sources in
    nnx_ppo_tpu_torch/csrc/, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the training paths' shapes (and a ragged one), then timed with CUDA
@@ -16,16 +17,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    kernel's launch count set to 0 just before and read just after:
    the flagship (CartpoleBalance with a 500-step time limit, 1024 envs,
    T=30, actor 64x4, critic 256x2, obs normalization, 4 epochs x 4
-   shuffled minibatches, adam), and the physics leg (QuadrupedJoystick
+   shuffled minibatches, adam); the physics leg (QuadrupedJoystick
    with domain randomization, pushes and rough terrain, held factor,
    2048 envs, T=20, Concat encoder 128+32, actor 128, two critic heads,
    per-key GAE with combined advantages, shuffled and then contiguous
-   minibatches);
-5. reference: for each path the PPO loss and its gradients on the card
-   against the same computation on the CPU (plain versions) for one
-   minibatch, and one env step of the physics leg on the card (kernel)
-   against the CPU (plain version) from the same state, action and
-   draws.
+   minibatches); the data-terrain path (the same quadruped, net and
+   config on a 256 x 256 HeightGrid sampled from the rough terrain, no
+   randomization or pushes: plane sampler, then control step); and the
+   passed-in-factor path (flat ground, the factor of M + dt D built
+   outside the kernel, all ten substeps in one launch of the substeps
+   kernel);
+5. reference: for the flagship and the physics leg the PPO loss and its
+   gradients on the card against the same computation on the CPU (plain
+   versions) for one minibatch, and for each quadruped path one env step
+   on the card (kernels) against the CPU (plain versions) from the same
+   state, action and draws.
 
 It prints a ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``. With no CUDA device it exits 1 and
@@ -57,6 +63,10 @@ FLAGSHIP_STEPS_TIMED = 5
 PHYSICS_STEPS_CHECKED = 2
 PHYSICS_STEPS_TIMED = 5
 PHYSICS_STEPS_NOSHUFFLE = 3
+HEIGHTGRID_STEPS_CHECKED = 2
+HEIGHTGRID_STEPS_TIMED = 5
+XLAFACTOR_STEPS_CHECKED = 1
+XLAFACTOR_STEPS_TIMED = 3
 
 
 def check(ok: bool, what: str) -> None:
@@ -90,7 +100,10 @@ def time_ms(fn, n: int, torch) -> float:
 
 def device_ms_per_call(fn, n: int, kernel_name: str, torch) -> float:
     """Device time per launch of the CUDA kernel whose name contains
-    ``kernel_name``, from torch.profiler over ``n`` calls of ``fn``."""
+    ``kernel_name``, from torch.profiler over ``n`` calls of ``fn``. The
+    mean is over the launches the profiler recorded: it can drop the
+    record of a kernel that lasts a few microseconds (49 of 50 were seen),
+    so up to a tenth may be missing, and none may be extra."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -101,7 +114,7 @@ def device_ms_per_call(fn, n: int, kernel_name: str, torch) -> float:
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if kernel_name in e.key]
     count = sum(e.count for e in events)
-    if count != n:
+    if not 0.9 * n <= count <= n:
         raise RuntimeError(f"profiler saw {count} launches of {kernel_name}, expected {n}")
     return sum(e.self_device_time_total for e in events) / count / 1e3
 
@@ -237,16 +250,16 @@ def control_step_errors(plan, args, torch) -> dict:
     return errs
 
 
-def count_plain_operations(plan, args, torch) -> float:
-    """Float operations per env of one control step, counted from one
-    call of the plain version: every elementwise arithmetic op it runs
-    counts one operation per output element (sin, cos, sqrt, sinc and
-    division count one each)."""
+def count_plain_operations(plain_fn, args, torch) -> float:
+    """Float operations per env of one call of a plain version on 8 envs:
+    every elementwise arithmetic op it runs counts one operation per
+    output element (sin, cos, sqrt, sinc, floor and division count one
+    each)."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     arithmetic = {
         "add", "sub", "rsub", "mul", "div", "neg", "sqrt", "sin", "cos", "sinc", "pow",
-        "clamp", "clamp_min", "clamp_max", "where", "gt", "reciprocal",
+        "clamp", "clamp_min", "clamp_max", "where", "gt", "ge", "le", "reciprocal", "floor",
     }
     counted = {"ops": 0}
 
@@ -259,7 +272,7 @@ def count_plain_operations(plan, args, torch) -> float:
 
     small = [a[:8] for a in args]
     with Counter():
-        plan.plain(*small)
+        plain_fn(*small)
     return counted["ops"] / 8
 
 
@@ -291,7 +304,7 @@ def control_step_kernel_phase(torch, variants: bool) -> dict:
     B = args[0].shape[0]
     bytes_per_env = 4 * (model.nq + model.nv + model.nj + plan.n_extra
                          + model.nq + model.nv + plan.n_geoms)
-    ops_per_env = count_plain_operations(plan, args, torch)
+    ops_per_env = count_plain_operations(plan.plain, args, torch)
     bound, bound_by = bound_ms(bytes_per_env * B, ops_per_env * B)
     print(f"control_step: {bytes_per_env} bytes and {ops_per_env:.0f} float operations per env "
           f"and control step; exact-mode kernel {exact_ms:.4f} ms")
@@ -349,6 +362,222 @@ def control_step_kernel_phase(torch, variants: bool) -> dict:
     return result
 
 
+def data_terrain(n: int = 256, extent: float = 12.0):
+    """The data-terrain path's HeightGrid: the rough terrain of the
+    physics leg sampled onto an n x n table over [-extent, extent]^2."""
+    from nnx_ppo_tpu_torch.physics.terrain import HeightGrid, rough_terrain
+
+    return HeightGrid.sample(rough_terrain(**ROUGH), extent=extent, n=n)
+
+
+# The sampler configurations checked against the plain version:
+# name -> (batch, table points per side, table half-extent in metres). The
+# envs stand within +-5 m, so some stand outside the small table.
+PLANE_SAMPLER_CASES = {
+    "B=2048 on the 256x256 table": (2048, 256, 12.0),
+    "B=1000 on a 32x32 table, some envs outside": (1000, 32, 3.0),
+}
+
+
+def plane_sampler_case(name: str, torch):
+    """(plan, qpos on the card) of one sampler configuration: standing
+    quadrupeds spread over the spawn radius, at the local ground height."""
+    from nnx_ppo_tpu_torch.physics.cuda_step import ControlStepPlan
+    from nnx_ppo_tpu_torch.physics.models.quadruped import default_qpos, make_quadruped
+    from nnx_ppo_tpu_torch.physics.terrain import rough_terrain
+    from nnx_ppo_tpu_torch.physics.testing import standing_states
+
+    B, n, extent = PLANE_SAMPLER_CASES[name]
+    model = make_quadruped()
+    plan = ControlStepPlan(model, 60.0, 0.002, 10, terrain=data_terrain(n, extent))
+    arrays = standing_states(model, default_qpos(model), B, seed=5, terrain=rough_terrain(**ROUGH))
+    return plan, [torch.tensor(arrays[k], device="cuda") for k in ("qpos", "qvel", "target")]
+
+
+def plane_sampler_kernel_phase(torch) -> dict:
+    """The plane sampler against its plain version: the kernel repeats the
+    plain version's float32 operations in its order, so 0 is expected;
+    the stated tolerance is 1e-6 (heights and slopes are below 1)."""
+    from nnx_ppo_tpu_torch.physics import cuda_step
+
+    max_err = 0.0
+    cases = {}
+    for name in PLANE_SAMPLER_CASES:
+        plan, args = plane_sampler_case(name, torch)
+        qpos = args[0]
+        before = cuda_step.plane_sampler_cuda.launches
+        got = plan.sample_planes_cuda(qpos)
+        check(cuda_step.plane_sampler_cuda.launches == before + 1, "the wrapper counted its launch")
+        want = plan.sample_planes_plain(qpos)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), "sampler output is finite")
+        check(bool((want[:, 1::3].abs() > 1e-3).any()), "the ground slopes under some geoms")
+        extent = PLANE_SAMPLER_CASES[name][2]
+        outside = (qpos[:, :2].abs() > extent).any(dim=1)
+        check(bool(outside.any()) == (extent < 5.0), "envs outside the table only on the small one")
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+        err = (got - want).abs().max().item()
+        max_err = max(max_err, err)
+        cases[name] = (plan, args)
+        print(f"plane_sampler {name}: max_abs_err {err:.3g} (atol 1e-6), "
+              f"{int(outside.sum())} envs outside")
+
+    # The data-terrain path's shape.
+    plan, args = cases["B=2048 on the 256x256 table"]
+    qpos, model, grid = args[0], plan.model, plan.heightgrid
+    ms = time_ms(lambda: plan.sample_planes_cuda(qpos), 200, torch)
+    kernel_device_ms = device_ms_per_call(
+        lambda: plan.sample_planes_cuda(qpos), 50, "plane_sampler_kernel", torch
+    )
+    plain_ms = time_ms(lambda: plan.sample_planes_plain(qpos), 5, torch)
+    # Bytes: qpos in, planes out, and every table entry that this run's
+    # geoms read, once.
+    B = qpos.shape[0]
+    geom_xy = sampled_geom_xy(plan, qpos, torch)
+    nx, ny = grid.shape
+    i = torch.clamp(torch.floor((geom_xy[..., 0] - grid.x0) / grid.dx), 0, nx - 2).long()
+    j = torch.clamp(torch.floor((geom_xy[..., 1] - grid.y0) / grid.dy), 0, ny - 2).long()
+    corners = torch.stack([i * ny + j, (i + 1) * ny + j, i * ny + j + 1, (i + 1) * ny + j + 1])
+    table_bytes = 4 * int(torch.unique(corners).numel())
+    n_bytes = 4 * B * (model.nq + 3 * len(model.geom_body)) + table_bytes
+    ops_per_env = count_plain_operations(plan.sample_planes_plain, [qpos], torch)
+    bound, bound_by = bound_ms(n_bytes, ops_per_env * B)
+    print(f"plane_sampler: {n_bytes} bytes ({table_bytes} of the table) and {ops_per_env:.0f} "
+          "float operations per env")
+    return {
+        "name": "plane_sampler",
+        "route": "cuda",
+        "source": "nnx_ppo_tpu_torch/csrc/plane_sampler.cu",
+        "replaces": "nnx_ppo_tpu/physics/pallas_step.py:212",
+        "launches": None,
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call does FK and a bilinear tangent plane
+        "shape": [B, model.nq],
+        "kernel_device_ms": kernel_device_ms,
+        "ops_per_env": ops_per_env,
+        "bytes": n_bytes,
+    }
+
+
+def sampled_geom_xy(plan, qpos, torch):
+    """World xy of every ground geom, [B, n_geoms, 2], by the plain
+    kinematics."""
+    from nnx_ppo_tpu_torch.physics import soa
+    from nnx_ppo_tpu_torch.physics.engine_soa import _kin_soa
+
+    model = plan.model
+    E, P, _, _, _ = _kin_soa(model, tuple(qpos.unbind(1)))
+    xy = []
+    for g, body in enumerate(model.geom_body):
+        x_w = soa.v3_add(P[body], soa.m3_vec(E[body], tuple(float(v) for v in model.geom_offset[g])))
+        xy.append(torch.stack([x_w[0], x_w[1]], dim=-1))
+    return torch.stack(xy, dim=1)
+
+
+def substeps_kernel_phase(torch, profile: bool) -> dict:
+    """The substeps kernel against its plain version on the same factor
+    (built outside, on the card): ten substeps in one launch and one per
+    launch; tolerances as for the control step (0 is expected)."""
+    from nnx_ppo_tpu_torch.physics import cuda_step
+    from nnx_ppo_tpu_torch.physics.engine import mass_matrix_factor
+    from nnx_ppo_tpu_torch.physics.models.quadruped import default_qpos, make_quadruped
+    from nnx_ppo_tpu_torch.physics.testing import standing_states
+
+    B, n_substeps = 2048, 10
+    model = make_quadruped()
+    arrays = standing_states(model, default_qpos(model), B, seed=3)
+    args = [torch.tensor(arrays[k], device="cuda") for k in ("qpos", "qvel", "target")]
+    chol = mass_matrix_factor(model, args[0], dt=0.002)
+    args.append(chol)
+    want = cuda_step.substeps_plain(model, *args, 60.0, 0.002, n_substeps)
+    check(bool((want[2] > 0).any() and (want[2] == 0).any()), "some feet touch, some do not")
+    max_err = 0.0
+    runners = {}
+    for per_kernel in (-1, 1):
+        run = cuda_step.make_substep_runner(model, 60.0, 0.002, n_substeps, per_kernel)
+        before = cuda_step.substeps_cuda.launches
+        got = run(*args)
+        torch.cuda.synchronize()
+        n_launches = 1 if per_kernel == -1 else n_substeps
+        check(cuda_step.substeps_cuda.launches == before + n_launches,
+              "the wrapper counted its launches")
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=2e-4)
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=2e-3)
+        torch.testing.assert_close(got[2], want[2], rtol=5e-3, atol=5e-2)
+        errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+        max_err = max(max_err, errs[0], errs[1])
+        runners[per_kernel] = run
+        print(f"substeps B={B}, {n_launches} launch(es) for {n_substeps} substeps: max_abs_err "
+              f"qpos {errs[0]:.3g} (atol 2e-4) qvel {errs[1]:.3g} (atol 2e-3) normals "
+              f"{errs[2]:.3g} (rtol 5e-3, atol 5e-2)")
+
+    # How far a control step with the outside factor lies from one with
+    # the factor built inside the kernel (both kernels, same states).
+    inside = cuda_step.ControlStepPlan(model, 60.0, 0.002, n_substeps).cuda(*args[:3])
+    outside = runners[-1](*args)
+    gap = [(a - b).abs().max().item() for a, b in zip(outside, inside)]
+    print(f"substeps with the outside factor against the control step with the inside one: "
+          f"qpos {gap[0]:.3g} qvel {gap[1]:.3g} normals {gap[2]:.3g}")
+
+    all_in_one, one_each = runners[-1], runners[1]
+    ms = time_ms(lambda: all_in_one(*args), 50, torch)
+    kernel_device_ms = device_ms_per_call(lambda: all_in_one(*args), 20, "substeps_kernel", torch)
+    one_each_ms = time_ms(lambda: one_each(*args), 20, torch)
+    plain_ms = time_ms(
+        lambda: cuda_step.substeps_plain(model, *args, 60.0, 0.002, n_substeps), 2, torch
+    )
+    # The factor build outside the kernel, which the path pays per env step.
+    factor_ms = time_ms(lambda: mass_matrix_factor(model, args[0], dt=0.002), 5, torch)
+    factor_kernels = None
+    if profile:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            mass_matrix_factor(model, args[0], dt=0.002)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+        factor_kernels = sum(e.count for e in events)
+        factor_busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+        print(f"profile mass_matrix_factor B={B}: {factor_kernels} device kernels, device busy "
+              f"{factor_busy_ms:.3f} ms per call")
+    nt = model.nv * (model.nv + 1) // 2
+    bytes_per_env = 4 * (model.nq + model.nv + model.nj + nt
+                         + model.nq + model.nv + len(model.geom_body) + len(model.pair_geom_a))
+    plan = all_in_one.plan
+    ops_per_env = count_plain_operations(plan.substeps_plain, args, torch)
+    bound, bound_by = bound_ms(bytes_per_env * B, ops_per_env * B)
+    print(f"substeps: {bytes_per_env} bytes and {ops_per_env:.0f} float operations per env and "
+          f"{n_substeps} substeps; one launch per substep {one_each_ms:.4f} ms for all ten; "
+          f"factor build outside {factor_ms:.3f} ms per call")
+    return {
+        "name": "substeps",
+        "route": "cuda",
+        "source": "nnx_ppo_tpu_torch/csrc/control_step.cu",
+        "replaces": "nnx_ppo_tpu/physics/pallas_step.py:111",
+        "launches": None,
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes physics substeps
+        "shape": [B, model.nq],
+        "kernel_device_ms": kernel_device_ms,
+        "one_launch_per_substep_ms": one_each_ms,
+        "factor_build_ms": factor_ms,
+        "factor_build_kernels": factor_kernels,
+        "gap_to_inside_factor": {"qpos": gap[0], "qvel": gap[1], "normals": gap[2]},
+        "ops_per_env": ops_per_env,
+        "bytes_per_env": bytes_per_env,
+    }
+
+
 def flagship(torch):
     from nnx_ppo_tpu_torch.algorithms import PPOConfig, make_optimizer
     from nnx_ppo_tpu_torch.envs import CartpoleBalance
@@ -366,26 +595,17 @@ def flagship(torch):
     return env, networks, config, make_optimizer(config.learning_rate)
 
 
-def physics_leg(torch):
-    """The physics leg: env, network, config and optimizer."""
+def quadruped_leg(torch, legged):
+    """A quadruped training leg around ``legged``: 500-step time limit, the
+    Concat/Parallel actor-critic of the physics leg, its config and
+    optimizer."""
     from nnx_ppo_tpu_torch.algorithms import PPOConfig, make_optimizer
-    from nnx_ppo_tpu_torch.envs import QuadrupedJoystick
     from nnx_ppo_tpu_torch.networks import (
         Concat, Dense, NormalTanhSampler, Parallel, PPOAdapter, Sequential, make_mlp,
     )
-    from nnx_ppo_tpu_torch.physics import DomainRandomization
-    from nnx_ppo_tpu_torch.physics.terrain import rough_terrain
     from nnx_ppo_tpu_torch.wrappers import EpisodeWrapper
 
-    env = EpisodeWrapper(
-        QuadrupedJoystick(
-            reuse_mass_matrix=True,
-            randomize=DomainRandomization(**DR_RANGES),
-            push_prob=0.02, push_force=50.0,
-            terrain=rough_terrain(**ROUGH),
-        ),
-        max_len=500,
-    )
+    env = EpisodeWrapper(legged, max_len=500)
     proprio = env.observation_size["proprio"]
     n_act = env.action_size
     g = torch.Generator().manual_seed(0)
@@ -405,6 +625,41 @@ def physics_leg(torch):
     networks = Sequential.create([enc, PPOAdapter.create(action=actor, value=critic)])
     config = PPOConfig(n_envs=2048, rollout_length=20, combine_advantages=True)
     return env, networks, config, make_optimizer(config.learning_rate)
+
+
+def physics_leg(torch):
+    """The physics leg: env, network, config and optimizer."""
+    from nnx_ppo_tpu_torch.envs import QuadrupedJoystick
+    from nnx_ppo_tpu_torch.physics import DomainRandomization
+    from nnx_ppo_tpu_torch.physics.terrain import rough_terrain
+
+    return quadruped_leg(torch, QuadrupedJoystick(
+        reuse_mass_matrix=True,
+        randomize=DomainRandomization(**DR_RANGES),
+        push_prob=0.02, push_force=50.0,
+        terrain=rough_terrain(**ROUGH),
+    ))
+
+
+def heightgrid_leg(torch):
+    """The data-terrain path: the quadruped on a 256 x 256 HeightGrid
+    sampled from the rough terrain, held factor, no randomization or
+    pushes; per control step one plane-sampler launch, then one
+    control-step launch on the frozen planes."""
+    from nnx_ppo_tpu_torch.envs import QuadrupedJoystick
+
+    return quadruped_leg(torch, QuadrupedJoystick(reuse_mass_matrix=True, terrain=data_terrain()))
+
+
+def xlafactor_leg(torch):
+    """The passed-in-factor path: flat ground, the factor of M + dt D
+    built outside the kernel once per control step, all ten substeps in
+    one launch of the substeps kernel."""
+    from nnx_ppo_tpu_torch.envs import QuadrupedJoystick
+
+    return quadruped_leg(torch, QuadrupedJoystick(
+        reuse_mass_matrix=True, pallas_in_kernel_factor=False, pallas_substeps_per_kernel=-1,
+    ))
 
 
 def check_finite(history: dict, torch) -> None:
@@ -437,7 +692,7 @@ def profile_step(torch, env, ts, config, optimizer, step_ms: float, profile_dir:
         f"ppo_step; unprofiled step {step_ms:.2f} ms; device idle share "
         f"{1 - busy_ms / step_ms:.3f}"
     )
-    for kernel in ("control_step_kernel", "gae_kernel"):
+    for kernel in ("control_step_kernel", "plane_sampler_kernel", "substeps_kernel", "gae_kernel"):
         events = [e for e in device_events if kernel in e.key]
         if events:
             ms = sum(e.self_device_time_total for e in events) / 1e3
@@ -458,7 +713,6 @@ def profile_step(torch, env, ts, config, optimizer, step_ms: float, profile_dir:
 def flagship_path_phase(torch, kernels: list, profile_dir: str | None) -> dict:
     from nnx_ppo_tpu_torch.algorithms import new_training_state, ppo_multi_step
     from nnx_ppo_tpu_torch.ops.gae import gae_cuda
-    from nnx_ppo_tpu_torch.physics.cuda_step import control_step_cuda
 
     env, networks, config, optimizer = flagship(torch)
     per_step = config.n_envs * config.rollout_length
@@ -488,7 +742,8 @@ def flagship_path_phase(torch, kernels: list, profile_dir: str | None) -> dict:
     n_steps = FLAGSHIP_STEPS_CHECKED + FLAGSHIP_STEPS_TIMED
     check(ts.steps_taken == n_steps * per_step, f"steps_taken {ts.steps_taken}")
     check(launches["gae_cuda"] == updates * n_steps, f"launches {launches}")
-    check(control_step_cuda.launches == 0, "the flagship launches no control step")
+    check(all(n == 0 for name, n in launches.items() if name != "gae_cuda"),
+          f"the flagship launches no physics kernel: {launches}")
     check_finite(history, torch)
 
     step_ms = timed_s / FLAGSHIP_STEPS_TIMED * 1e3
@@ -506,82 +761,77 @@ def flagship_path_phase(torch, kernels: list, profile_dir: str | None) -> dict:
     }
 
 
-def physics_path_phase(torch, kernels: list, profile_dir: str | None) -> dict:
-    """The physics leg at full width: 2 checked + 5 timed steps with
-    shuffled minibatches, then 3 timed steps with contiguous ones."""
+def quadruped_path_phase(torch, kernels: list, profile_dir: str | None, label: str, leg,
+                         n_checked: int, n_timed: int, per_step: dict,
+                         n_noshuffle: int = 0) -> dict:
+    """One quadruped path at full width: ``n_checked`` checked and
+    ``n_timed`` timed steps with shuffled minibatches, then
+    ``n_noshuffle`` timed steps with contiguous ones. ``per_step`` maps
+    each kernel wrapper's name to its launches per ``ppo_step``."""
     from nnx_ppo_tpu_torch.algorithms import new_training_state, ppo_multi_step
-    from nnx_ppo_tpu_torch.ops.gae import gae_cuda
-    from nnx_ppo_tpu_torch.physics.cuda_step import control_step_cuda
 
-    env, networks, config, optimizer = physics_leg(torch)
-    per_step = config.n_envs * config.rollout_length
-    # Per ppo_step: one control step per rollout step, one GAE per
-    # minibatch update and reward key.
-    control_per_step = config.rollout_length
-    gae_per_step = config.n_epochs * config.n_minibatches * 2
+    env, networks, config, optimizer = leg(torch)
+    per_env_steps = config.n_envs * config.rollout_length
 
     def check_counts(n_steps: int) -> None:
-        check(control_step_cuda.launches == control_per_step * n_steps,
-              f"control_step launches {control_step_cuda.launches} after {n_steps} steps")
-        check(gae_cuda.launches == gae_per_step * n_steps,
-              f"gae launches {gae_cuda.launches} after {n_steps} steps")
+        for k in kernels:
+            check(k.launches == per_step[k.__name__] * n_steps,
+                  f"{label}: {k.__name__} launches {k.launches} after {n_steps} steps")
 
     for k in kernels:
         k.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ts = new_training_state(env, networks, config.n_envs, seed=0, optimizer=optimizer, device="cuda")
-    ts, history = ppo_multi_step(
-        env, ts, config, optimizer, PHYSICS_STEPS_CHECKED, return_history=True
-    )
+    ts, history = ppo_multi_step(env, ts, config, optimizer, n_checked, return_history=True)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    check(ts.steps_taken == PHYSICS_STEPS_CHECKED * per_step, f"steps_taken {ts.steps_taken}")
-    check_counts(PHYSICS_STEPS_CHECKED)
+    check(ts.steps_taken == n_checked * per_env_steps, f"steps_taken {ts.steps_taken}")
+    check_counts(n_checked)
     check_finite(history, torch)
     check(ts.env_states.obs["proprio"].shape == (config.n_envs, 42), "proprio obs shape")
 
     t0 = time.perf_counter()
-    ts, history = ppo_multi_step(
-        env, ts, config, optimizer, PHYSICS_STEPS_TIMED, return_history=True
-    )
+    ts, history = ppo_multi_step(env, ts, config, optimizer, n_timed, return_history=True)
     torch.cuda.synchronize()
     timed_s = time.perf_counter() - t0
-    check_counts(PHYSICS_STEPS_CHECKED + PHYSICS_STEPS_TIMED)
+    n_steps = n_checked + n_timed
+    check_counts(n_steps)
     check_finite(history, torch)
 
-    noshuffle = dataclasses.replace(config, shuffle_minibatches=False)
-    t0 = time.perf_counter()
-    ts, history_ns = ppo_multi_step(
-        env, ts, noshuffle, optimizer, PHYSICS_STEPS_NOSHUFFLE, return_history=True
-    )
-    torch.cuda.synchronize()
-    noshuffle_s = time.perf_counter() - t0
-    n_steps = PHYSICS_STEPS_CHECKED + PHYSICS_STEPS_TIMED + PHYSICS_STEPS_NOSHUFFLE
+    result = {}
+    if n_noshuffle:
+        noshuffle = dataclasses.replace(config, shuffle_minibatches=False)
+        t0 = time.perf_counter()
+        ts, history_ns = ppo_multi_step(
+            env, ts, noshuffle, optimizer, n_noshuffle, return_history=True
+        )
+        torch.cuda.synchronize()
+        noshuffle_s = time.perf_counter() - t0
+        n_steps += n_noshuffle
+        check_counts(n_steps)
+        check_finite(history_ns, torch)
+        result["noshuffle_step_ms"] = noshuffle_s / n_noshuffle * 1e3
+        result["sps_noshuffle"] = n_noshuffle * per_env_steps / noshuffle_s
     launches = {k.__name__: k.launches for k in kernels}
-    check(ts.steps_taken == n_steps * per_step, f"steps_taken {ts.steps_taken}")
-    check_counts(n_steps)
-    check_finite(history_ns, torch)
+    check(ts.steps_taken == n_steps * per_env_steps, f"steps_taken {ts.steps_taken}")
 
-    step_ms = timed_s / PHYSICS_STEPS_TIMED * 1e3
+    step_ms = timed_s / n_timed * 1e3
     if profile_dir:
-        ts = profile_step(torch, env, ts, config, optimizer, step_ms, profile_dir, "physics")
-    return {
+        ts = profile_step(torch, env, ts, config, optimizer, step_ms, profile_dir, label)
+    result.update({
         "launches": launches,
         "n_steps": n_steps,
         "first_call_s": first_s,
         "step_ms": step_ms,
-        "physics_sps": PHYSICS_STEPS_TIMED * per_step / timed_s,
-        "noshuffle_step_ms": noshuffle_s / PHYSICS_STEPS_NOSHUFFLE * 1e3,
-        "physics_sps_noshuffle": PHYSICS_STEPS_NOSHUFFLE * per_step / noshuffle_s,
+        "sps": n_timed * per_env_steps / timed_s,
         "state": ts,
         "env": env,
         "config": config,
         "actor_loss": float(history["losses/actor/mean"][-1]),
         "critic_tracking_loss": float(history["losses/critic/tracking/mean"][-1]),
-        "trunk_height": float(history["env/trunk_height/mean"][-1])
-        if "env/trunk_height/mean" in history else float("nan"),
-    }
+    })
+    return result
 
 
 def loss_reference_phase(torch, label: str, env, config, ts, n_gae: int) -> float:
@@ -634,31 +884,36 @@ def loss_reference_phase(torch, label: str, env, config, ts, n_gae: int) -> floa
     return abs(loss_gpu.item() - loss_cpu.item())
 
 
-def env_step_reference_phase(torch, env) -> None:
-    """One step of the physics leg's env on the card (control-step kernel)
-    against the CPU (plain version): same state, action and draws.
-    float32; one control step of ten substeps: qpos 2e-4, qvel 2e-3; obs
-    2e-3 (it holds qvel); rewards 1e-4; contact force rtol 5e-3 / atol
-    5e-2."""
+def env_step_reference_phase(torch, label: str, env, kernels: list, per_env_step: dict) -> None:
+    """One step of a quadruped path's env on the card (its kernels)
+    against the CPU (plain versions): same state, action and draws.
+    ``per_env_step`` maps each kernel wrapper's name to its launches per
+    env step. float32; one control step of ten substeps: qpos 2e-4, qvel
+    2e-3; obs 2e-3 (it holds qvel); rewards 1e-4; contact force rtol 5e-3
+    / atol 5e-2."""
     from nnx_ppo_tpu_torch.core.struct import tree_map
-    from nnx_ppo_tpu_torch.physics.cuda_step import control_step_cuda
 
     legged, B = env.env, 128
     generator = torch.Generator(device="cuda")
     generator.manual_seed(11)
     state = legged.reset(B, generator)
     action = 2.4 * torch.rand((B, legged.action_size), generator=generator, device="cuda") - 1.2
-    push = legged._draw_push(B, generator)
-    push = (torch.arange(B, device="cuda") % 4 == 0, push[1])  # one env in four is pushed
+    push = None
+    if legged.push_force > 0.0:
+        push = legged._draw_push(B, generator)
+        push = (torch.arange(B, device="cuda") % 4 == 0, push[1])  # one env in four is pushed
     resample = legged._draw_resample(B, generator)
-    before = control_step_cuda.launches
+    before = {k.__name__: k.launches for k in kernels}
     on_card = legged._step_from(state, action, push, resample, None)
-    check(control_step_cuda.launches == before + 1, "env.step on the card launched the kernel")
+    after_card = {k.__name__: k.launches for k in kernels}
+    check(all(after_card[n] == before[n] + per_env_step[n] for n in before),
+          f"{label}: env.step on the card launched its kernels ({before} -> {after_card})")
     to_cpu = lambda tree: tree_map(lambda x: x.cpu(), tree)
     on_cpu = legged._step_from(
-        to_cpu(state), action.cpu(), to_cpu(push), to_cpu(resample), None
+        to_cpu(state), action.cpu(), None if push is None else to_cpu(push), to_cpu(resample), None
     )
-    check(control_step_cuda.launches == before + 1, "env.step on the CPU ran the plain version")
+    check({k.__name__: k.launches for k in kernels} == after_card,
+          f"{label}: env.step on the CPU ran the plain versions")
     torch.cuda.synchronize()
     got, want = to_cpu(on_card), on_cpu
     check(bool((want.metrics["contact_force"] > 0).any()), "feet are in contact")
@@ -673,7 +928,7 @@ def env_step_reference_phase(torch, env) -> None:
         got.metrics["contact_force"], want.metrics["contact_force"], rtol=5e-3, atol=5e-2
     )
     print(
-        "reference env.step: max_abs_err qpos "
+        f"reference env.step {label}: max_abs_err qpos "
         f"{(got.data['qpos'] - want.data['qpos']).abs().max().item():.3g} qvel "
         f"{(got.data['qvel'] - want.data['qvel']).abs().max().item():.3g} over {B} envs"
     )
@@ -720,46 +975,88 @@ def main() -> int:
 
     from nnx_ppo_tpu_torch.ops import cuda_build
     from nnx_ppo_tpu_torch.ops.gae import gae_cuda
-    from nnx_ppo_tpu_torch.physics.cuda_step import control_step_cuda
+    from nnx_ppo_tpu_torch.physics.cuda_step import (
+        control_step_cuda,
+        plane_sampler_cuda,
+        substeps_cuda,
+    )
 
     card = card_line()
     print(f"card: {card}")
 
     t0 = time.perf_counter()
     specs = {control_step_case(name, torch)[0].kernel_spec for name in CONTROL_STEP_CASES}
+    # The data-terrain plan names the plane sampler's library and the
+    # flat-ground control-step library, whose second entry point is the
+    # substeps kernel.
+    specs.update(plane_sampler_case(next(iter(PLANE_SAMPLER_CASES)), torch)[0].kernel_specs)
     # With --profile, also print what ptxas says of each kernel
     # (registers, stack, spills).
     cuda_build.build(["gae", *sorted(specs)], verbose=bool(args.profile))
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a, {1 + len(specs)} libraries "
           "at once)")
 
-    wrappers = [gae_cuda, control_step_cuda]
+    wrappers = [gae_cuda, control_step_cuda, plane_sampler_cuda, substeps_cuda]
     gae_kernel = gae_kernel_phase(torch)
     control_kernel = control_step_kernel_phase(torch, args.variants)
+    sampler_kernel = plane_sampler_kernel_phase(torch)
+    substeps_kernel = substeps_kernel_phase(torch, bool(args.profile))
 
     flagship_path = flagship_path_phase(torch, wrappers, args.profile)
     flagship_env, _, flagship_config, _ = flagship(torch)
     loss_reference_phase(torch, "flagship", flagship_env, flagship_config,
                          flagship_path["state"], n_gae=1)
 
-    physics_path = physics_path_phase(torch, wrappers, args.profile)
+    # Launches per ppo_step: one env step per rollout step (T = 20), one
+    # GAE per minibatch update (16) and reward key (2).
+    per_step = {
+        "physics": {"gae_cuda": 32, "control_step_cuda": 20, "plane_sampler_cuda": 0,
+                    "substeps_cuda": 0},
+        "heightgrid": {"gae_cuda": 32, "control_step_cuda": 20, "plane_sampler_cuda": 20,
+                       "substeps_cuda": 0},
+        "xlafactor": {"gae_cuda": 32, "control_step_cuda": 0, "plane_sampler_cuda": 0,
+                      "substeps_cuda": 20},
+    }
+    physics_wrappers = wrappers[1:]
+
+    def per_env_step(label: str) -> dict:
+        return {k.__name__: per_step[label][k.__name__] // 20 for k in physics_wrappers}
+
+    physics_path = quadruped_path_phase(
+        torch, wrappers, args.profile, "physics", physics_leg, PHYSICS_STEPS_CHECKED,
+        PHYSICS_STEPS_TIMED, per_step["physics"], PHYSICS_STEPS_NOSHUFFLE,
+    )
     loss_reference_phase(torch, "physics", physics_path["env"], physics_path["config"],
                          physics_path["state"], n_gae=2)
-    env_step_reference_phase(torch, physics_path["env"])
+    heightgrid_path = quadruped_path_phase(
+        torch, wrappers, args.profile, "heightgrid", heightgrid_leg, HEIGHTGRID_STEPS_CHECKED,
+        HEIGHTGRID_STEPS_TIMED, per_step["heightgrid"],
+    )
+    xlafactor_path = quadruped_path_phase(
+        torch, wrappers, args.profile, "xlafactor", xlafactor_leg, XLAFACTOR_STEPS_CHECKED,
+        XLAFACTOR_STEPS_TIMED, per_step["xlafactor"],
+    )
+    quadruped_paths = {
+        "physics": physics_path, "heightgrid": heightgrid_path, "xlafactor": xlafactor_path,
+    }
+    # After every path has been driven and its counts read: these steps
+    # launch kernels too and must not count as the main paths'.
+    for label, path in quadruped_paths.items():
+        env_step_reference_phase(torch, label, path["env"], physics_wrappers, per_env_step(label))
     if args.learn:
         learning_phase(torch, args.learn)
 
     # Launches on the main paths only (the comparisons above do not
     # count: every count was set to 0 just before each path).
-    by_path = {
-        "flagship": flagship_path["launches"],
-        "physics": physics_path["launches"],
+    by_path = {"flagship": flagship_path["launches"]}
+    by_path.update({label: path["launches"] for label, path in quadruped_paths.items()})
+    kernel_rows = {
+        "gae_cuda": gae_kernel, "control_step_cuda": control_kernel,
+        "plane_sampler_cuda": sampler_kernel, "substeps_cuda": substeps_kernel,
     }
-    gae_kernel["launches"] = sum(p["gae_cuda"] for p in by_path.values())
-    gae_kernel["launches_by_path"] = {k: p["gae_cuda"] for k, p in by_path.items()}
-    control_kernel["launches"] = sum(p["control_step_cuda"] for p in by_path.values())
-    control_kernel["launches_by_path"] = {k: p["control_step_cuda"] for k, p in by_path.items()}
-    for kernel in (gae_kernel, control_kernel):
+    for wrapper_name, kernel in kernel_rows.items():
+        kernel["launches_by_path"] = {k: p[wrapper_name] for k, p in by_path.items()}
+        kernel["launches"] = sum(kernel["launches_by_path"].values())
         check(kernel["launches"] > 0, f"{kernel['name']} was launched on a main path")
 
     print(
@@ -772,23 +1069,31 @@ def main() -> int:
         f"{FLAGSHIP_STEPS_TIMED} steps; first call incl. set-up "
         f"{flagship_path['train_sps_first_call']:.1f}) on {card}"
     )
+    timed = {"physics": PHYSICS_STEPS_TIMED, "heightgrid": HEIGHTGRID_STEPS_TIMED,
+             "xlafactor": XLAFACTOR_STEPS_TIMED}
+    for label, path in quadruped_paths.items():
+        counts = ", ".join(f"{name} {n}" for name, n in by_path[label].items())
+        print(
+            f"{label}: {path['n_steps']} ppo_steps, launches: {counts}; actor loss "
+            f"{path['actor_loss']:.5f}, critic loss (tracking) {path['critic_tracking_loss']:.5f}"
+        )
+        print(
+            f"{label}_sps {path['sps']:.1f} (step {path['step_ms']:.2f} ms over "
+            f"{timed[label]} steps, shuffled; first call incl. set-up "
+            f"{path['first_call_s']:.2f} s) on {card}"
+        )
     print(
-        f"physics: {physics_path['n_steps']} ppo_steps, control_step launches "
-        f"{by_path['physics']['control_step_cuda']}, gae launches {by_path['physics']['gae_cuda']}, "
-        f"actor loss {physics_path['actor_loss']:.5f}, critic loss (tracking) "
-        f"{physics_path['critic_tracking_loss']:.5f}"
-    )
-    print(
-        f"physics_sps {physics_path['physics_sps']:.1f} (step {physics_path['step_ms']:.2f} ms over "
-        f"{PHYSICS_STEPS_TIMED} steps, shuffled; first call incl. set-up "
-        f"{physics_path['first_call_s']:.2f} s) on {card}"
-    )
-    print(
-        f"physics_sps_noshuffle {physics_path['physics_sps_noshuffle']:.1f} (step "
+        f"physics_sps_noshuffle {physics_path['sps_noshuffle']:.1f} (step "
         f"{physics_path['noshuffle_step_ms']:.2f} ms over {PHYSICS_STEPS_NOSHUFFLE} steps, "
         f"contiguous minibatches) on {card}"
     )
-    print(json.dumps({"kernels": [gae_kernel, control_kernel]}))
+    factor_share = 20 * substeps_kernel["factor_build_ms"] / xlafactor_path["step_ms"]
+    print(
+        f"xlafactor: the factor build outside the kernel, {substeps_kernel['factor_build_ms']:.3f} "
+        f"ms per call alone, 20 per step, is {factor_share:.3f} of the {xlafactor_path['step_ms']:.2f} "
+        "ms step"
+    )
+    print(json.dumps({"kernels": list(kernel_rows.values())}))
     print(f"card: {card}")
     name = torch.cuda.get_device_name(0)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -6,8 +6,10 @@ names match the port's attribute names (``layers``, ``action``,
 ``Parallel``, ``kernel``, ``bias``, ``mean``, ``M2``, ``counter``), and
 the Dense kernel keeps its ``[in, out]`` layout here, so weights load by
 name with no transpose. :func:`legged_state_data` turns the ``data`` of a
-vmapped JAX ``LeggedJoystick`` state into the port's batched one. This
-module takes numpy leaves only: the caller
+vmapped JAX ``LeggedJoystick`` state into the port's batched one, and
+:func:`heightgrid_from_fields` the fields of a JAX ``HeightGrid`` into the
+port's, so that both run on the same table. This module takes numpy
+leaves only: the caller
 turns JAX arrays into numpy (for example
 ``jax.tree.map(np.asarray, partition_params(net)[0])``) and nothing here
 imports JAX.
@@ -24,6 +26,8 @@ from torch import nn
 
 from nnx_ppo_tpu_torch.physics.randomize import FIELDS as DR_FIELDS
 from nnx_ppo_tpu_torch.physics.randomize import DomainParams
+from nnx_ppo_tpu_torch.physics.terrain import HeightGrid
+
 
 def _child(node: Any, name: str) -> Any:
     """Field ``name`` of a nested-dict node or of an object node (such as
@@ -93,3 +97,11 @@ def legged_state_data(data: Mapping, device: Optional[torch.device | str] = None
     if dr is not None:
         out["dr"] = DomainParams(**{name: to_torch(_child(dr, name), device) for name in DR_FIELDS})
     return out
+
+
+def heightgrid_from_fields(data, x0: float, y0: float, dx: float, dy: float) -> HeightGrid:
+    """The port's :class:`HeightGrid` from the fields of a JAX one
+    (``data`` as numpy): the same float32 table, origin and spacing."""
+    return HeightGrid(
+        data=np.array(data, dtype=np.float32), x0=float(x0), y0=float(y0), dx=float(dx), dy=float(dy)
+    )

@@ -1,8 +1,10 @@
-// One control step of the legged-robot physics on Hopper (sm_90a).
+// The legged-robot physics step on Hopper (sm_90a): two kernels that share
+// one substep.
 //
-// Replaces nnx_ppo_tpu/physics/pallas_step.py::pallas_control_step (the
-// Pallas TPU kernel whose body is crba_chol_soa + n_substeps x substep_soa
-// of nnx_ppo_tpu/physics/engine_soa.py). Per env and launch:
+// control_step_kernel replaces
+// nnx_ppo_tpu/physics/pallas_step.py::pallas_control_step (the Pallas TPU
+// kernel whose body is crba_chol_soa + n_substeps x substep_soa of
+// nnx_ppo_tpu/physics/engine_soa.py). Per env and launch:
 //   * CRBA mass matrix and the packed Cholesky factor of
 //     M + armature + dt*D, from the pre-substep qpos (held over the
 //     control step), or rebuilt from the current qpos at every substep
@@ -14,17 +16,29 @@
 //   * outputs qpos', qvel' and the contact normal forces of the LAST
 //     substep, computed from its pre-integration state (ground geoms
 //     first, then pairs).
-// The plain PyTorch version is control_step_plain
-// (nnx_ppo_tpu_torch/physics/cuda_step.py); this file repeats its
+//
+// substeps_kernel replaces
+// nnx_ppo_tpu/physics/pallas_step.py::pallas_substeps: the same substeps
+// with the factor of M + dt*D built OUTSIDE and passed in as the packed
+// lower triangle chol[b][i (i + 1) / 2 + j] (j <= i); n_substeps of the
+// struct is then the number of substeps of one launch. The per-env lanes
+// are the identities (no domain randomization, no push) and the caller
+// packs a flat-ground struct.
+//
+// The plain PyTorch versions are control_step_plain and substeps_plain
+// (nnx_ppo_tpu_torch/physics/cuda_step.py); this file repeats their
 // arithmetic in the same order. It is built without --use_fast_math:
 // sinf, cosf, sqrtf and division are the precise ones.
 //
-// Bound: the function must move (nq + nv + nj + n_extra) * 4 bytes in and
-// (nq + nv + n_geoms) * 4 bytes out per env: 404 bytes for the quadruped
-// with 7 extra lanes, 0.83 MB at B = 2048, 0.25 us at 3.35 TB/s. It does
-// some 1e5 float operations per env and control step, a few microseconds
-// at the float32 peak, so operations bound it, not bytes. What sets its
-// time in practice is neither: every env is one long dependent chain.
+// Bound (control step): the function must move (nq + nv + nj + n_extra) * 4
+// bytes in and (nq + nv + n_geoms) * 4 bytes out per env: 404 bytes for the
+// quadruped with 7 extra lanes, 0.83 MB at B = 2048, 0.25 us at 3.35 TB/s.
+// It does some 1e5 float operations per env and control step, a few
+// microseconds at the float32 peak, so operations bound it, not bytes.
+// The substeps kernel also reads the 171-float factor: 1,060 bytes per
+// env, 0.65 us at B = 2048 by bytes, and the same substep operations less
+// the factor build. What sets both times in practice is neither: every env
+// is one long dependent chain.
 //
 // Design: one thread per env; nothing but the inputs and outputs touches
 // device memory. The model (tree topology, inertias, geoms, gains, terrain
@@ -39,211 +53,9 @@
 // as there are warps. The ragged edge of B is masked. Structural zeros of
 // M (dofs on different branches) are plain zeros of the packed triangle.
 
-#include <cuda_runtime.h>
-#include <math.h>
-
-#ifndef CS_NB
-#define CS_NB 13  // bodies (free base + hinge joints)
-#endif
-#ifndef CS_NG
-#define CS_NG 8  // ground contact spheres
-#endif
-#ifndef CS_NP
-#define CS_NP 0  // sphere-sphere pairs
-#endif
-#ifndef CS_NW
-#define CS_NW 6  // terrain waves
-#endif
-
-#define CS_NJ (CS_NB - 1)
-#define CS_NQ (7 + CS_NJ)
-#define CS_NV (6 + CS_NJ)
-#define CS_NT (CS_NV * (CS_NV + 1) / 2)
-#define CS_NN (CS_NG + CS_NP)
-#define CS_AT_LEAST_1(n) ((n) > 0 ? (n) : 1)
-
-// Every member is 4 bytes wide; the Python side (cuda_step.py) packs the
-// same members in the same order.
-struct Params {
-  int parent[CS_NB];
-  float joint_axis[CS_NB][3];
-  float joint_pos[CS_NB][3];
-  float mass[CS_NB];
-  float com[CS_NB][3];
-  float inertia[CS_NB][9];
-  // Spatial inertia about the body origin as 3x3 blocks: ang-ang,
-  // ang-lin, lin-lin (the lin-ang block is the ang-lin one transposed).
-  float blk_a[CS_NB][9];
-  float blk_b[CS_NB][9];
-  float blk_c[CS_NB][9];
-  float damping[CS_NV];
-  float dt_damping[CS_NV];
-  float armature[CS_NV];
-  float lower[CS_NJ];  // -inf = no lower stop
-  float upper[CS_NJ];  // +inf = no upper stop
-  float spring_k[CS_NJ];
-  float spring_ref[CS_NJ];
-  int geom_body[CS_AT_LEAST_1(CS_NG)];
-  float geom_offset[CS_AT_LEAST_1(CS_NG)][3];
-  float geom_radius[CS_AT_LEAST_1(CS_NG)];
-  int pair_a[CS_AT_LEAST_1(CS_NP)];
-  int pair_b[CS_AT_LEAST_1(CS_NP)];
-  float wave_amp[CS_AT_LEAST_1(CS_NW)];
-  float wave_freq[CS_AT_LEAST_1(CS_NW)];
-  float wave_amp_freq[CS_AT_LEAST_1(CS_NW)];
-  float wave_dx[CS_AT_LEAST_1(CS_NW)];
-  float wave_dy[CS_AT_LEAST_1(CS_NW)];
-  float wave_phase[CS_AT_LEAST_1(CS_NW)];
-  float slope[2];
-  float gravity_up;  // -gravity, +9.81
-  float kp;
-  float dt;
-  float contact_stiffness;
-  float contact_damping;
-  float friction;
-  float friction_vel;
-  float max_contact_force;  // +inf = uncapped
-  float limit_stiffness;
-  float limit_damping;
-  int n_substeps;
-  int exact;         // rebuild the factor at every substep
-  int terrain_mode;  // 0 flat, 1 analytic waves, 2 per-geom tangent planes
-  int has_limits;
-  int has_springs;
-  // Columns of `extra` (-1 = absent).
-  int idx_mass_scale;
-  int idx_friction;
-  int idx_damping_scale;
-  int idx_gain_scale;
-  int idx_push;    // 3 columns
-  int idx_planes;  // 3 * CS_NG columns (c, gx, gy per ground geom)
-  int n_extra;
-};
-
-static_assert(sizeof(Params) <= 4096,
-              "the model struct no longer fits a kernel argument; move it "
-              "to __constant__ memory");
+#include "rigid_body.cuh"
 
 namespace {
-
-struct V3 { float x, y, z; };
-struct M3 { float m[9]; };
-struct V6 { V3 w, l; };  // angular, linear
-
-#define CS_FN __device__ __forceinline__
-
-CS_FN V3 v3(float x, float y, float z) { return V3{x, y, z}; }
-CS_FN V3 v3(const float* p) { return V3{p[0], p[1], p[2]}; }
-CS_FN V3 add(V3 a, V3 b) { return v3(a.x + b.x, a.y + b.y, a.z + b.z); }
-CS_FN V3 sub(V3 a, V3 b) { return v3(a.x - b.x, a.y - b.y, a.z - b.z); }
-CS_FN V3 scale(float s, V3 a) { return v3(s * a.x, s * a.y, s * a.z); }
-CS_FN float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
-CS_FN V3 cross(V3 a, V3 b) {
-  return v3(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x);
-}
-CS_FN V6 add(V6 a, V6 b) { return V6{add(a.w, b.w), add(a.l, b.l)}; }
-CS_FN V6 sub(V6 a, V6 b) { return V6{sub(a.w, b.w), sub(a.l, b.l)}; }
-CS_FN V6 scale(float s, V6 a) { return V6{scale(s, a.w), scale(s, a.l)}; }
-
-CS_FN M3 m3(const float* p) {
-  M3 r;
-  for (int k = 0; k < 9; ++k) r.m[k] = p[k];
-  return r;
-}
-CS_FN V3 m3_vec(const M3& M, V3 v) {
-  return v3(M.m[0] * v.x + M.m[1] * v.y + M.m[2] * v.z,
-            M.m[3] * v.x + M.m[4] * v.y + M.m[5] * v.z,
-            M.m[6] * v.x + M.m[7] * v.y + M.m[8] * v.z);
-}
-CS_FN V3 m3T_vec(const M3& M, V3 v) {
-  return v3(M.m[0] * v.x + M.m[3] * v.y + M.m[6] * v.z,
-            M.m[1] * v.x + M.m[4] * v.y + M.m[7] * v.z,
-            M.m[2] * v.x + M.m[5] * v.y + M.m[8] * v.z);
-}
-CS_FN M3 m3_mul(const M3& A, const M3& B) {
-  M3 r;
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      r.m[3 * i + j] = A.m[3 * i] * B.m[j] + A.m[3 * i + 1] * B.m[3 + j] +
-                       A.m[3 * i + 2] * B.m[6 + j];
-  return r;
-}
-CS_FN M3 m3T_mul(const M3& A, const M3& B) {
-  M3 r;
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      r.m[3 * i + j] =
-          A.m[i] * B.m[j] + A.m[3 + i] * B.m[3 + j] + A.m[6 + i] * B.m[6 + j];
-  return r;
-}
-CS_FN M3 m3_add(const M3& A, const M3& B) {
-  M3 r;
-#pragma unroll
-  for (int k = 0; k < 9; ++k) r.m[k] = A.m[k] + B.m[k];
-  return r;
-}
-CS_FN M3 m3_sub(const M3& A, const M3& B) {
-  M3 r;
-#pragma unroll
-  for (int k = 0; k < 9; ++k) r.m[k] = A.m[k] - B.m[k];
-  return r;
-}
-CS_FN M3 m3_transpose(const M3& A) {
-  return M3{{A.m[0], A.m[3], A.m[6], A.m[1], A.m[4], A.m[7], A.m[2], A.m[5], A.m[8]}};
-}
-
-// world_R_body of a unit quaternion (w, x, y, z).
-CS_FN M3 quat_to_m3(float w, float x, float y, float z) {
-  return M3{{1.0f - 2.0f * (y * y + z * z), 2.0f * (x * y - w * z), 2.0f * (x * z + w * y),
-             2.0f * (x * y + w * z), 1.0f - 2.0f * (x * x + z * z), 2.0f * (y * z - w * x),
-             2.0f * (x * z - w * y), 2.0f * (y * z + w * x), 1.0f - 2.0f * (x * x + y * y)}};
-}
-
-// Active rotation about a constant unit axis by `angle` (Rodrigues).
-CS_FN M3 axis_angle_m3(V3 ax, float angle) {
-  const float s = sinf(angle), c = cosf(angle);
-  const float C = 1.0f - c;
-  return M3{{c + (ax.x * ax.x) * C, (ax.x * ax.y) * C - ax.z * s, (ax.x * ax.z) * C + ax.y * s,
-             (ax.y * ax.x) * C + ax.z * s, c + (ax.y * ax.y) * C, (ax.y * ax.z) * C - ax.x * s,
-             (ax.z * ax.x) * C - ax.y * s, (ax.z * ax.y) * C + ax.x * s, c + (ax.z * ax.z) * C}};
-}
-
-// Motion transform [R w; R (l - p x w)] of frame (R = child_R_parent,
-// p = child origin in parent coords).
-CS_FN V6 xup_motion(const M3& R, V3 p, V6 v) {
-  return V6{m3_vec(R, v.w), m3_vec(R, sub(v.l, cross(p, v.w)))};
-}
-// Its transpose applied to a child-coords spatial force.
-CS_FN V6 xup_force_T(const M3& R, V3 p, V6 f) {
-  const V3 Rt_n = m3T_vec(R, f.w);
-  const V3 Rt_l = m3T_vec(R, f.l);
-  return V6{add(Rt_n, cross(p, Rt_l)), Rt_l};
-}
-CS_FN V6 crm_apply(V6 v, V6 m) {
-  return V6{cross(v.w, m.w), add(cross(v.l, m.w), cross(v.w, m.l))};
-}
-CS_FN V6 crf_apply(V6 v, V6 f) {
-  return V6{add(cross(v.w, f.w), cross(v.l, f.l)), cross(v.w, f.l)};
-}
-// Spatial inertia (mass, com, rotational inertia about the com) applied
-// to a motion vector.
-CS_FN V6 inertia_apply(float mass, V3 com, const float* I, V6 v) {
-  const V3 c_cross_l = cross(com, v.l);
-  const V3 c_cross_w = cross(com, v.w);
-  const V3 Iw = v3(I[0] * v.w.x + I[1] * v.w.y + I[2] * v.w.z,
-                   I[3] * v.w.x + I[4] * v.w.y + I[5] * v.w.z,
-                   I[6] * v.w.x + I[7] * v.w.y + I[8] * v.w.z);
-  const V3 cc_w = cross(com, cross(com, v.w));
-  return V6{v3(Iw.x - mass * cc_w.x + mass * c_cross_l.x,
-               Iw.y - mass * cc_w.y + mass * c_cross_l.y,
-               Iw.z - mass * cc_w.z + mass * c_cross_l.z),
-            v3(mass * (v.l.x - c_cross_w.x), mass * (v.l.y - c_cross_w.y),
-               mass * (v.l.z - c_cross_w.z))};
-}
 
 // Per-env values that ride in `extra` (defaults are exact identities).
 struct Lanes {
@@ -252,21 +64,24 @@ struct Lanes {
   float planes[3 * CS_AT_LEAST_1(CS_NG)];
 };
 
-// Per-body kinematics from qpos: world rotations E, world origins P and
-// child_R_parent Rcp (Rcp[0] is unused: the base is handled on its own).
-__device__ __noinline__ void kinematics(const Params& p, const float* qpos,
-                                        M3* E, V3* P, M3* Rcp) {
-  E[0] = quat_to_m3(qpos[3], qpos[4], qpos[5], qpos[6]);
-  P[0] = v3(qpos);
-#pragma unroll 1
-  for (int i = 1; i < CS_NB; ++i) {
-    const int parent = p.parent[i];
-    const M3 R_j = axis_angle_m3(v3(p.joint_axis[i]), qpos[7 + i - 1]);
-    const M3 E_par = E[parent];
-    E[i] = m3_mul(E_par, R_j);
-    P[i] = add(P[parent], m3_vec(E_par, v3(p.joint_pos[i])));
-    Rcp[i] = m3_transpose(R_j);
-  }
+// Identity lanes: no domain randomization, no push, no planes.
+CS_FN Lanes identity_lanes(const Params& p) {
+  Lanes lane;
+  lane.mass_scale = 1.0f;
+  lane.friction = p.friction;
+  lane.damping_scale = 1.0f;
+  lane.gain_scale = 1.0f;
+  lane.push = v3(0.0f, 0.0f, 0.0f);
+  for (int k = 0; k < 3 * CS_NG; ++k) lane.planes[k] = 0.0f;
+  return lane;
+}
+
+// Row b of a [B, n] array into (or out of) a per-thread array.
+CS_FN void load_row(float* dst, const float* __restrict__ src, int b, int n) {
+  for (int k = 0; k < n; ++k) dst[k] = src[static_cast<size_t>(b) * n + k];
+}
+CS_FN void store_row(float* __restrict__ dst, const float* src, int b, int n) {
+  for (int k = 0; k < n; ++k) dst[static_cast<size_t>(b) * n + k] = src[k];
 }
 
 // CRBA mass matrix and in-place Cholesky factor of M + armature + dt*D on
@@ -610,20 +425,20 @@ __global__ void control_step_kernel(const float* __restrict__ qpos_in,
 
   float qpos[CS_NQ], qvel[CS_NV], target[CS_NJ];
   float normals[CS_AT_LEAST_1(CS_NN)];
-  for (int k = 0; k < CS_NQ; ++k) qpos[k] = qpos_in[static_cast<size_t>(b) * CS_NQ + k];
-  for (int k = 0; k < CS_NV; ++k) qvel[k] = qvel_in[static_cast<size_t>(b) * CS_NV + k];
-  for (int k = 0; k < CS_NJ; ++k) target[k] = target_in[static_cast<size_t>(b) * CS_NJ + k];
+  load_row(qpos, qpos_in, b, CS_NQ);
+  load_row(qvel, qvel_in, b, CS_NV);
+  load_row(target, target_in, b, CS_NJ);
   for (int k = 0; k < CS_NN; ++k) normals[k] = 0.0f;
 
-  Lanes lane;
+  Lanes lane = identity_lanes(p);
   const float* e = extra + static_cast<size_t>(b) * p.n_extra;
-  lane.mass_scale = p.idx_mass_scale >= 0 ? e[p.idx_mass_scale] : 1.0f;
-  lane.friction = p.idx_friction >= 0 ? e[p.idx_friction] : p.friction;
-  lane.damping_scale = p.idx_damping_scale >= 0 ? e[p.idx_damping_scale] : 1.0f;
-  lane.gain_scale = p.idx_gain_scale >= 0 ? e[p.idx_gain_scale] : 1.0f;
-  lane.push = p.idx_push >= 0 ? v3(e + p.idx_push) : v3(0.0f, 0.0f, 0.0f);
-  for (int k = 0; k < 3 * CS_NG; ++k)
-    lane.planes[k] = p.idx_planes >= 0 ? e[p.idx_planes + k] : 0.0f;
+  if (p.idx_mass_scale >= 0) lane.mass_scale = e[p.idx_mass_scale];
+  if (p.idx_friction >= 0) lane.friction = e[p.idx_friction];
+  if (p.idx_damping_scale >= 0) lane.damping_scale = e[p.idx_damping_scale];
+  if (p.idx_gain_scale >= 0) lane.gain_scale = e[p.idx_gain_scale];
+  if (p.idx_push >= 0) lane.push = v3(e + p.idx_push);
+  if (p.idx_planes >= 0)
+    for (int k = 0; k < 3 * CS_NG; ++k) lane.planes[k] = e[p.idx_planes + k];
 
   M3 E[CS_NB], Rcp[CS_NB];
   V3 P[CS_NB];
@@ -635,9 +450,42 @@ __global__ void control_step_kernel(const float* __restrict__ qpos_in,
     substep(p, qpos, qvel, target, L, E, P, Rcp, lane, normals);
   }
 
-  for (int k = 0; k < CS_NQ; ++k) qpos_out[static_cast<size_t>(b) * CS_NQ + k] = qpos[k];
-  for (int k = 0; k < CS_NV; ++k) qvel_out[static_cast<size_t>(b) * CS_NV + k] = qvel[k];
-  for (int k = 0; k < CS_NN; ++k) normals_out[static_cast<size_t>(b) * CS_NN + k] = normals[k];
+  store_row(qpos_out, qpos, b, CS_NQ);
+  store_row(qvel_out, qvel, b, CS_NV);
+  store_row(normals_out, normals, b, CS_NN);
+}
+
+__global__ void substeps_kernel(const float* __restrict__ qpos_in,
+                                const float* __restrict__ qvel_in,
+                                const float* __restrict__ target_in,
+                                const float* __restrict__ chol_in,
+                                float* __restrict__ qpos_out,
+                                float* __restrict__ qvel_out,
+                                float* __restrict__ normals_out, int B,
+                                const __grid_constant__ Params p) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+
+  float qpos[CS_NQ], qvel[CS_NV], target[CS_NJ], L[CS_NT];
+  float normals[CS_AT_LEAST_1(CS_NN)];
+  load_row(qpos, qpos_in, b, CS_NQ);
+  load_row(qvel, qvel_in, b, CS_NV);
+  load_row(target, target_in, b, CS_NJ);
+  load_row(L, chol_in, b, CS_NT);
+  for (int k = 0; k < CS_NN; ++k) normals[k] = 0.0f;
+  const Lanes lane = identity_lanes(p);
+
+  M3 E[CS_NB], Rcp[CS_NB];
+  V3 P[CS_NB];
+#pragma unroll 1
+  for (int s = 0; s < p.n_substeps; ++s) {
+    kinematics(p, qpos, E, P, Rcp);
+    substep(p, qpos, qvel, target, L, E, P, Rcp, lane, normals);
+  }
+
+  store_row(qpos_out, qpos, b, CS_NQ);
+  store_row(qvel_out, qvel, b, CS_NV);
+  store_row(normals_out, normals, b, CS_NN);
 }
 
 }  // namespace
@@ -666,5 +514,19 @@ extern "C" int control_step_forward(const float* qpos, const float* qvel,
   const int blocks = (B + threads - 1) / threads;
   control_step_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       qpos, qvel, target, extra, qpos_out, qvel_out, normals_out, B, *params);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same for substeps_kernel; `chol` is the packed factor [B, NT].
+extern "C" int substeps_forward(const float* qpos, const float* qvel,
+                                const float* target, const float* chol,
+                                float* qpos_out, float* qvel_out,
+                                float* normals_out, int B, const Params* params,
+                                int threads, int device, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const int blocks = (B + threads - 1) / threads;
+  substeps_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      qpos, qvel, target, chol, qpos_out, qvel_out, normals_out, B, *params);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,11 +5,21 @@ implementation serves every legged model: velocity-command tracking with
 dict obs, dict rewards (per-key GAE), per-substep PD position control
 (P explicit, D implicit via model joint damping), command resampling and
 tilt/height termination. The JAX env steps one env and is vmapped; this
-one holds ``[B, ...]`` tensors and steps all envs with one call of the
-control-step runner (``physics/cuda_step.py``): the CUDA kernel for CUDA
-tensors, its plain version for CPU tensors. The runner is the only
-dynamics path of the port, so ``reuse_mass_matrix=False`` selects its
-``exact`` mode (factor rebuilt at every substep).
+one holds ``[B, ...]`` tensors and steps all envs with one call of a
+runner of ``physics/cuda_step.py``: CUDA kernels for CUDA tensors, their
+plain versions for CPU tensors. The runners are the only dynamics paths
+of the port:
+
+* the control-step runner (default): factor and all substeps in one
+  launch; ``reuse_mass_matrix=False`` selects its ``exact`` mode (factor
+  rebuilt at every substep). With a ``HeightGrid`` terrain it first
+  samples each ground geom's tangent plane (the plane-sampler kernel) and
+  holds the planes over the control step;
+* the substep runner (``pallas_in_kernel_factor=False``): the factor of
+  ``M(q) + dt·D`` is built outside the kernel
+  (``physics/engine.py::mass_matrix_factor``) once per control step and
+  handed to the substeps kernel, ``pallas_substeps_per_kernel`` substeps
+  per launch. Flat ground, no randomization, no pushes, held factor only.
 
 Randomness: the JAX env carries a key per env in ``State.data`` and
 splits it in ``step``. Here ``reset`` and ``step`` take the caller's one
@@ -18,25 +28,24 @@ per phase (``_draw_reset``, ``_draw_push``, ``_draw_resample``,
 ``_draw_obs_noise``), so that a test can inject another package's draws.
 
 Not ported yet (each raises ``NotImplementedError``):
-``legged_from_mjcf``, ``render``, ``HeightGrid`` terrain, ``depthwise``
-dynamics and ``pallas_in_kernel_factor=False`` (the factor-passed-in
-substep kernel).
+``legged_from_mjcf``, ``render`` and ``depthwise`` dynamics.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Optional
+from typing import Any, Optional, Union
 
 import numpy as np
 import torch
 
 from nnx_ppo_tpu_torch.envs.types import State
 from nnx_ppo_tpu_torch.physics import soa
-from nnx_ppo_tpu_torch.physics.cuda_step import make_control_step_runner
+from nnx_ppo_tpu_torch.physics.cuda_step import make_control_step_runner, make_substep_runner
+from nnx_ppo_tpu_torch.physics.engine import mass_matrix_factor
 from nnx_ppo_tpu_torch.physics.model import Model
 from nnx_ppo_tpu_torch.physics.randomize import DomainParams, privileged_vector
-from nnx_ppo_tpu_torch.physics.terrain import Terrain
+from nnx_ppo_tpu_torch.physics.terrain import HeightGrid, Terrain
 
 
 def legged_from_mjcf(*args: Any, **kwargs: Any):
@@ -82,7 +91,7 @@ class LeggedJoystick:
         reset_joint_noise: float = 0.1,
         reuse_mass_matrix: bool = False,
         n_feet: int = 4,
-        terrain: Optional[Terrain] = None,
+        terrain: Union[Terrain, HeightGrid, None] = None,
         spawn_radius: float = 5.0,
         height_scan: int = 0,
         height_scan_extent: float = 0.45,
@@ -92,6 +101,7 @@ class LeggedJoystick:
         push_prob: float = 0.0,
         push_force: float = 0.0,
         depthwise: Optional[bool] = None,
+        pallas_substeps_per_kernel: int = 1,
         pallas_in_kernel_factor: bool = True,
     ):
         if depthwise:
@@ -100,14 +110,23 @@ class LeggedJoystick:
                 "the SoA control-step runner only"
             )
         if not pallas_in_kernel_factor:
-            raise NotImplementedError(
-                "pallas_in_kernel_factor=False (the substep kernel that takes "
-                "the factor as an input) is not ported yet"
-            )
-        if terrain is not None and not isinstance(terrain, Terrain):
-            raise NotImplementedError(
-                "only analytic Terrain is ported; HeightGrid terrain is not ported yet"
-            )
+            # Only the factor-passed-in kernel requires the held factor
+            # and the bare feature set; the control-step runner carries
+            # terrain, randomization and pushes as extra lanes.
+            reason = None
+            if not reuse_mass_matrix:
+                reason = (
+                    "the substep kernel holds the M + dt·D factor over the "
+                    "control step — pass reuse_mass_matrix=True"
+                )
+            elif terrain is not None:
+                reason = "the legacy substep kernel supports the flat z=0 ground only"
+            elif randomize is not None:
+                reason = "the legacy substep kernel does not consume per-env DR overrides"
+            elif push_force > 0.0:
+                reason = "the legacy substep kernel does not apply external push forces"
+            if reason is not None:
+                raise ValueError(f"pallas_in_kernel_factor=False unsupported: {reason}")
         self.model = model
         self.default_pose = torch.tensor(np.asarray(default_pose), dtype=torch.float32)
         self.stand_height = stand_height
@@ -129,8 +148,9 @@ class LeggedJoystick:
         # The first n_feet contact geoms are the foot spheres; their
         # normal forces feed the contact metrics.
         self.n_feet = n_feet
-        # Analytic heightfield ground; per-env variation comes from
-        # random spawn positions within spawn_radius.
+        # Heightfield ground (analytic Terrain or HeightGrid data);
+        # per-env variation comes from random spawn positions within
+        # spawn_radius.
         self.terrain = terrain
         self.spawn_radius = spawn_radius
         self.height_scan = height_scan
@@ -154,13 +174,20 @@ class LeggedJoystick:
         self._device_constants: dict = {}
         self._dr_fields: tuple = () if randomize is None else tuple(randomize.fields)
         self._kernel_push = push_force > 0.0
-        self._control_runner = make_control_step_runner(
-            model, kp, self.physics_dt, n_substeps,
-            exact=not reuse_mass_matrix,
-            terrain=terrain,
-            dr_fields=self._dr_fields,
-            has_push=self._kernel_push,
-        )
+        self._control_runner = self._substep_runner = None
+        if pallas_in_kernel_factor:
+            self._control_runner = make_control_step_runner(
+                model, kp, self.physics_dt, n_substeps,
+                exact=not reuse_mass_matrix,
+                terrain=terrain,
+                dr_fields=self._dr_fields,
+                has_push=self._kernel_push,
+            )
+        else:
+            self._substep_runner = make_substep_runner(
+                model, kp, self.physics_dt, n_substeps,
+                substeps_per_kernel=pallas_substeps_per_kernel,
+            )
         self.observation_size = {"proprio": 3 * self.n_act + 6, "command": 3}
         if height_scan > 0:
             lin = torch.linspace(-height_scan_extent, height_scan_extent, height_scan)
@@ -401,6 +428,14 @@ class LeggedJoystick:
         dev = action.device
         action = torch.clamp(action, -1.0, 1.0)
         target = self._on(dev, "default_pose") + self._on(dev, "action_scale") * action
+        if self._substep_runner is not None:
+            # The factor of M(q) + dt·D from the pre-substep qpos, built
+            # outside the kernel and held over the control step.
+            chol = mass_matrix_factor(self.model, q["qpos"], dt=self.physics_dt)
+            qpos, qvel, last_normals = self._substep_runner(q["qpos"], q["qvel"], target, chol)
+            return self._finish_step(
+                q, action, qpos, qvel, last_normals[:, : self.n_feet], resample, noise
+            )
         dr: Optional[DomainParams] = q.get("dr") if self.randomize is not None else None
 
         # DR scalars and the push vector ride along as packed per-env

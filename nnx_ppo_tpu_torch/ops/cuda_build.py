@@ -5,10 +5,12 @@ No JAX counterpart (Pallas kernels compile inside ``jax.jit``). Each
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/kernels/`` at the repository root (listed in ``.gitignore``) and
 loaded with ``ctypes``. A source may be specialised by ``-D`` defines
-(array sizes of ``control_step.cu``); the library's file name carries a
-hash of the source and all flags, defines included, so an edited source
-or another size is built anew and an unchanged one is reused. Nothing is
-built at import time: the first caller builds.
+(array sizes of ``control_step.cu`` and ``plane_sampler.cu``) and may
+include the headers ``csrc/*.cuh``; the library's file name carries a
+hash of the source, of every header and of all flags, defines included,
+so an edited source or header or another size is built anew and an
+unchanged one is reused. Nothing is built at import time: the first
+caller builds.
 """
 
 from __future__ import annotations
@@ -63,9 +65,11 @@ def _normalize(spec: Spec) -> tuple[str, tuple[str, ...]]:
 
 def library_path(name: str, flags: Sequence[str] = ()) -> Path:
     """Where the library of ``name`` built with the extra ``flags``
-    lives: the file name carries a hash of source, base flags and extra
-    flags (defines included)."""
+    lives: the file name carries a hash of source, headers, base flags
+    and extra flags (defines included)."""
     source = (CSRC_DIR / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        source += header.read_bytes()
     digest = hashlib.sha256(source + " ".join((*NVCC_FLAGS, *flags)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 

@@ -1,7 +1,9 @@
 """Articulated rigid-body physics of the port (``nnx_ppo_tpu/physics``):
-the model description, terrain, domain randomization, the SoA substep and
-the control-step kernel. The generic engine, the depth-wise engine, MJCF
-import and scenes are not ported yet."""
+the model description, terrain (analytic and data), domain randomization,
+the SoA substep, the control-step, plane-sampler and substeps kernels,
+spatial algebra and the mass-matrix factor of the generic engine. The rest
+of the generic engine, the depth-wise engine, MJCF import and scenes are
+not ported yet."""
 
 from nnx_ppo_tpu_torch.physics.model import BALL, FREE, HINGE, SLIDE, Model, ModelBuilder
 from nnx_ppo_tpu_torch.physics.randomize import (

@@ -1,65 +1,80 @@
-"""One control step of the legged-robot physics: CUDA kernel, plain
-PyTorch version, and the runner the envs call.
+"""The legged-robot physics step: three CUDA kernels, their plain
+PyTorch versions, and the runners the envs call.
 
-Port of ``nnx_ppo_tpu/physics/pallas_step.py:226-629``
-(``pallas_control_step`` and ``make_control_step_runner``). A control
-step is the Cholesky factor of ``M + armature + dt·D`` built from the
-pre-substep ``qpos`` (held over the step, or rebuilt at every substep
-with ``exact``), then ``n_substeps`` SoA substeps; it returns the
-integrated ``qpos``/``qvel`` and the contact normal forces of the last
-substep (ground geoms first, then pairs).
+Port of ``nnx_ppo_tpu/physics/pallas_step.py:36-711`` (``pallas_substeps``,
+``pallas_plane_sampler``, ``pallas_control_step``,
+``make_control_step_runner``, ``make_substep_runner``). A control step is
+the Cholesky factor of ``M + armature + dt·D`` built from the pre-substep
+``qpos`` (held over the step, or rebuilt at every substep with
+``exact``), then ``n_substeps`` SoA substeps; it returns the integrated
+``qpos``/``qvel`` and the contact normal forces of the last substep
+(ground geoms first, then pairs).
 
 * :func:`control_step_plain` is the plain PyTorch version: the lane
   functions of ``engine_soa.py`` over the columns of the ``[B, k]``
-  inputs.
-* :func:`control_step_cuda` launches the hand-written kernel
+  inputs. :func:`control_step_cuda` launches the hand-written kernel of
   ``nnx_ppo_tpu_torch/csrc/control_step.cu`` once per control step and
   counts its launches in ``control_step_cuda.launches``.
+* :func:`plane_sampler_plain` / :func:`plane_sampler_cuda`
+  (``.launches``, ``csrc/plane_sampler.cu``): kinematics, then per ground
+  geom the tangent plane ``(c, gx, gy)`` of a ``HeightGrid`` at its world
+  xy, ``[B, 3·n_geoms]``.
+* :func:`substeps_plain` / :func:`substeps_cuda` (``.launches``, the
+  second entry point of ``csrc/control_step.cu``): substeps with the
+  factor built outside and passed in as ``chol[B, nv, nv]``; flat ground,
+  no per-env lanes.
 * :func:`make_control_step_runner` returns ``run(qpos, qvel, target[,
-  extra])``, which dispatches by the tensors' device as ``ops/gae.py``
-  does: the kernel for CUDA tensors, the plain version for CPU tensors.
-  There is no fallback: a CUDA tensor that the kernel cannot take, a
+  extra])`` and :func:`make_substep_runner` ``run(qpos, qvel, target,
+  chol)``. Both dispatch by the tensors' device as ``ops/gae.py`` does:
+  the kernels for CUDA tensors, the plain versions for CPU tensors.
+  There is no fallback: a CUDA tensor that a kernel cannot take, a
   failed build or a failed launch raises.
 
 ``extra`` packs the per-env lanes ``[B, n_extra]``: the
 domain-randomization scalars named by ``dr_fields`` (in that order),
 then the 3 push-force lanes (``has_push``), then ``n_terrain_planes``
-tangent-plane triples ``(c, gx, gy)``. The JAX runner's ``custom_vmap``,
+tangent-plane triples ``(c, gx, gy)``. With ``terrain=HeightGrid`` the
+runner samples the planes itself at control-step start (one sampler
+launch, then one control-step launch) and appends them after the
+caller's lanes, so the caller's ``extra`` stays ``[len(dr_fields) +
+3·has_push]`` wide. The JAX runner's ``custom_vmap``,
 ``custom_partitioning`` and tile picking have no counterpart: the batch
-dimension is written out and the kernel masks the ragged edge.
+dimension is written out and the kernels mask the ragged edge.
 
-The kernel's source is one file. Its array sizes (bodies, geoms, pairs,
-terrain waves) are ``-D`` defines, so each model size is one library;
-everything else about the model (topology, inertias, geoms, gains,
-terrain waves, feature switches) is a struct filled here from the
-``Model`` and passed to the kernel by value.
+The kernels' array sizes (bodies, geoms, pairs, terrain waves) are ``-D``
+defines, so each model size is one library per source; everything else
+about the model (topology, inertias, geoms, gains, terrain waves, feature
+switches) is a struct filled here from the ``Model`` and passed to the
+kernels by value.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from nnx_ppo_tpu_torch.ops import cuda_build
 from nnx_ppo_tpu_torch.physics.engine_soa import (
+    _kin_soa,
     crba_chol_soa,
+    heightgrid_planes_soa,
     soa_features_unsupported_reason,
     soa_unsupported_reason,
     substep_soa,
 )
 from nnx_ppo_tpu_torch.physics.model import Model
 from nnx_ppo_tpu_torch.physics.randomize import FIELDS as DR_FIELDS
-from nnx_ppo_tpu_torch.physics.terrain import Terrain
+from nnx_ppo_tpu_torch.physics.terrain import HeightGrid, Terrain
 
 # One warp per block: a few thousand envs then spread over as many SMs as
 # there are warps, and each warp has its SM's L1 for its per-thread arrays.
 THREADS_PER_BLOCK = 32
-# Without fused multiply-adds the kernel rounds every product and sum on
-# its own, as the plain version does, which keeps the two within the
+# Without fused multiply-adds the kernels round every product and sum on
+# their own, as the plain versions do, which keeps the two within the
 # stated tolerances across the contact switch (phi > 0).
 KERNEL_FLAGS: tuple[str, ...] = ("-fmad=false",)
 
@@ -84,10 +99,17 @@ def _split_extra(extra_lanes: Sequence, dr_fields: Sequence[str], has_push: bool
     return sub_kw, crba_kw
 
 
+def _tri_indices(nv: int) -> list[tuple[int, int]]:
+    """Row-major lower-triangle index pairs: entry ``i (i + 1) / 2 + j`` of
+    the packed factor is ``chol[i, j]`` (``pallas_step.py::_tri_indices``)."""
+    return [(i, j) for i in range(nv) for j in range(i + 1)]
+
+
 class ControlStepPlan:
-    """Everything about one control-step configuration that does not
+    """Everything about one physics-step configuration that does not
     depend on the state: the checks, the ``extra`` layout, and (built on
-    first CUDA use) the kernel's library and its packed model struct."""
+    first CUDA use) the kernels' libraries and the packed model struct
+    they share."""
 
     def __init__(
         self,
@@ -97,7 +119,7 @@ class ControlStepPlan:
         n_substeps: int,
         exact: bool = False,
         *,
-        terrain: Optional[Terrain] = None,
+        terrain: Union[Terrain, HeightGrid, None] = None,
         dr_fields: Sequence[str] = (),
         has_push: bool = False,
         n_terrain_planes: int = 0,
@@ -117,26 +139,36 @@ class ControlStepPlan:
         self.dt = float(dt)
         self.n_substeps = int(n_substeps)
         self.exact = bool(exact)
-        self.terrain = terrain
+        # A HeightGrid never enters the substep: its planes do, sampled
+        # by this plan at control-step start.
+        self.heightgrid = terrain if isinstance(terrain, HeightGrid) else None
+        self.terrain = None if self.heightgrid is not None else terrain
         self.dr_fields = tuple(dr_fields)
         self.has_push = bool(has_push)
-        self.n_terrain_planes = int(n_terrain_planes)
+        self.n_terrain_planes = (
+            len(model.geom_body) if self.heightgrid is not None else int(n_terrain_planes)
+        )
+        # Width of the kernel's `extra`, and of the part the caller hands in.
         self.n_extra = len(self.dr_fields) + (3 if has_push else 0) + 3 * self.n_terrain_planes
+        self.n_caller_extra = self.n_extra - (
+            3 * self.n_terrain_planes if self.heightgrid is not None else 0
+        )
         self.n_geoms = len(model.geom_body) + len(model.pair_geom_a)
 
     # -- shapes ------------------------------------------------------------
 
     def check(self, qpos, qvel, target, extra) -> int:
-        """Validate one call's arguments; returns the batch size."""
+        """Validate one call's arguments (``extra`` as the caller hands it
+        in); returns the batch size."""
         model = self.model
         if qpos.ndim != 2 or qpos.shape[1] != model.nq:
             raise ValueError(f"qpos must be [B, {model.nq}], got {tuple(qpos.shape)}")
         B = qpos.shape[0]
         expected = {"qvel": (qvel, model.nv), "target": (target, model.nj)}
-        if self.n_extra:
+        if self.n_caller_extra:
             if extra is None:
-                raise ValueError(f"extra [B, {self.n_extra}] is required")
-            expected["extra"] = (extra, self.n_extra)
+                raise ValueError(f"extra [B, {self.n_caller_extra}] is required")
+            expected["extra"] = (extra, self.n_caller_extra)
         elif extra is not None:
             raise ValueError("extra was given but no per-env lanes are configured")
         for name, (x, width) in expected.items():
@@ -147,10 +179,30 @@ class ControlStepPlan:
                 )
         return B
 
-    # -- the plain version -----------------------------------------------
+    def _with_planes(self, extra, planes):
+        """The kernel's ``extra``: the caller's lanes, then the sampled
+        planes (HeightGrid terrain only)."""
+        if self.heightgrid is None:
+            return extra
+        return planes if extra is None else torch.cat([extra.to(torch.float32), planes], dim=1)
+
+    # -- the plain versions ------------------------------------------------
+
+    def sample_planes_plain(self, qpos):
+        """``[B, 3·n_geoms]`` tangent planes of the HeightGrid under the
+        ground geoms, by the lane functions."""
+        if self.heightgrid is None:
+            raise ValueError("this plan has no HeightGrid terrain to sample")
+        with torch.no_grad():
+            qp = tuple(qpos.to(torch.float32).unbind(1))
+            E, P, _, _, _ = _kin_soa(self.model, qp)
+            planes = heightgrid_planes_soa(self.heightgrid, self.model, E, P)
+            return torch.stack([lane for plane in planes for lane in plane], dim=1)
 
     def plain(self, qpos, qvel, target, extra=None):
         self.check(qpos, qvel, target, extra)
+        if self.heightgrid is not None:
+            extra = self._with_planes(extra, self.sample_planes_plain(qpos))
         model, dt = self.model, self.dt
         with torch.no_grad():
             qp = tuple(qpos.to(torch.float32).unbind(1))
@@ -171,16 +223,51 @@ class ControlStepPlan:
                 qp, qv, normals = substep_soa(
                     model, qp, qv, tgt, chol, self.kp, dt, terrain=self.terrain, **sub_kw
                 )
-            normals_out = (
-                torch.stack(normals, dim=1) if normals else qpos.new_zeros((qpos.shape[0], 0))
-            )
-            return torch.stack(qp, dim=1), torch.stack(qv, dim=1), normals_out
+            return self._stacked(qpos, qp, qv, normals)
 
-    # -- the kernel --------------------------------------------------------
+    @staticmethod
+    def _stacked(qpos, qp, qv, normals):
+        normals_out = (
+            torch.stack(normals, dim=1) if normals else qpos.new_zeros((qpos.shape[0], 0))
+        )
+        return torch.stack(qp, dim=1), torch.stack(qv, dim=1), normals_out
+
+    def substeps_plain(self, qpos, qvel, target, chol, n_launches: int = 1):
+        """``n_launches`` × ``n_substeps`` substeps with the factor
+        ``chol[B, nv, nv]`` handed in (flat ground, no per-env lanes)."""
+        self._check_substeps(qpos, qvel, target, chol)
+        with torch.no_grad():
+            qp = tuple(qpos.to(torch.float32).unbind(1))
+            qv = tuple(qvel.to(torch.float32).unbind(1))
+            tgt = tuple(target.to(torch.float32).unbind(1))
+            chol = chol.to(torch.float32)
+            lanes = tuple(
+                tuple(chol[:, i, j] for j in range(i + 1)) for i in range(self.model.nv)
+            )
+            normals: tuple = ()
+            for _ in range(n_launches * self.n_substeps):
+                qp, qv, normals = substep_soa(self.model, qp, qv, tgt, lanes, self.kp, self.dt)
+            return self._stacked(qpos, qp, qv, normals)
+
+    def _check_substeps(self, qpos, qvel, target, chol) -> int:
+        if self.n_extra or self.terrain is not None or self.exact:
+            raise ValueError(
+                "the substeps kernel takes flat ground, no per-env lanes and a held factor"
+            )
+        B = self.check(qpos, qvel, target, None)
+        nv = self.model.nv
+        if tuple(chol.shape) != (B, nv, nv) or chol.device != qpos.device:
+            raise ValueError(
+                f"chol: expected shape {(B, nv, nv)} on {qpos.device}, got "
+                f"{tuple(chol.shape)} on {chol.device}"
+            )
+        return B
+
+    # -- the kernels -------------------------------------------------------
 
     @property
     def sizes(self) -> dict[str, int]:
-        """The ``-D`` defines that size the kernel's arrays."""
+        """The ``-D`` defines that size the kernels' arrays."""
         return {
             "CS_NB": self.model.n_bodies,
             "CS_NG": len(self.model.geom_body),
@@ -188,41 +275,83 @@ class ControlStepPlan:
             "CS_NW": 0 if self.terrain is None else len(self.terrain.amplitudes),
         }
 
+    def _spec(self, name: str) -> tuple[str, tuple[str, ...]]:
+        return name, cuda_build.define_flags(self.sizes) + KERNEL_FLAGS
+
     @property
     def kernel_spec(self) -> tuple[str, tuple[str, ...]]:
-        """What ``cuda_build.build`` takes to build this plan's library."""
-        return "control_step", cuda_build.define_flags(self.sizes) + KERNEL_FLAGS
+        """What ``cuda_build.build`` takes to build the control-step and
+        substeps library of this plan."""
+        return self._spec("control_step")
+
+    @property
+    def kernel_specs(self) -> list[tuple[str, tuple[str, ...]]]:
+        """Every library this plan's kernels come from."""
+        specs = [self.kernel_spec]
+        if self.heightgrid is not None:
+            specs.append(self._spec("plane_sampler"))
+        return specs
 
     @functools.cached_property
-    def _packed(self):
-        """(C entry point, packed model struct), built on first use."""
-        params = pack_params(self)
-        lib = cuda_build.load(*self.kernel_spec)
-        built_for = (ctypes.c_int * 4)()
-        lib.control_step_params_size.argtypes = [ctypes.c_void_p]
-        lib.control_step_params_size.restype = ctypes.c_int
-        size = lib.control_step_params_size(built_for)
-        want = [self.sizes[k] for k in ("CS_NB", "CS_NG", "CS_NP", "CS_NW")]
-        if size != ctypes.sizeof(params) or list(built_for) != want:
-            raise RuntimeError(
-                f"control_step library was built for sizes {list(built_for)} "
-                f"(struct of {size} bytes); this plan needs {want} "
-                f"({ctypes.sizeof(params)} bytes)"
-            )
-        fn = lib.control_step_forward
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p] + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        return fn, params
+    def _params(self) -> ctypes.Structure:
+        return pack_params(self)
 
-    def cuda(self, qpos, qvel, target, extra=None):
-        B = self.check(qpos, qvel, target, extra)
+    def _library(self, name: str) -> ctypes.CDLL:
+        """The library of source ``name``, checked against this plan's
+        struct: a library built for other sizes must not be launched."""
+        lib = cuda_build.load(*self._spec(name))
+        built_for = (ctypes.c_int * 4)()
+        size_fn = getattr(lib, f"{name}_params_size")
+        size_fn.argtypes = [ctypes.c_void_p]
+        size_fn.restype = ctypes.c_int
+        size = size_fn(built_for)
+        want = [self.sizes[k] for k in ("CS_NB", "CS_NG", "CS_NP", "CS_NW")]
+        if size != ctypes.sizeof(self._params) or list(built_for) != want:
+            raise RuntimeError(
+                f"{name} library was built for sizes {list(built_for)} "
+                f"(struct of {size} bytes); this plan needs {want} "
+                f"({ctypes.sizeof(self._params)} bytes)"
+            )
+        return lib
+
+    @functools.cached_property
+    def _step_entry_points(self) -> dict:
+        """``control_step_forward`` and ``substeps_forward``: the same
+        signature, the fourth pointer being ``extra`` or the packed
+        factor."""
+        lib = self._library("control_step")
+        fns = {}
+        for name in ("control_step_forward", "substeps_forward"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p] + [
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ]
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+        return fns
+
+    @functools.cached_property
+    def _sampler_entry_point(self):
+        fn = self._library("plane_sampler").plane_sampler_forward
+        fn.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float] * 4
+            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        return fn
+
+    def _cuda_batch(self, qpos, B: int) -> torch.device:
         device = qpos.device
         if device.type != "cuda":
-            raise ValueError(f"control_step_cuda takes CUDA tensors, got {device}")
-        if B >= 2**31 // max(self.model.nq, self.n_extra, 1):
-            raise ValueError(f"B = {B} is too large for the kernel")
+            raise ValueError(f"the kernels take CUDA tensors, got {device}")
+        if B >= 2**31 // max(self.model.nv * (self.model.nv + 1) // 2, self.n_extra, 1):
+            raise ValueError(f"B = {B} is too large for the kernels")
+        return device
+
+    def _launch_step(self, entry: str, qpos, qvel, target, fourth, B: int):
+        """Allocate the outputs and launch ``entry`` on the current
+        stream; ``fourth`` is ``extra`` (or None) or the packed factor."""
+        device = qpos.device
         model = self.model
         qpos_out = torch.empty((B, model.nq), dtype=torch.float32, device=device)
         qvel_out = torch.empty((B, model.nv), dtype=torch.float32, device=device)
@@ -231,30 +360,97 @@ class ControlStepPlan:
             return qpos_out, qvel_out, normals_out
         with torch.no_grad():
             ins = [x.detach().to(torch.float32).contiguous() for x in (qpos, qvel, target)]
-            extra_in = None if extra is None else extra.detach().to(torch.float32).contiguous()
-        fn, params = self._packed
+            fourth_in = None if fourth is None else fourth.detach().to(torch.float32).contiguous()
         stream = torch.cuda.current_stream(device)
-        err = fn(
+        err = self._step_entry_points[entry](
             *(x.data_ptr() for x in ins),
-            None if extra_in is None else extra_in.data_ptr(),
+            None if fourth_in is None else fourth_in.data_ptr(),
             qpos_out.data_ptr(), qvel_out.data_ptr(), normals_out.data_ptr(),
-            B, ctypes.addressof(params), THREADS_PER_BLOCK,
+            B, ctypes.addressof(self._params), THREADS_PER_BLOCK,
             stream.device.index, stream.cuda_stream,
         )
         if err != 0:
-            raise RuntimeError(f"control_step kernel launch failed: cudaError_t {err}")
-        control_step_cuda.launches += 1
+            raise RuntimeError(f"{entry} kernel launch failed: cudaError_t {err}")
         return qpos_out, qvel_out, normals_out
 
+    def sample_planes_cuda(self, qpos):
+        """``[B, 3·n_geoms]`` tangent planes of the HeightGrid under the
+        ground geoms, by one launch of the plane-sampler kernel."""
+        if self.heightgrid is None:
+            raise ValueError("this plan has no HeightGrid terrain to sample")
+        model, grid = self.model, self.heightgrid
+        if qpos.ndim != 2 or qpos.shape[1] != model.nq:
+            raise ValueError(f"qpos must be [B, {model.nq}], got {tuple(qpos.shape)}")
+        B = qpos.shape[0]
+        device = self._cuda_batch(qpos, B)
+        planes = torch.empty((B, 3 * len(model.geom_body)), dtype=torch.float32, device=device)
+        if B == 0:
+            return planes
+        qpos_in = qpos.detach().to(torch.float32).contiguous()
+        table = grid.table(device)
+        nx, ny = grid.shape
+        stream = torch.cuda.current_stream(device)
+        err = self._sampler_entry_point(
+            qpos_in.data_ptr(), table.data_ptr(), planes.data_ptr(), B, nx, ny,
+            grid.x0, grid.y0, 1.0 / grid.dx, 1.0 / grid.dy,
+            ctypes.addressof(self._params), THREADS_PER_BLOCK,
+            stream.device.index, stream.cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"plane_sampler kernel launch failed: cudaError_t {err}")
+        plane_sampler_cuda.launches += 1
+        return planes
+
+    def cuda(self, qpos, qvel, target, extra=None):
+        B = self.check(qpos, qvel, target, extra)
+        self._cuda_batch(qpos, B)
+        if self.heightgrid is not None:
+            extra = self._with_planes(extra, self.sample_planes_cuda(qpos))
+        out = self._launch_step("control_step_forward", qpos, qvel, target, extra, B)
+        if B:
+            control_step_cuda.launches += 1
+        return out
+
+    def substeps_cuda(self, qpos, qvel, target, chol, n_launches: int = 1):
+        """``n_launches`` launches of the substeps kernel, each
+        ``n_substeps`` substeps, with the factor ``chol[B, nv, nv]`` handed
+        in (packed once)."""
+        B = self._check_substeps(qpos, qvel, target, chol)
+        self._cuda_batch(qpos, B)
+        packed = pack_factor(chol.detach().to(torch.float32))
+        normals = None
+        for _ in range(n_launches):
+            qpos, qvel, normals = self._launch_step(
+                "substeps_forward", qpos, qvel, target, packed, B
+            )
+            if B:
+                substeps_cuda.launches += 1
+        return qpos, qvel, normals
+
     def __call__(self, qpos, qvel, target, extra=None):
-        """Dispatch by device: the kernel for CUDA tensors, the plain
-        version for CPU tensors; any other device raises."""
+        """Dispatch by device: the kernels for CUDA tensors, the plain
+        versions for CPU tensors; any other device raises."""
         device = qpos.device
         if device.type == "cuda":
             return self.cuda(qpos, qvel, target, extra)
         if device.type == "cpu":
             return self.plain(qpos, qvel, target, extra)
         raise ValueError(f"the control step has no implementation for device {device}")
+
+
+@functools.lru_cache(maxsize=None)
+def _tri_columns(nv: int, device: torch.device) -> torch.Tensor:
+    """Columns of the flattened ``[nv·nv]`` matrix in packed order."""
+    return torch.tensor([i * nv + j for i, j in _tri_indices(nv)], device=device)
+
+
+def pack_factor(chol: torch.Tensor) -> torch.Tensor:
+    """``chol[B, nv, nv]`` -> the packed lower triangle ``[B, nv (nv + 1)
+    / 2]`` in the order of :func:`_tri_indices`, as the substeps kernel
+    reads it."""
+    nv = chol.shape[-1]
+    flat = chol.reshape(chol.shape[0], nv * nv)
+    return flat.index_select(1, _tri_columns(nv, chol.device))
 
 
 def _spatial_inertia_blocks(model: Model, i: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -407,8 +603,45 @@ def control_step_cuda(model: Model, qpos, qvel, target, kp: float, dt: float,
     return plan.cuda(qpos, qvel, target, extra)
 
 
-# Counted in ControlStepPlan.cuda, where the kernel launches.
+def _sampler_plan(model: Model, grid: HeightGrid) -> ControlStepPlan:
+    # The sampler reads the tree and the geoms of the shared struct; the
+    # gains and the step length in it are not its concern.
+    return ControlStepPlan(model, 0.0, 0.0, 0, terrain=grid)
+
+
+def plane_sampler_plain(model: Model, grid: HeightGrid, qpos):
+    """The plain PyTorch version of the plane sampler: ``qpos[B, nq] ->
+    planes[B, 3·n_geoms]``, ``(c, gx, gy)`` per ground geom, float32."""
+    return _sampler_plan(model, grid).sample_planes_plain(qpos)
+
+
+def plane_sampler_cuda(model: Model, grid: HeightGrid, qpos):
+    """The plane sampler through its CUDA kernel, on the current stream
+    (same signature as :func:`plane_sampler_plain`)."""
+    return _sampler_plan(model, grid).sample_planes_cuda(qpos)
+
+
+def substeps_plain(model: Model, qpos, qvel, target, chol, kp: float, dt: float,
+                   n_substeps: int):
+    """The plain PyTorch version of the substeps kernel: ``n_substeps``
+    substeps with the factor ``chol[B, nv, nv]`` of ``M + dt·D`` handed
+    in; flat ground, no per-env lanes. Returns ``(qpos', qvel',
+    normals[B, n_geoms])`` of the last substep."""
+    return ControlStepPlan(model, kp, dt, n_substeps).substeps_plain(qpos, qvel, target, chol)
+
+
+def substeps_cuda(model: Model, qpos, qvel, target, chol, kp: float, dt: float,
+                  n_substeps: int):
+    """``n_substeps`` substeps in ONE launch of the substeps kernel, on
+    the current stream (same signature as :func:`substeps_plain`)."""
+    return ControlStepPlan(model, kp, dt, n_substeps).substeps_cuda(qpos, qvel, target, chol)
+
+
+# Counted in ControlStepPlan.cuda / .sample_planes_cuda / .substeps_cuda,
+# where each kernel launches.
 control_step_cuda.launches = 0
+plane_sampler_cuda.launches = 0
+substeps_cuda.launches = 0
 
 
 def make_control_step_runner(
@@ -418,7 +651,7 @@ def make_control_step_runner(
     n_substeps: int,
     exact: bool = False,
     *,
-    terrain: Optional[Terrain] = None,
+    terrain: Union[Terrain, HeightGrid, None] = None,
     dr_fields: Sequence[str] = (),
     has_push: bool = False,
 ) -> ControlStepPlan:
@@ -426,8 +659,52 @@ def make_control_step_runner(
     -> (qpos', qvel', normals[B, n_geoms])`` for one env configuration:
     one kernel launch per control step on CUDA tensors, the plain version
     on CPU tensors. ``exact`` rebuilds the factor at every substep (exact
-    dynamics instead of the held-factor approximation). ``extra`` is
-    ``[len(dr_fields) + 3·has_push]`` wide; when both are off the runner
-    takes three arguments. The runner is the (callable) plan."""
+    dynamics instead of the held-factor approximation). ``terrain`` is an
+    analytic ``Terrain`` (wave sums inside the kernel) or a ``HeightGrid``:
+    then the runner first samples each ground geom's tangent plane (the
+    plane-sampler kernel, one more launch) and the control step holds the
+    planes frozen over its substeps. ``extra`` is ``[len(dr_fields) +
+    3·has_push]`` wide; when both are off the runner takes three
+    arguments. The runner is the (callable) plan."""
     return ControlStepPlan(model, kp, dt, n_substeps, exact, terrain=terrain,
                            dr_fields=dr_fields, has_push=has_push)
+
+
+class SubstepRunner:
+    """``run(qpos, qvel, target, chol[B, nv, nv])`` over ``n_substeps``
+    substeps, ``substeps_per_kernel`` of them per launch."""
+
+    def __init__(self, model: Model, kp: float, dt: float, n_substeps: int,
+                 substeps_per_kernel: int = 1):
+        if substeps_per_kernel in (0, -1):
+            substeps_per_kernel = n_substeps
+        if substeps_per_kernel < 1 or n_substeps % substeps_per_kernel != 0:
+            raise ValueError(
+                f"n_substeps ({n_substeps}) must be a multiple of "
+                f"substeps_per_kernel ({substeps_per_kernel})"
+            )
+        self.n_substeps = int(n_substeps)
+        self.substeps_per_kernel = int(substeps_per_kernel)
+        self.plan = ControlStepPlan(model, kp, dt, self.substeps_per_kernel)
+
+    def __call__(self, qpos, qvel, target, chol):
+        device = qpos.device
+        if device.type == "cuda":
+            step = self.plan.substeps_cuda
+        elif device.type == "cpu":
+            step = self.plan.substeps_plain
+        else:
+            raise ValueError(f"the substeps have no implementation for device {device}")
+        return step(qpos, qvel, target, chol, self.n_substeps // self.substeps_per_kernel)
+
+
+def make_substep_runner(model: Model, kp: float, dt: float, n_substeps: int,
+                        substeps_per_kernel: int = 1) -> SubstepRunner:
+    """``run(qpos[B, nq], qvel[B, nv], target[B, nj], chol[B, nv, nv]) ->
+    (qpos', qvel', normals[B, n_geoms])`` with the lower Cholesky factor
+    of ``M + dt·D`` built by the caller and held over the control step
+    (``pallas_step.py::make_substep_runner``): ``n_substeps /
+    substeps_per_kernel`` launches of the substeps kernel on CUDA tensors,
+    the plain version on CPU tensors. ``substeps_per_kernel`` of 0 or -1
+    means all of them in one launch; ``n_substeps`` must be a multiple."""
+    return SubstepRunner(model, kp, dt, n_substeps, substeps_per_kernel)

@@ -2,9 +2,8 @@
 the control-step kernel.
 
 Port of ``nnx_ppo_tpu/physics/engine_soa.py`` (``_kin_soa`` :190,
-``crba_chol_soa`` :230, ``substep_soa`` :377 and the two
-``*_unsupported_reason`` guards). ``heightgrid_planes_soa`` (:80) is not
-ported yet: it belongs to the plane-sampler kernel's slice.
+``crba_chol_soa`` :230, ``substep_soa`` :377, ``heightgrid_planes_soa``
+:80 and the two ``*_unsupported_reason`` guards).
 
 One semi-implicit-Euler substep of the legged-robot path: kinematics →
 velocities → RNEA bias → penalty contacts (ground + sphere-sphere
@@ -55,18 +54,20 @@ def soa_features_unsupported_reason(
     """Why the SoA substep cannot run with these per-env FEATURES — or
     ``None`` if it can. Complements :func:`soa_unsupported_reason`
     (model structure) with the production-realism feature set: analytic
-    :class:`~nnx_ppo_tpu_torch.physics.terrain.Terrain` heightfields, scalar
+    :class:`~nnx_ppo_tpu_torch.physics.terrain.Terrain` heightfields,
+    :class:`~nnx_ppo_tpu_torch.physics.terrain.HeightGrid` data terrain, scalar
     per-env :class:`~nnx_ppo_tpu_torch.physics.randomize.DomainRandomization`
     draws, and trunk push forces (always supported — an extra additive
     lane, no check needed)."""
     if terrain is not None:
-        from nnx_ppo_tpu_torch.physics.terrain import Terrain
+        from nnx_ppo_tpu_torch.physics.terrain import HeightGrid, Terrain
 
-        if not isinstance(terrain, Terrain):
+        if not isinstance(terrain, (Terrain, HeightGrid)):
             return (
                 "SoA substep supports analytic Terrain heightfields "
-                "(in-kernel wave sums) only; HeightGrid data terrain is "
-                "not ported yet"
+                "(in-kernel wave sums) and HeightGrid data terrain "
+                "(per-control-step tangent-plane lanes from the plane "
+                "sampler) only"
             )
     if randomize is not None:
         from nnx_ppo_tpu_torch.physics.randomize import DomainRandomization
@@ -77,6 +78,30 @@ def soa_features_unsupported_reason(
                 "only (per-body overrides need one lane per body)"
             )
     return None
+
+
+def heightgrid_planes_soa(grid, model: Model, E, P):
+    """Per-ground-geom frozen tangent planes ``(c, gx, gy)`` of a
+    :class:`~nnx_ppo_tpu_torch.physics.terrain.HeightGrid`, sampled at each
+    geom's current world xy, on ``[B]`` lanes: the plain version of the
+    plane-sampler kernel (``csrc/plane_sampler.cu``) together with
+    :func:`_kin_soa`.
+
+    ``E`` / ``P`` are the per-body world rotations / origins from
+    ``_kin_soa`` at control-step start. The JAX function reads the table
+    through one-hot matrix products because the TPU kernel has no gather,
+    and takes the table as an argument because it is a kernel operand
+    there; here the grid indexes its own table on the lanes' device
+    (``HeightGrid.plane_xy``, which also fixes the order of the
+    arithmetic). Returns a tuple of per-geom ``(c, gx, gy)`` lane triples
+    for ``substep_soa(terrain_planes=...)``.
+    """
+    planes = []
+    for gidx, b in enumerate(model.geom_body):
+        offset = _const3(model.geom_offset[gidx])
+        x_w = soa.v3_add(P[b], soa.m3_vec(E[b], offset))
+        planes.append(grid.plane_xy(x_w[0], x_w[1]))
+    return tuple(planes)
 
 
 def _terrain_height_soa(terrain, x, y):
@@ -307,8 +332,8 @@ def substep_soa(model: Model, qpos, qvel, target, chol, kp: float, dt: float,
       terrain_planes: optional tuple of per-ground-geom ``(c, gx, gy)``
         lane triples — each geom's LOCAL tangent plane
         ``h(x, y) = c + gx·x + gy·y``, sampled from a data heightfield
-        once per control step and held frozen over the substeps (the
-        sampler is not ported yet; the lanes are). The contact model is
+        once per control step and held frozen over the substeps
+        (:func:`heightgrid_planes_soa`). The contact model is
         already first-order in the
         surface at the sphere center, so freezing the tangent plane
         for one control step (~1-2 cm of foot travel) adds only the

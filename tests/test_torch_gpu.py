@@ -13,9 +13,20 @@ from nnx_ppo_tpu_torch.algorithms import PPOConfig, make_optimizer, new_training
 from nnx_ppo_tpu_torch.envs import CartpoleBalance
 from nnx_ppo_tpu_torch.networks import make_mlp_actor_critic
 from nnx_ppo_tpu_torch.ops.gae import gae, gae_cuda, gae_scan
-from nnx_ppo_tpu_torch.physics.cuda_step import ControlStepPlan, control_step_cuda
+from nnx_ppo_tpu_torch.envs import QuadrupedJoystick
+from nnx_ppo_tpu_torch.physics.cuda_step import (
+    ControlStepPlan,
+    control_step_cuda,
+    make_control_step_runner,
+    make_substep_runner,
+    plane_sampler_cuda,
+    plane_sampler_plain,
+    substeps_cuda,
+    substeps_plain,
+)
+from nnx_ppo_tpu_torch.physics.engine import mass_matrix_factor
 from nnx_ppo_tpu_torch.physics.models.quadruped import default_qpos, make_quadruped
-from nnx_ppo_tpu_torch.physics.terrain import rough_terrain
+from nnx_ppo_tpu_torch.physics.terrain import HeightGrid, rough_terrain
 from nnx_ppo_tpu_torch.physics.testing import standing_states
 from nnx_ppo_tpu_torch.wrappers import EpisodeWrapper
 
@@ -156,3 +167,100 @@ def test_control_step_kernel_rejects_wrong_shapes(cuda):
         plan(*args, torch.zeros(1000, 7, device=cuda))
     with pytest.raises(ValueError):
         plan.cuda(*(x.cpu() for x in args))
+
+
+# -- the plane sampler and the substeps kernel ---------------------------------
+
+ROUGH = dict(seed=2, amplitude=0.03, wavelength=1.5)
+# (batch, table points per side, table half-extent in metres): the
+# data-terrain path's own table, and a small one that some of the envs
+# (spread over +-5 m) stand outside of.
+SAMPLER_CASES = {"2048_on_256": (2048, 256, 12.0), "ragged_1000_partly_outside_32": (1000, 32, 3.0)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SAMPLER_CASES))
+def test_plane_sampler_kernel_matches_plain_version(cuda, case):
+    """The kernel repeats the plain version's float32 operations in its
+    order (reciprocal spacings, x then y, no fused multiply-adds): equal
+    to the bit."""
+    B, n, extent = SAMPLER_CASES[case]
+    model = make_quadruped()
+    grid = HeightGrid.sample(rough_terrain(**ROUGH), extent=extent, n=n)
+    qpos = torch.tensor(standing_states(model, default_qpos(model), B, seed=5)["qpos"], device=cuda)
+    before = plane_sampler_cuda.launches
+    got = plane_sampler_cuda(model, grid, qpos)
+    assert plane_sampler_cuda.launches == before + 1
+    want = plane_sampler_plain(model, grid, qpos)
+    assert got.shape == (B, 24) and torch.isfinite(got).all()
+    outside = (qpos[:, 0].abs() > extent) | (qpos[:, 1].abs() > extent)
+    assert bool(outside.any()) == (extent < 5.0)
+    assert (want[:, 1::3].abs() > 1e-3).any()  # real slopes under the feet
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_heightgrid_runner_launches_sampler_then_control_step(cuda):
+    model = make_quadruped()
+    terrain = rough_terrain(**ROUGH)
+    grid = HeightGrid.sample(terrain, extent=12.0, n=256)
+    arrays = standing_states(model, default_qpos(model), 1000, seed=3, terrain=terrain)
+    args = [torch.tensor(arrays[k], device=cuda) for k in ("qpos", "qvel", "target")]
+    run = make_control_step_runner(model, 60.0, 0.002, 10, terrain=grid)
+    before = (plane_sampler_cuda.launches, control_step_cuda.launches)
+    got = run(*args)
+    assert (plane_sampler_cuda.launches, control_step_cuda.launches) == (before[0] + 1, before[1] + 1)
+    want = run.plain(*args)
+    assert (want[2] > 0).any() and (want[2] == 0).any()
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=2e-4)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=2e-3)
+    torch.testing.assert_close(got[2], want[2], rtol=5e-3, atol=5e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_kernel", [-1, 1, 5])
+def test_substeps_kernel_matches_plain_version_on_the_same_factor(cuda, per_kernel):
+    """Both sides take the factor built outside, so they differ only as
+    the control-step kernel and its plain version do: ten substeps qpos
+    2e-4, qvel 2e-3, normals rtol 5e-3 / atol 5e-2."""
+    B = 2048 if per_kernel == -1 else 1000
+    model = make_quadruped(self_collision=True, joint_limits=True)
+    arrays = standing_states(model, default_qpos(model), B, seed=3)
+    qpos, qvel, target = (torch.tensor(arrays[k], device=cuda) for k in ("qpos", "qvel", "target"))
+    chol = mass_matrix_factor(model, qpos, dt=0.002)
+    run = make_substep_runner(model, 60.0, 0.002, 10, substeps_per_kernel=per_kernel)
+    before = substeps_cuda.launches
+    got = run(qpos, qvel, target, chol)
+    assert substeps_cuda.launches == before + (1 if per_kernel == -1 else 10 // per_kernel)
+    want = substeps_plain(model, qpos, qvel, target, chol, 60.0, 0.002, 10)
+    assert (want[2] > 0).any() and (want[2] == 0).any()
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=2e-4)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=2e-3)
+    torch.testing.assert_close(got[2], want[2], rtol=5e-3, atol=5e-2)
+    with pytest.raises(ValueError):
+        run(qpos, qvel, target, chol[:, :5])
+    with pytest.raises(ValueError):
+        substeps_cuda(model, qpos.cpu(), qvel.cpu(), target.cpu(), chol.cpu(), 60.0, 0.002, 10)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["heightgrid", "passed_in_factor"])
+def test_new_env_paths_step_on_the_card_through_their_kernels(cuda, path):
+    if path == "heightgrid":
+        env = QuadrupedJoystick(
+            reuse_mass_matrix=True,
+            terrain=HeightGrid.sample(rough_terrain(**ROUGH), extent=12.0, n=256),
+        )
+        counters, per_step = (plane_sampler_cuda, control_step_cuda), (1, 1)
+    else:
+        env = QuadrupedJoystick(
+            reuse_mass_matrix=True, pallas_in_kernel_factor=False, pallas_substeps_per_kernel=5
+        )
+        counters, per_step = (substeps_cuda, control_step_cuda), (2, 0)
+    generator = torch.Generator(device=cuda).manual_seed(0)
+    state = env.reset(256, generator)
+    before = [c.launches for c in counters]
+    state = env.step(state, torch.zeros(256, 12, device=cuda), generator)
+    assert [c.launches - b for c, b in zip(counters, before)] == list(per_step)
+    assert torch.isfinite(state.obs["proprio"]).all() and state.obs["proprio"].is_cuda
+    assert (state.metrics["contact_force"] > 0).any()

@@ -8,11 +8,18 @@ over envs and hand them to the port's ``_reset_from`` / ``_step_from``.
 The JAX env runs its SoA path (``substep_impl="pallas"``, whose
 unbatched call is the scalar-lane function, no kernel launch), eagerly.
 
+The two further paths of the quadruped, data terrain (a HeightGrid
+through the plane sampler) and the factor built outside the kernel
+(``pallas_in_kernel_factor=False``), run bare: no randomization, pushes
+or sensor noise, as the JAX package benchmarks them.
+
 Tolerances: reset is elementwise float32, 1e-6. One env step is two
 physics substeps: qpos 2e-4, qvel 2e-3 (see test_torch_physics.py), and
 what is computed from them follows: obs 2e-3 (it holds qvel), rewards
 1e-4, contact force rtol 5e-3 / atol 5e-2.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +29,7 @@ import torch
 
 from nnx_ppo_tpu.envs import QuadrupedJoystick as JaxQuadrupedJoystick
 from nnx_ppo_tpu.physics import DomainRandomization as JaxDomainRandomization
+from nnx_ppo_tpu.physics.terrain import HeightGrid as JaxHeightGrid
 from nnx_ppo_tpu.physics.terrain import rough_terrain as jax_rough_terrain
 from nnx_ppo_tpu_torch.algorithms import (
     PPOConfig,
@@ -29,7 +37,7 @@ from nnx_ppo_tpu_torch.algorithms import (
     new_training_state,
     ppo_step,
 )
-from nnx_ppo_tpu_torch.convert import legged_state_data
+from nnx_ppo_tpu_torch.convert import heightgrid_from_fields, legged_state_data
 from nnx_ppo_tpu_torch.envs import LeggedJoystick, QuadrupedJoystick, State, legged_from_mjcf
 from nnx_ppo_tpu_torch.networks import (
     Concat,
@@ -42,7 +50,11 @@ from nnx_ppo_tpu_torch.networks import (
 )
 from nnx_ppo_tpu_torch.ops.gae import gae_cuda
 from nnx_ppo_tpu_torch.physics import DomainParams, DomainRandomization, HeightGrid
-from nnx_ppo_tpu_torch.physics.cuda_step import control_step_cuda
+from nnx_ppo_tpu_torch.physics.cuda_step import (
+    control_step_cuda,
+    plane_sampler_cuda,
+    substeps_cuda,
+)
 from nnx_ppo_tpu_torch.physics.terrain import rough_terrain
 from nnx_ppo_tpu_torch.wrappers import EpisodeWrapper
 
@@ -257,20 +269,172 @@ def test_exact_mode_is_the_default_and_differs_from_held():
 
 
 @pytest.mark.parametrize(
-    "build, match",
+    "build, error, match",
     [
-        (lambda: legged_from_mjcf("<mujoco/>"), "legged_from_mjcf"),
-        (lambda: QuadrupedJoystick(depthwise=True), "depthwise"),
-        (lambda: QuadrupedJoystick(pallas_in_kernel_factor=False), "pallas_in_kernel_factor"),
-        (lambda: QuadrupedJoystick(terrain=object()), "HeightGrid"),
-        (lambda: HeightGrid(np.zeros((2, 2)), 0.0, 0.0, 1.0, 1.0), "HeightGrid"),
-        (lambda: QuadrupedJoystick().render([]), "render"),
+        (lambda: legged_from_mjcf("<mujoco/>"), NotImplementedError, "legged_from_mjcf"),
+        (lambda: QuadrupedJoystick(depthwise=True), NotImplementedError, "depthwise"),
+        # A terrain that is neither analytic nor a HeightGrid is refused.
+        (lambda: QuadrupedJoystick(terrain=object()), ValueError, "HeightGrid"),
+        (lambda: QuadrupedJoystick().render([]), NotImplementedError, "render"),
     ],
-    ids=["mjcf", "depthwise", "legacy_kernel", "grid_terrain", "heightgrid", "render"],
+    ids=["mjcf", "depthwise", "grid_terrain", "render"],
 )
-def test_left_features_raise_not_implemented(build, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_left_features_raise_not_implemented(build, error, match):
+    with pytest.raises(error, match=match):
         build()
+
+
+# -- the two further paths: data terrain, and the factor built outside -----------
+
+BARE_KW = dict(reuse_mass_matrix=True, n_substeps=2, command_resample_prob=0.5)
+
+
+def path_envs(path):
+    """(JAX env on its kernel path, the port's env) of one path."""
+    if path == "heightgrid":
+        jg = JaxHeightGrid.sample(jax_rough_terrain(**ROUGH), extent=8.0, n=48)
+        tg = heightgrid_from_fields(np.asarray(jg.data), jg.x0, jg.y0, jg.dx, jg.dy)
+        return (
+            JaxQuadrupedJoystick(terrain=jg, substep_impl="pallas", **BARE_KW),
+            QuadrupedJoystick(terrain=tg, **BARE_KW),
+        )
+    kw = dict(BARE_KW, pallas_in_kernel_factor=False, pallas_substeps_per_kernel=-1)
+    return JaxQuadrupedJoystick(substep_impl="pallas", **kw), QuadrupedJoystick(**kw)
+
+
+@pytest.fixture(scope="module", params=["heightgrid", "passed_in_factor"])
+def path_trajectory(request):
+    """JAX reset and one step of B bare envs with their draws, and the
+    port's env of the same path."""
+    jax_env_, port = path_envs(request.param)
+    keys = [jax.random.key(s) for s in (0, 3)]
+    # Gentle actions and a start 1 cm below the reset pose, so that a
+    # foot still presses on the ground in the step's second substep (a
+    # leg swung hard lifts its foot within two substeps).
+    actions = np.random.RandomState(1).uniform(-0.3, 0.3, (B, 12)).astype(np.float32)
+    resets = [jax_env_.reset(k) for k in keys]
+    lowered = [
+        dataclasses.replace(s, data=dict(s.data, qpos=s.data["qpos"].at[2].add(-0.01))) for s in resets
+    ]
+    reset_draws, step_draws = [], []
+    for k, s in zip(keys, resets):
+        k_pose, k_vel, k_cmd, _, k_xy, _, _ = jax.random.split(k, 7)
+        reset_draws.append({
+            "joint_noise": jax.random.normal(k_pose, (12,)),
+            "qvel_noise": jax.random.normal(k_vel, (18,)),
+            "command": jax.random.uniform(k_cmd, (3,), minval=-1.0, maxval=1.0),
+            "spawn": jax.random.uniform(k_xy, (2,), minval=-1.0, maxval=1.0),
+        })
+        resample_key, cmd_key, _, _ = jax.random.split(s.data["key"], 4)
+        step_draws.append({
+            "resample": jax.random.bernoulli(resample_key, 0.5),
+            "command": jax.random.uniform(cmd_key, (3,), minval=-1.0, maxval=1.0),
+        })
+    steps = [jax_env_.step(s, jnp.asarray(a)) for s, a in zip(lowered, actions)]
+
+    def strip(state):
+        data = {k: v for k, v in state.data.items() if k != "key"}
+        return dict(data=data, obs=state.obs, reward=state.reward, done=state.done,
+                    metrics=state.metrics)
+
+    return dict(
+        path=request.param, port=port, actions=actions,
+        reset=stack_np([strip(s) for s in resets]), reset_draws=stack_np(reset_draws),
+        lowered=stack_np([strip(s) for s in lowered]),
+        step=stack_np([strip(s) for s in steps]), step_draws=stack_np(step_draws),
+    )
+
+
+def test_path_reset_matches_jax_with_injected_draws(path_trajectory):
+    """Spawn height, reward, done and metrics use the bilinear height on
+    data terrain: 1e-6."""
+    env, want = path_trajectory["port"], path_trajectory["reset"]
+    draws = {k: t(v) for k, v in path_trajectory["reset_draws"].items()}
+    state = env._reset_from(dict(draws, obs_noise=None))
+    for key in ("qpos", "qvel", "cmd", "prev_action"):
+        np.testing.assert_allclose(
+            state.data[key].numpy(), want["data"][key], rtol=0, atol=1e-6, err_msg=key
+        )
+    for key in ("proprio", "command"):
+        np.testing.assert_allclose(state.obs[key].numpy(), want["obs"][key], rtol=0, atol=1e-6)
+    for key in ("tracking", "penalty"):
+        np.testing.assert_allclose(state.reward[key].numpy(), want["reward"][key], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(
+        state.metrics["trunk_height"].numpy(), want["metrics"]["trunk_height"], rtol=0, atol=1e-6
+    )
+    on_terrain = path_trajectory["path"] == "heightgrid"
+    assert bool((state.data["qpos"][:, :2] != 0).any()) == on_terrain
+
+
+def test_path_step_matches_jax_with_injected_draws(path_trajectory):
+    """One env step of two substeps against the JAX env on its kernel
+    path (``substep_impl="pallas"``): frozen planes on data terrain, the
+    outside factor otherwise. qpos 2e-4, qvel 2e-3, obs 2e-3, rewards
+    1e-4, contact force rtol 5e-3 / atol 5e-2."""
+    env = path_trajectory["port"]
+    want0, want, draws = (path_trajectory[k] for k in ("lowered", "step", "step_draws"))
+    assert draws["resample"].any() and not draws["resample"].all()
+    state0 = State(
+        data=legged_state_data(want0["data"]), obs=None, reward=None,
+        done=torch.zeros(B), info={}, metrics={},
+    )
+    counters = (control_step_cuda, plane_sampler_cuda, substeps_cuda)
+    before = [c.launches for c in counters]
+    state = env._step_from(
+        state0, t(path_trajectory["actions"]), None,
+        (t(draws["resample"]), t(draws["command"])), None,
+    )
+    assert [c.launches for c in counters] == before  # CPU: the plain versions
+    np.testing.assert_allclose(state.data["qpos"].numpy(), want["data"]["qpos"], rtol=0, atol=2e-4)
+    np.testing.assert_allclose(state.data["qvel"].numpy(), want["data"]["qvel"], rtol=0, atol=2e-3)
+    np.testing.assert_allclose(state.data["cmd"].numpy(), want["data"]["cmd"], rtol=0, atol=1e-6)
+    for key in ("proprio", "command"):
+        np.testing.assert_allclose(state.obs[key].numpy(), want["obs"][key], rtol=0, atol=2e-3)
+    for key in ("tracking", "penalty"):
+        np.testing.assert_allclose(state.reward[key].numpy(), want["reward"][key], rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(state.done.numpy(), want["done"])
+    np.testing.assert_array_equal(
+        state.metrics["foot_contacts"].numpy(), want["metrics"]["foot_contacts"]
+    )
+    np.testing.assert_allclose(
+        state.metrics["contact_force"].numpy(), want["metrics"]["contact_force"], rtol=5e-3, atol=5e-2
+    )
+    assert (want["metrics"]["contact_force"] > 0).any()
+
+
+@pytest.mark.parametrize(
+    "kwargs, match",
+    [
+        (dict(), "reuse_mass_matrix=True"),
+        (dict(reuse_mass_matrix=True, terrain=rough_terrain(**ROUGH)), "flat z=0 ground"),
+        (dict(reuse_mass_matrix=True, randomize=DomainRandomization()), "DR overrides"),
+        (dict(reuse_mass_matrix=True, push_prob=0.1, push_force=50.0), "push forces"),
+        (dict(reuse_mass_matrix=True, n_substeps=10, pallas_substeps_per_kernel=4), "multiple"),
+    ],
+    ids=["exact_factor", "terrain", "randomize", "push", "4_of_10_substeps"],
+)
+def test_passed_in_factor_path_keeps_the_jax_refusals(kwargs, match):
+    """nnx_ppo_tpu/envs/legged.py:322-357 and pallas_step.py:657-663."""
+    with pytest.raises(ValueError, match=match):
+        QuadrupedJoystick(pallas_in_kernel_factor=False, **kwargs)
+
+
+def test_passed_in_factor_path_uses_the_substep_runner_only():
+    env = QuadrupedJoystick(
+        reuse_mass_matrix=True, pallas_in_kernel_factor=False, n_substeps=10,
+        pallas_substeps_per_kernel=5,
+    )
+    assert env._control_runner is None and env._substep_runner.substeps_per_kernel == 5
+    held = QuadrupedJoystick(reuse_mass_matrix=True, n_substeps=10)
+    assert held._substep_runner is None
+    s = held.reset(3, torch.Generator().manual_seed(0))
+    action = torch.full((3, 12), 0.5)
+    a = env.step(s, action, torch.Generator().manual_seed(1))
+    b = held.step(s, action, torch.Generator().manual_seed(1))
+    # The two factors agree to rounding, so the steps do (see
+    # test_torch_engine.py for the measured gap).
+    torch.testing.assert_close(a.data["qpos"], b.data["qpos"], rtol=0, atol=2e-6)
+    torch.testing.assert_close(a.data["qvel"], b.data["qvel"], rtol=0, atol=2e-4)
 
 
 def test_legged_joystick_is_generic_over_the_model():
@@ -337,6 +501,34 @@ def test_physics_leg_ppo_step_on_the_cpu(shuffle):
     )
     assert ts.env_states.obs["proprio"].shape == (8, 42)
     assert set(ts.env_states.reward) == {"tracking", "penalty"}
+
+
+@pytest.mark.parametrize("path", ["heightgrid", "passed_in_factor"])
+def test_further_paths_ppo_step_on_the_cpu(path):
+    """Each further path as a whole at a small size: 8 envs, finite
+    losses, parameters moved, no kernel launched on CPU tensors."""
+    if path == "heightgrid":
+        grid = HeightGrid.sample(rough_terrain(**ROUGH), extent=12.0, n=32)
+        legged = QuadrupedJoystick(reuse_mass_matrix=True, terrain=grid, n_substeps=2)
+    else:
+        legged = QuadrupedJoystick(
+            reuse_mass_matrix=True, pallas_in_kernel_factor=False, pallas_substeps_per_kernel=-1,
+            n_substeps=2,
+        )
+    env = EpisodeWrapper(legged, max_len=500)
+    config = PPOConfig(n_envs=8, rollout_length=3, n_epochs=2, n_minibatches=2, combine_advantages=True)
+    optimizer = make_optimizer(config.learning_rate)
+    ts = new_training_state(env, physics_net(), 8, seed=0, optimizer=optimizer, device="cpu")
+    before_params = [p.detach().clone() for p in ts.networks.parameters()]
+    counters = (control_step_cuda, plane_sampler_cuda, substeps_cuda, gae_cuda)
+    launches = [c.launches for c in counters]
+    ts, metrics = ppo_step(env, ts, config, optimizer)
+    assert [c.launches for c in counters] == launches
+    assert ts.steps_taken == 24
+    for key in ("losses/actor/mean", "losses/critic/tracking/mean", "losses/critic/penalty/mean"):
+        assert torch.isfinite(metrics[key]), key
+    assert any(not torch.equal(a, b) for a, b in zip(before_params, ts.networks.parameters()))
+    assert torch.isfinite(ts.env_states.obs["proprio"]).all()
 
 
 def test_identity_domain_params_match_the_unrandomized_step():

@@ -109,8 +109,13 @@ def test_terrain_height_grad_normal_match_jax(name):
 
 
 def test_heightgrid_is_not_ported():
-    with pytest.raises(NotImplementedError, match="HeightGrid"):
-        terrain.HeightGrid(np.zeros((4, 4)), 0.0, 0.0, 1.0, 1.0)
+    """What of HeightGrid stays behind: the TPU's no-gather form (one-hot
+    matrix products) has no counterpart; the class itself is ported
+    (tests/test_torch_heightgrid.py) and indexes its table directly."""
+    grid = terrain.HeightGrid(np.zeros((4, 4)), 0.0, 0.0, 1.0, 1.0)
+    assert not hasattr(grid, "_use_dot") and not hasattr(grid, "_plane_via_dot")
+    assert hasattr(jax_terrain.HeightGrid, "_plane_via_dot")
+    assert float(grid.height(torch.tensor([[1.5, 2.5]]))) == 0.0
 
 
 # -- shared inputs ------------------------------------------------------------
