@@ -8,7 +8,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 1. device: the card's name and power limit, from nvidia-smi;
 2. build: every hand-written kernel of the training paths (GAE, the
    physics control step with its substeps entry point, the plane
-   sampler), compiled with nvcc from the sources in
+   sampler, the scene control step at the pusher's and the reacher's
+   sizes), compiled with nvcc from the sources in
    nnx_ppo_tpu_torch/csrc/, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the training paths' shapes (and a ragged one), then timed with CUDA
@@ -26,12 +27,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    randomization or pushes: plane sampler, then control step); and the
    passed-in-factor path (flat ground, the factor of M + dt D built
    outside the kernel, all ten substeps in one launch of the substeps
-   kernel);
-5. reference: for the flagship and the physics leg the PPO loss and its
-   gradients on the card against the same computation on the CPU (plain
-   versions) for one minibatch, and for each quadruped path one env step
-   on the card (kernels) against the CPU (plain versions) from the same
-   state, action and draws.
+   kernel); and the two manipulation paths at 4096 envs, T=20, actor
+   128x2, critic 256x2, obs normalization: the pusher (ArmPush with a
+   200-step time limit: arm, free ball and their cross contact, 16
+   substeps in one launch of the scene kernel) and the reacher
+   (ArmReacher, 150-step limit, the arm alone, 4 substeps);
+5. reference: for the flagship, the physics leg and the pusher the PPO
+   loss and its gradients on the card against the same computation on
+   the CPU (plain versions) for one minibatch, and for each quadruped
+   and manipulation path one env step on the card (kernels) against the
+   CPU (plain versions) from the same state, action and draws.
 
 It prints a ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``. With no CUDA device it exits 1 and
@@ -67,6 +72,8 @@ HEIGHTGRID_STEPS_CHECKED = 2
 HEIGHTGRID_STEPS_TIMED = 5
 XLAFACTOR_STEPS_CHECKED = 1
 XLAFACTOR_STEPS_TIMED = 3
+MANIPULATION_STEPS_CHECKED = 2
+MANIPULATION_STEPS_TIMED = 5
 
 
 def check(ok: bool, what: str) -> None:
@@ -578,6 +585,111 @@ def substeps_kernel_phase(torch, profile: bool) -> dict:
     }
 
 
+# The scene control-step configurations checked against the plain version:
+# name -> (env, batch).
+SCENE_STEP_CASES = {
+    "pusher, B=4096": ("pusher", 4096),
+    "reacher, B=4096": ("reacher", 4096),
+    "pusher, B=1000": ("pusher", 1000),
+}
+
+
+def scene_step_case(name: str, torch):
+    """(plan, args on the card) of one scene configuration: the runner of
+    the env itself (pusher: arm + ball + cross pair, 16 substeps of 1.25
+    ms; reacher: the arm alone, 4 substeps of 5 ms) on seeded states."""
+    from nnx_ppo_tpu_torch.envs import ArmPush, ArmReacher
+    from nnx_ppo_tpu_torch.envs.pusher import SHOULDER_HEIGHT
+    from nnx_ppo_tpu_torch.physics.testing import manipulation_states
+
+    kind, B = SCENE_STEP_CASES[name]
+    if kind == "pusher":
+        plan = ArmPush()._scene_runner
+        arrays = manipulation_states(B, seed=7, with_ball=True, shoulder_height=SHOULDER_HEIGHT)
+    else:
+        plan = ArmReacher()._scene_runner
+        arrays = manipulation_states(B, seed=8, with_ball=False)
+    return plan, [torch.tensor(arrays[k], device="cuda") for k in ("qpos", "qvel", "tau")]
+
+
+def scene_step_kernel_phase(torch) -> dict:
+    """The scene kernel against its plain version on the card. The kernel
+    repeats the plain version's float32 operations in its order, so 0 is
+    expected; the stated tolerances are those the JAX package holds its
+    lane code to against its generic engine: qpos 2e-5, qvel 5e-4,
+    normals 1e-4 (rtol = atol)."""
+    from nnx_ppo_tpu_torch.physics.cuda_scene_step import scene_step_cuda
+
+    max_err = 0.0
+    cases = {}
+    for name in SCENE_STEP_CASES:
+        plan, args = scene_step_case(name, torch)
+        before = scene_step_cuda.launches
+        got = plan.cuda(*args)
+        check(scene_step_cuda.launches == before + 1, "the wrapper counted its launch")
+        want = plan.plain(*args)
+        torch.cuda.synchronize()
+        for x in got:
+            check(bool(torch.isfinite(x).all()), "kernel output is finite")
+        check(got[2].shape == (args[0].shape[0], plan.n_normals), "normals shape")
+        if len(plan.models) == 2:
+            # Columns: arm tip on the ground, ball on the ground, cross pair.
+            check(bool((want[2] > 0).any(dim=0).all() and (want[2] == 0).any(dim=0).all()),
+                  "each contact fires in some envs and not in others")
+        errs = {k: (g - w).abs().max().item()
+                for k, g, w in zip(("qpos", "qvel", "normals"), got, want)}
+        torch.testing.assert_close(got[0], want[0], rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(got[1], want[1], rtol=5e-4, atol=5e-4)
+        torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=1e-4)
+        max_err = max(max_err, *errs.values())
+        cases[name] = (plan, args)
+        print(f"scene_step {name}, {plan.n_substeps} substeps: max_abs_err qpos {errs['qpos']:.3g} "
+              f"(2e-5) qvel {errs['qvel']:.3g} (5e-4) normals {errs['normals']:.3g} (1e-4), "
+              f"normals max {want[2].max().item():.3g}")
+
+    timed = {}
+    for name in ("pusher, B=4096", "reacher, B=4096"):
+        plan, args = cases[name]
+        B = args[0].shape[0]
+        bytes_per_env = 4 * (2 * plan.nq + 3 * plan.nv + plan.n_normals)
+        ops_per_env = count_plain_operations(plan.plain, args, torch)
+        bound, bound_by = bound_ms(bytes_per_env * B, ops_per_env * B)
+        timed[name] = {
+            "ms": time_ms(lambda: plan.cuda(*args), 50, torch),
+            "kernel_device_ms": device_ms_per_call(
+                lambda: plan.cuda(*args), 20, "scene_step_kernel", torch
+            ),
+            "plain_ms": time_ms(lambda: plan.plain(*args), 1, torch),
+            "bound_ms": bound,
+            "bound_by": bound_by,
+            "ops_per_env": ops_per_env,
+            "bytes_per_env": bytes_per_env,
+            "shape": [B, plan.nq],
+            "n_substeps": plan.n_substeps,
+        }
+        print(f"scene_step {name}: {bytes_per_env} bytes and {ops_per_env:.0f} float operations "
+              f"per env and control step of {plan.n_substeps} substeps")
+    pusher = timed["pusher, B=4096"]
+    return {
+        "name": "scene_step",
+        "route": "cuda",
+        "source": "nnx_ppo_tpu_torch/csrc/scene_step.cu",
+        "replaces": "nnx_ppo_tpu/physics/pallas_step.py:794",
+        "launches": None,
+        "max_abs_err": max_err,
+        "ms": pusher["ms"],
+        "plain_ms": pusher["plain_ms"],
+        "bound_ms": pusher["bound_ms"],
+        "bound_by": pusher["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes a scene control step
+        "shape": pusher["shape"],
+        "kernel_device_ms": pusher["kernel_device_ms"],
+        "ops_per_env": pusher["ops_per_env"],
+        "bytes_per_env": pusher["bytes_per_env"],
+        "at_reacher_4096": timed["reacher, B=4096"],
+    }
+
+
 def flagship(torch):
     from nnx_ppo_tpu_torch.algorithms import PPOConfig, make_optimizer
     from nnx_ppo_tpu_torch.envs import CartpoleBalance
@@ -662,6 +774,39 @@ def xlafactor_leg(torch):
     ))
 
 
+def manipulation_leg(torch, inner, max_len: int):
+    """A manipulation training leg around ``inner``: time limit, the
+    one-actor one-critic MLP with obs normalization, 4096 envs, T=20, 4
+    epochs of 4 shuffled minibatches."""
+    from nnx_ppo_tpu_torch.algorithms import PPOConfig, make_optimizer
+    from nnx_ppo_tpu_torch.networks import make_mlp_actor_critic
+    from nnx_ppo_tpu_torch.wrappers import EpisodeWrapper
+
+    env = EpisodeWrapper(inner, max_len=max_len)
+    networks = make_mlp_actor_critic(
+        env.observation_size, env.action_size, [128, 128], [256, 256], 0,
+        entropy_weight=2e-3, normalize_obs=True,
+    )
+    config = PPOConfig(n_envs=4096, rollout_length=20)
+    return env, networks, config, make_optimizer(config.learning_rate)
+
+
+def pusher_leg(torch):
+    """The pusher path: arm, free ball and their cross contact, 16
+    substeps of 1.25 ms in one scene-kernel launch per control step."""
+    from nnx_ppo_tpu_torch.envs import ArmPush
+
+    return manipulation_leg(torch, ArmPush(), 200)
+
+
+def reacher_leg(torch):
+    """The reacher path: the arm alone (a scene of one tree), 4 substeps
+    of 5 ms in one scene-kernel launch per control step."""
+    from nnx_ppo_tpu_torch.envs import ArmReacher
+
+    return manipulation_leg(torch, ArmReacher(), 150)
+
+
 def check_finite(history: dict, torch) -> None:
     for name, v in history.items():
         check(bool(torch.isfinite(torch.as_tensor(v)).all()), f"{name} is finite")
@@ -692,7 +837,8 @@ def profile_step(torch, env, ts, config, optimizer, step_ms: float, profile_dir:
         f"ppo_step; unprofiled step {step_ms:.2f} ms; device idle share "
         f"{1 - busy_ms / step_ms:.3f}"
     )
-    for kernel in ("control_step_kernel", "plane_sampler_kernel", "substeps_kernel", "gae_kernel"):
+    for kernel in ("control_step_kernel", "plane_sampler_kernel", "substeps_kernel",
+                   "scene_step_kernel", "gae_kernel"):
         events = [e for e in device_events if kernel in e.key]
         if events:
             ms = sum(e.self_device_time_total for e in events) / 1e3
@@ -761,11 +907,11 @@ def flagship_path_phase(torch, kernels: list, profile_dir: str | None) -> dict:
     }
 
 
-def quadruped_path_phase(torch, kernels: list, profile_dir: str | None, label: str, leg,
-                         n_checked: int, n_timed: int, per_step: dict,
-                         n_noshuffle: int = 0) -> dict:
-    """One quadruped path at full width: ``n_checked`` checked and
-    ``n_timed`` timed steps with shuffled minibatches, then
+def physics_path_phase(torch, kernels: list, profile_dir: str | None, label: str, leg,
+                       n_checked: int, n_timed: int, per_step: dict,
+                       n_noshuffle: int = 0) -> dict:
+    """One quadruped or manipulation path at full width: ``n_checked``
+    checked and ``n_timed`` timed steps with shuffled minibatches, then
     ``n_noshuffle`` timed steps with contiguous ones. ``per_step`` maps
     each kernel wrapper's name to its launches per ``ppo_step``."""
     from nnx_ppo_tpu_torch.algorithms import new_training_state, ppo_multi_step
@@ -789,7 +935,14 @@ def quadruped_path_phase(torch, kernels: list, profile_dir: str | None, label: s
     check(ts.steps_taken == n_checked * per_env_steps, f"steps_taken {ts.steps_taken}")
     check_counts(n_checked)
     check_finite(history, torch)
-    check(ts.env_states.obs["proprio"].shape == (config.n_envs, 42), "proprio obs shape")
+    obs = ts.env_states.obs
+    if isinstance(obs, dict):
+        check(obs["proprio"].shape == (config.n_envs, 42), "proprio obs shape")
+        critic_key = "losses/critic/tracking/mean"
+    else:
+        check(obs.shape == (config.n_envs, env.observation_size), "obs shape")
+        check(bool(torch.isfinite(obs).all()), "obs is finite")
+        critic_key = "losses/critic/mean"
 
     t0 = time.perf_counter()
     ts, history = ppo_multi_step(env, ts, config, optimizer, n_timed, return_history=True)
@@ -829,7 +982,7 @@ def quadruped_path_phase(torch, kernels: list, profile_dir: str | None, label: s
         "env": env,
         "config": config,
         "actor_loss": float(history["losses/actor/mean"][-1]),
-        "critic_tracking_loss": float(history["losses/critic/tracking/mean"][-1]),
+        "critic_loss": float(history[critic_key][-1]),
     })
     return result
 
@@ -934,6 +1087,45 @@ def env_step_reference_phase(torch, label: str, env, kernels: list, per_env_step
     )
 
 
+def manipulation_env_step_reference_phase(torch, label: str, env, scene_wrapper) -> None:
+    """Two steps of a manipulation env on the card (the scene kernel)
+    against the CPU (the plain version) from the same reset state and
+    actions; the second step starts from a moving state. float32; sinf,
+    cosf and sqrtf of the card against the CPU's: qpos 2e-4, qvel 2e-3,
+    obs 2e-3 (it holds qvel), reward and distances 1e-4."""
+    from nnx_ppo_tpu_torch.core.struct import tree_map
+
+    inner, B = env.env, 128
+    generator = torch.Generator(device="cuda")
+    generator.manual_seed(11)
+    on_card = inner.reset(B, generator)
+    actions = 2.4 * torch.rand((2, B, inner.action_size), generator=generator, device="cuda") - 1.2
+    to_cpu = lambda tree: tree_map(lambda x: x.cpu(), tree)
+    on_cpu = to_cpu(on_card)
+    before = scene_wrapper.launches
+    for action in actions:
+        on_card = inner.step(on_card, action)
+    check(scene_wrapper.launches == before + 2, f"{label}: env.step on the card launched the kernel")
+    for action in actions.cpu():
+        on_cpu = inner.step(on_cpu, action)
+    check(scene_wrapper.launches == before + 2, f"{label}: env.step on the CPU ran the plain version")
+    torch.cuda.synchronize()
+    got, want = to_cpu(on_card), on_cpu
+    worst = {"qpos": 0.0, "qvel": 0.0}
+    for key in want.data:
+        kind = "qvel" if "qvel" in key else "qpos"
+        torch.testing.assert_close(got.data[key], want.data[key], rtol=0,
+                                   atol=2e-3 if kind == "qvel" else 2e-4)
+        worst[kind] = max(worst[kind], (got.data[key] - want.data[key]).abs().max().item())
+    torch.testing.assert_close(got.obs, want.obs, rtol=0, atol=2e-3)
+    torch.testing.assert_close(got.reward, want.reward, rtol=0, atol=1e-4)
+    torch.testing.assert_close(got.done, want.done, rtol=0, atol=0)
+    for key in want.metrics:
+        torch.testing.assert_close(got.metrics[key], want.metrics[key], rtol=0, atol=1e-4)
+    print(f"reference env.step {label}: max_abs_err qpos {worst['qpos']:.3g} qvel "
+          f"{worst['qvel']:.3g} over {B} envs and 2 steps")
+
+
 def learning_phase(torch, iterations: int) -> None:
     """train_ppo on the flagship for ``iterations`` PPO iterations, with a
     deterministic eval (64 envs, 500 steps) every tenth of the run."""
@@ -975,6 +1167,7 @@ def main() -> int:
 
     from nnx_ppo_tpu_torch.ops import cuda_build
     from nnx_ppo_tpu_torch.ops.gae import gae_cuda
+    from nnx_ppo_tpu_torch.physics.cuda_scene_step import scene_step_cuda
     from nnx_ppo_tpu_torch.physics.cuda_step import (
         control_step_cuda,
         plane_sampler_cuda,
@@ -990,17 +1183,20 @@ def main() -> int:
     # flat-ground control-step library, whose second entry point is the
     # substeps kernel.
     specs.update(plane_sampler_case(next(iter(PLANE_SAMPLER_CASES)), torch)[0].kernel_specs)
+    # The scene kernel at the pusher's and at the reacher's sizes.
+    specs.update(scene_step_case(name, torch)[0].kernel_spec for name in SCENE_STEP_CASES)
     # With --profile, also print what ptxas says of each kernel
     # (registers, stack, spills).
     cuda_build.build(["gae", *sorted(specs)], verbose=bool(args.profile))
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a, {1 + len(specs)} libraries "
           "at once)")
 
-    wrappers = [gae_cuda, control_step_cuda, plane_sampler_cuda, substeps_cuda]
+    wrappers = [gae_cuda, control_step_cuda, plane_sampler_cuda, substeps_cuda, scene_step_cuda]
     gae_kernel = gae_kernel_phase(torch)
     control_kernel = control_step_kernel_phase(torch, args.variants)
     sampler_kernel = plane_sampler_kernel_phase(torch)
     substeps_kernel = substeps_kernel_phase(torch, bool(args.profile))
+    scene_kernel = scene_step_kernel_phase(torch)
 
     flagship_path = flagship_path_phase(torch, wrappers, args.profile)
     flagship_env, _, flagship_config, _ = flagship(torch)
@@ -1008,51 +1204,66 @@ def main() -> int:
                          flagship_path["state"], n_gae=1)
 
     # Launches per ppo_step: one env step per rollout step (T = 20), one
-    # GAE per minibatch update (16) and reward key (2).
+    # GAE per minibatch update (16) and reward key (2 on the quadruped
+    # paths, 1 on the manipulation paths).
+    none = {k.__name__: 0 for k in wrappers}
     per_step = {
-        "physics": {"gae_cuda": 32, "control_step_cuda": 20, "plane_sampler_cuda": 0,
-                    "substeps_cuda": 0},
-        "heightgrid": {"gae_cuda": 32, "control_step_cuda": 20, "plane_sampler_cuda": 20,
-                       "substeps_cuda": 0},
-        "xlafactor": {"gae_cuda": 32, "control_step_cuda": 0, "plane_sampler_cuda": 0,
-                      "substeps_cuda": 20},
+        "physics": dict(none, gae_cuda=32, control_step_cuda=20),
+        "heightgrid": dict(none, gae_cuda=32, control_step_cuda=20, plane_sampler_cuda=20),
+        "xlafactor": dict(none, gae_cuda=32, substeps_cuda=20),
+        "pusher": dict(none, gae_cuda=16, scene_step_cuda=20),
+        "reacher": dict(none, gae_cuda=16, scene_step_cuda=20),
     }
-    physics_wrappers = wrappers[1:]
+    physics_wrappers = wrappers[1:4]
 
     def per_env_step(label: str) -> dict:
         return {k.__name__: per_step[label][k.__name__] // 20 for k in physics_wrappers}
 
-    physics_path = quadruped_path_phase(
+    physics_path = physics_path_phase(
         torch, wrappers, args.profile, "physics", physics_leg, PHYSICS_STEPS_CHECKED,
         PHYSICS_STEPS_TIMED, per_step["physics"], PHYSICS_STEPS_NOSHUFFLE,
     )
     loss_reference_phase(torch, "physics", physics_path["env"], physics_path["config"],
                          physics_path["state"], n_gae=2)
-    heightgrid_path = quadruped_path_phase(
+    heightgrid_path = physics_path_phase(
         torch, wrappers, args.profile, "heightgrid", heightgrid_leg, HEIGHTGRID_STEPS_CHECKED,
         HEIGHTGRID_STEPS_TIMED, per_step["heightgrid"],
     )
-    xlafactor_path = quadruped_path_phase(
+    xlafactor_path = physics_path_phase(
         torch, wrappers, args.profile, "xlafactor", xlafactor_leg, XLAFACTOR_STEPS_CHECKED,
         XLAFACTOR_STEPS_TIMED, per_step["xlafactor"],
     )
     quadruped_paths = {
         "physics": physics_path, "heightgrid": heightgrid_path, "xlafactor": xlafactor_path,
     }
+    manipulation_paths = {
+        label: physics_path_phase(
+            torch, wrappers, args.profile, label, leg, MANIPULATION_STEPS_CHECKED,
+            MANIPULATION_STEPS_TIMED, per_step[label],
+        )
+        for label, leg in (("pusher", pusher_leg), ("reacher", reacher_leg))
+    }
+    pusher_path = manipulation_paths["pusher"]
+    loss_reference_phase(torch, "pusher", pusher_path["env"], pusher_path["config"],
+                         pusher_path["state"], n_gae=1)
     # After every path has been driven and its counts read: these steps
     # launch kernels too and must not count as the main paths'.
     for label, path in quadruped_paths.items():
         env_step_reference_phase(torch, label, path["env"], physics_wrappers, per_env_step(label))
+    for label, path in manipulation_paths.items():
+        manipulation_env_step_reference_phase(torch, label, path["env"], scene_step_cuda)
     if args.learn:
         learning_phase(torch, args.learn)
 
     # Launches on the main paths only (the comparisons above do not
     # count: every count was set to 0 just before each path).
     by_path = {"flagship": flagship_path["launches"]}
-    by_path.update({label: path["launches"] for label, path in quadruped_paths.items()})
+    training_paths = {**quadruped_paths, **manipulation_paths}
+    by_path.update({label: path["launches"] for label, path in training_paths.items()})
     kernel_rows = {
         "gae_cuda": gae_kernel, "control_step_cuda": control_kernel,
         "plane_sampler_cuda": sampler_kernel, "substeps_cuda": substeps_kernel,
+        "scene_step_cuda": scene_kernel,
     }
     for wrapper_name, kernel in kernel_rows.items():
         kernel["launches_by_path"] = {k: p[wrapper_name] for k, p in by_path.items()}
@@ -1070,12 +1281,14 @@ def main() -> int:
         f"{flagship_path['train_sps_first_call']:.1f}) on {card}"
     )
     timed = {"physics": PHYSICS_STEPS_TIMED, "heightgrid": HEIGHTGRID_STEPS_TIMED,
-             "xlafactor": XLAFACTOR_STEPS_TIMED}
-    for label, path in quadruped_paths.items():
+             "xlafactor": XLAFACTOR_STEPS_TIMED, "pusher": MANIPULATION_STEPS_TIMED,
+             "reacher": MANIPULATION_STEPS_TIMED}
+    for label, path in training_paths.items():
         counts = ", ".join(f"{name} {n}" for name, n in by_path[label].items())
+        critic = "critic loss (tracking)" if label in quadruped_paths else "critic loss"
         print(
             f"{label}: {path['n_steps']} ppo_steps, launches: {counts}; actor loss "
-            f"{path['actor_loss']:.5f}, critic loss (tracking) {path['critic_tracking_loss']:.5f}"
+            f"{path['actor_loss']:.5f}, {critic} {path['critic_loss']:.5f}"
         )
         print(
             f"{label}_sps {path['sps']:.1f} (step {path['step_ms']:.2f} ms over "

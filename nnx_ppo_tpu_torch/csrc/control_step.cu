@@ -174,34 +174,8 @@ __device__ __noinline__ void crba_chol(const Params& p, const M3* Rcp,
   }
 }
 
-CS_FN float terrain_height(const Params& p, float x, float y) {
-  float h = p.slope[0] * x + p.slope[1] * y;
-  for (int k = 0; k < CS_NW; ++k)
-    h = h + p.wave_amp[k] *
-                sinf(p.wave_freq[k] * (p.wave_dx[k] * x + p.wave_dy[k] * y) + p.wave_phase[k]);
-  return h;
-}
-
-CS_FN V3 terrain_normal(const Params& p, float x, float y) {
-  float gx = 0.0f + p.slope[0];
-  float gy = 0.0f + p.slope[1];
-  for (int k = 0; k < CS_NW; ++k) {
-    const float c = p.wave_amp_freq[k] *
-                    cosf(p.wave_freq[k] * (p.wave_dx[k] * x + p.wave_dy[k] * y) + p.wave_phase[k]);
-    gx = gx + p.wave_dx[k] * c;
-    gy = gy + p.wave_dy[k] * c;
-  }
-  const float inv = 1.0f / sqrtf(gx * gx + gy * gy + 1.0f);
-  return v3(-gx * inv, -gy * inv, inv);
-}
-
-// Normal force of a penalty contact: spring-damper, active while
-// penetrating, never pulling, optionally capped.
-CS_FN float normal_force(const Params& p, float phi, float rate) {
-  float fn = phi > 0.0f ? fmaxf(p.contact_stiffness * phi - p.contact_damping * rate, 0.0f)
-                        : 0.0f;
-  if (isfinite(p.max_contact_force)) fn = fminf(fn, p.max_contact_force);
-  return fn;
+CS_FN float contact_normal_force(const Params& p, float phi, float rate) {
+  return normal_force(p.contact_stiffness, p.contact_damping, p.max_contact_force, phi, rate);
 }
 
 // One substep from (qpos, qvel), in place. E, P, Rcp are this qpos's
@@ -262,7 +236,7 @@ __device__ __noinline__ void substep(const Params& p, float* qpos, float* qvel,
       contact_offset = v3(offset.x + down.x * radius, offset.y + down.y * radius,
                           offset.z + down.z * radius);
       const V3 v_pt = m3_vec(E_b, add(lb, cross(wb, contact_offset)));
-      fn = normal_force(p, phi, v_pt.z);
+      fn = contact_normal_force(p, phi, v_pt.z);
       const float vt_norm = sqrtf(v_pt.x * v_pt.x + v_pt.y * v_pt.y + 1e-6f);
       const float s = -mu * fn / fmaxf(vt_norm, p.friction_vel);
       f_w = v3(s * v_pt.x, s * v_pt.y, fn);
@@ -283,7 +257,7 @@ __device__ __noinline__ void substep(const Params& p, float* qpos, float* qvel,
       contact_offset = add(offset, m3T_vec(E_b, scale(-radius, n)));
       const V3 v_pt = m3_vec(E_b, add(lb, cross(wb, contact_offset)));
       const float vn = dot(n, v_pt);
-      fn = normal_force(p, phi, vn);
+      fn = contact_normal_force(p, phi, vn);
       const V3 vt = sub(v_pt, scale(vn, n));
       const float vt_norm = sqrtf(dot(vt, vt) + 1e-6f);
       const float s = -mu * fn / fmaxf(vt_norm, p.friction_vel);
@@ -313,7 +287,7 @@ __device__ __noinline__ void substep(const Params& p, float* qpos, float* qvel,
     const V3 vel_b = m3_vec(E[bb], add(v[bb].l, cross(v[bb].w, r_b)));
     const V3 v_rel = sub(vel_b, vel_a);
     const float sep = dot(n, v_rel);  // separation rate
-    const float fn = normal_force(p, phi, sep);
+    const float fn = contact_normal_force(p, phi, sep);
     const V3 vt = sub(v_rel, scale(sep, n));
     const float vt_norm = sqrtf(dot(vt, vt) + 1e-6f);
     const float s = -mu * fn / fmaxf(vt_norm, p.friction_vel);
@@ -391,23 +365,7 @@ __device__ __noinline__ void substep(const Params& p, float* qpos, float* qvel,
   const V3 w_new = v3(qvel), v_new = v3(qvel + 3);
   const V3 pos_new = add(pos, scale(dt, m3_vec(E[0], v_new)));
   qpos[0] = pos_new.x; qpos[1] = pos_new.y; qpos[2] = pos_new.z;
-  {
-    // q <- normalize(q (x) exp(w dt / 2))
-    const float angle = sqrtf(dot(w_new, w_new) + 0.0f) * dt;
-    const float half = 0.5f * angle;
-    const float x = half / 3.14159265358979323846f;
-    const float px = 3.14159265358979323846f * x;
-    const float sinc = (x == 0.0f) ? 1.0f : sinf(px) / px;
-    const float k = (0.5f * dt) * sinc;
-    const float aw = qpos[3], ax = qpos[4], ay = qpos[5], az = qpos[6];
-    const float bw = cosf(half), bx = k * w_new.x, by = k * w_new.y, bz = k * w_new.z;
-    const float ow = aw * bw - ax * bx - ay * by - az * bz;
-    const float ox = aw * bx + ax * bw + ay * bz - az * by;
-    const float oy = aw * by - ax * bz + ay * bw + az * bx;
-    const float oz = aw * bz + ax * by - ay * bx + az * bw;
-    const float norm = sqrtf(ow * ow + ox * ox + oy * oy + oz * oz);
-    qpos[3] = ow / norm; qpos[4] = ox / norm; qpos[5] = oy / norm; qpos[6] = oz / norm;
-  }
+  quat_integrate(qpos + 3, w_new, dt);
 #pragma unroll 1
   for (int j = 0; j < CS_NJ; ++j) qpos[7 + j] = qpos[7 + j] + dt * qvel[6 + j];
 }

@@ -5,7 +5,8 @@ No JAX counterpart (Pallas kernels compile inside ``jax.jit``). Each
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/kernels/`` at the repository root (listed in ``.gitignore``) and
 loaded with ``ctypes``. A source may be specialised by ``-D`` defines
-(array sizes of ``control_step.cu`` and ``plane_sampler.cu``) and may
+(array sizes of ``control_step.cu``, ``plane_sampler.cu`` and
+``scene_step.cu``) and may
 include the headers ``csrc/*.cuh``; the library's file name carries a
 hash of the source, of every header and of all flags, defines included,
 so an edited source or header or another size is built anew and an

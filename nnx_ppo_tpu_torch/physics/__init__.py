@@ -1,9 +1,10 @@
 """Articulated rigid-body physics of the port (``nnx_ppo_tpu/physics``):
 the model description, terrain (analytic and data), domain randomization,
 the SoA substep, the control-step, plane-sampler and substeps kernels,
-spatial algebra and the mass-matrix factor of the generic engine. The rest
-of the generic engine, the depth-wise engine, MJCF import and scenes are
-not ported yet."""
+the general-tree SoA dynamics with the scene control-step kernel, the
+scene description, spatial algebra and the mass-matrix factor of the
+generic engine. The rest of the generic engine (and ``scene_step`` on it),
+the depth-wise engine and MJCF import are not ported yet."""
 
 from nnx_ppo_tpu_torch.physics.model import BALL, FREE, HINGE, SLIDE, Model, ModelBuilder
 from nnx_ppo_tpu_torch.physics.randomize import (
@@ -11,6 +12,7 @@ from nnx_ppo_tpu_torch.physics.randomize import (
     DomainRandomization,
     privileged_vector,
 )
+from nnx_ppo_tpu_torch.physics.scene import Scene
 from nnx_ppo_tpu_torch.physics.terrain import HeightGrid, Terrain, rough_terrain, stairs
 
 __all__ = [
@@ -23,6 +25,7 @@ __all__ = [
     "Model",
     "ModelBuilder",
     "SLIDE",
+    "Scene",
     "Terrain",
     "privileged_vector",
     "rough_terrain",

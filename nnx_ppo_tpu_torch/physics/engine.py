@@ -12,7 +12,10 @@ in the JAX package: ``LeggedJoystick(pallas_in_kernel_factor=False)``
 builds the factor of ``M(q) + dt·D`` here once per control step and hands
 it to the substeps kernel (``cuda_step.make_substep_runner``).
 
-Not ported yet (they wait for the slice that ports the non-hinge models):
+Not ported yet (the manipulation envs, whose models are not free-base
+all-hinge, step through the scene control step of
+``cuda_scene_step.py`` instead; these wait for the rest of the generic
+engine):
 ``body_velocities``, ``bias_forces`` (RNEA), ``contact_generalized_forces``,
 ``pair_contact_forces``, ``limit_torques``, ``spring_torques``,
 ``forward_dynamics``, ``integrate`` and ``step``.

@@ -1,3 +1,4 @@
+from nnx_ppo_tpu_torch.physics.models.arm import make_arm
 from nnx_ppo_tpu_torch.physics.models.quadruped import make_quadruped
 
-__all__ = ["make_quadruped"]
+__all__ = ["make_arm", "make_quadruped"]

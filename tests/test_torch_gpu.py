@@ -13,7 +13,13 @@ from nnx_ppo_tpu_torch.algorithms import PPOConfig, make_optimizer, new_training
 from nnx_ppo_tpu_torch.envs import CartpoleBalance
 from nnx_ppo_tpu_torch.networks import make_mlp_actor_critic
 from nnx_ppo_tpu_torch.ops.gae import gae, gae_cuda, gae_scan
-from nnx_ppo_tpu_torch.envs import QuadrupedJoystick
+from nnx_ppo_tpu_torch.envs import ArmPush, ArmReacher, QuadrupedJoystick
+from nnx_ppo_tpu_torch.envs.pusher import SHOULDER_HEIGHT as PUSHER_SHOULDER_HEIGHT
+from nnx_ppo_tpu_torch.physics.cuda_scene_step import (
+    make_scene_control_step_runner,
+    scene_step_cuda,
+    scene_step_plain,
+)
 from nnx_ppo_tpu_torch.physics.cuda_step import (
     ControlStepPlan,
     control_step_cuda,
@@ -27,7 +33,14 @@ from nnx_ppo_tpu_torch.physics.cuda_step import (
 from nnx_ppo_tpu_torch.physics.engine import mass_matrix_factor
 from nnx_ppo_tpu_torch.physics.models.quadruped import default_qpos, make_quadruped
 from nnx_ppo_tpu_torch.physics.terrain import HeightGrid, rough_terrain
-from nnx_ppo_tpu_torch.physics.testing import standing_states
+from nnx_ppo_tpu_torch.physics.testing import (
+    general_tree,
+    general_tree_states,
+    manipulation_states,
+    slider_tree,
+    slider_tree_states,
+    standing_states,
+)
 from nnx_ppo_tpu_torch.wrappers import EpisodeWrapper
 
 
@@ -264,3 +277,89 @@ def test_new_env_paths_step_on_the_card_through_their_kernels(cuda, path):
     assert [c.launches - b for c, b in zip(counters, before)] == list(per_step)
     assert torch.isfinite(state.obs["proprio"]).all() and state.obs["proprio"].is_cuda
     assert (state.metrics["contact_force"] > 0).any()
+
+
+# -- the scene control step -----------------------------------------------------
+
+# name -> (batch, n_substeps).
+SCENE_CASES = {
+    "pusher_4096": (4096, 16),
+    "pusher_ragged_1000": (1000, 16),
+    "reacher_4096": (4096, 4),
+    "general_and_slider_trees_1000": (1000, 3),
+    "general_uncapped_on_waves_777": (777, 3),
+}
+
+
+def scene_case(name, device):
+    """(runner, args on the device) of one scene configuration."""
+    B, n_substeps = SCENE_CASES[name]
+    if name.startswith("pusher"):
+        run = ArmPush(n_substeps=n_substeps)._scene_runner
+        arrays = manipulation_states(B, seed=7, with_ball=True, shoulder_height=PUSHER_SHOULDER_HEIGHT)
+    elif name.startswith("reacher"):
+        run = ArmReacher(n_substeps=n_substeps)._scene_runner
+        arrays = manipulation_states(B, seed=8, with_ball=False)
+    else:
+        waves = "waves" in name
+        trees = [general_tree(cap=not waves)] + ([] if waves else [slider_tree()])
+        # Cross pairs: the free base against the pole's tip, the cart
+        # against the ball-jointed leaf.
+        pairs = () if waves else ((0, 0, 1, 0), (1, 1, 0, 2))
+        run = make_scene_control_step_runner(
+            trees, pairs, 0.002, n_substeps, terrain=rough_terrain(**ROUGH) if waves else None
+        )
+        parts = [general_tree_states(B, seed=1)] + ([] if waves else [slider_tree_states(B, seed=2)])
+        arrays = {k: np.concatenate([p[k] for p in parts], axis=1) for k in ("qpos", "qvel", "tau")}
+    return run, [torch.tensor(arrays[k], device=device) for k in ("qpos", "qvel", "tau")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SCENE_CASES))
+def test_scene_step_kernel_matches_plain_version(cuda, case):
+    """float32 on both; the kernel repeats the plain version's operations
+    in its order (0 is expected). Held to the tolerances of the JAX lane
+    code against its generic engine: qpos 2e-5, qvel 5e-4, normals 1e-4."""
+    run, args = scene_case(case, cuda)
+    before = scene_step_cuda.launches
+    qpos, qvel, normals = run(*args)
+    assert scene_step_cuda.launches == before + 1
+    want_qpos, want_qvel, want_normals = run.plain(*args)
+    assert normals.shape == (args[0].shape[0], run.n_normals)
+    assert all(torch.isfinite(x).all() for x in (qpos, qvel, normals))
+    if not case.startswith("reacher"):
+        assert (want_normals > 0).any() and (want_normals == 0).any()
+    if case.startswith("pusher"):
+        assert (want_normals[:, 2] > 0).any()  # the cross pair fires
+    torch.testing.assert_close(qpos, want_qpos, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(qvel, want_qvel, rtol=5e-4, atol=5e-4)
+    torch.testing.assert_close(normals, want_normals, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_scene_step_kernel_rejects_wrong_shapes_and_devices(cuda):
+    run, args = scene_case("reacher_4096", cuda)
+    with pytest.raises(ValueError):
+        run(args[0], args[1][:, :3], args[2])
+    with pytest.raises(ValueError):
+        run(args[0], args[1], args[2].cpu())
+    with pytest.raises(ValueError):
+        run.cuda(*(x.cpu() for x in args))
+    # The functional forms agree with the runner.
+    got = scene_step_cuda(run.models, run.pairs, *args, run.dt, run.n_substeps)
+    want = scene_step_plain(run.models, run.pairs, *args, run.dt, run.n_substeps)
+    torch.testing.assert_close(got[0], want[0], rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cls", [ArmReacher, ArmPush], ids=["reacher", "pusher"])
+def test_manipulation_envs_step_on_the_card_through_the_scene_kernel(cuda, cls):
+    env = cls()
+    generator = torch.Generator(device=cuda).manual_seed(0)
+    state = env.reset(256, generator)
+    before = scene_step_cuda.launches
+    for _ in range(3):
+        state = env.step(state, torch.ones(256, 4, device=cuda))
+    assert scene_step_cuda.launches == before + 3
+    assert state.obs.is_cuda and torch.isfinite(state.obs).all()
+    assert state.obs.shape == (256, env.observation_size)
