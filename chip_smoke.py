@@ -12,8 +12,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    sizes), compiled with nvcc from the sources in
    nnx_ppo_tpu_torch/csrc/, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the training paths' shapes (and a ragged one), then timed with CUDA
-   events and torch.profiler against the plain version;
+   the training paths' shapes and at ragged ones (a batch that ends inside
+   a warp; for the scene kernel also a two-tree scene with every joint
+   type), printing whether each output is equal to the bit, then timed
+   with CUDA events and torch.profiler against the plain version;
 4. paths, each through new_training_state and ppo_multi_step with every
    kernel's launch count set to 0 just before and read just after:
    the flagship (CartpoleBalance with a 500-step time limit, 1024 envs,
@@ -38,14 +40,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and manipulation path one env step on the card (kernels) against the
    CPU (plain versions) from the same state, action and draws.
 
-It prints a ``kernels`` JSON line, the card line, and last
-``{"ok": true, "device": {...}}``. With no CUDA device it exits 1 and
-prints no result. ``--profile DIR`` also writes torch.profiler tables
-of one training step of each path to DIR; ``--learn N`` also trains the
-flagship for N iterations through train_ppo and prints its eval curve;
-``--variants`` also builds the control-step kernel with fused
-multiply-adds and prints its error and time beside the shipped build's,
-and times the shipped build at 64 and 128 threads per block.
+It prints a ``kernels`` JSON line (each kernel's design, and its
+registers, stack, spills and shared memory from ptxas and the launch), the
+card line, and last ``{"ok": true, "device": {...}}``. With no CUDA device
+it exits 1 and prints no result. ``--profile DIR`` also writes
+torch.profiler tables of one training step of each path to DIR; ``--learn
+N`` also trains the flagship for N iterations through train_ppo and prints
+its eval curve; ``--variants`` also builds the control-step kernel with
+fused multiply-adds and prints its error and time beside the shipped
+build's, and sweeps the lanes per env and threads per block of the
+control-step kernel (physics-leg shape) and of the scene kernel (pusher and
+reacher shapes): each variant checked equal to the bit with the plain
+version and timed with CUDA events, in one order and then the reverse;
+``--phases`` also builds copies of the control-step and scene kernels that
+read the SM's clock at every barrier of the first env's lanes (under
+build/phase_csrc/) and prints the cycles of each phase at the paths'
+shapes.
 """
 
 from __future__ import annotations
@@ -55,6 +65,8 @@ import copy
 import dataclasses
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -108,9 +120,10 @@ def time_ms(fn, n: int, torch) -> float:
 def device_ms_per_call(fn, n: int, kernel_name: str, torch) -> float:
     """Device time per launch of the CUDA kernel whose name contains
     ``kernel_name``, from torch.profiler over ``n`` calls of ``fn``. The
-    mean is over the launches the profiler recorded: it can drop the
-    record of a kernel that lasts a few microseconds (49 of 50 were seen),
-    so up to a tenth may be missing, and none may be extra."""
+    mean is over the launches the profiler recorded: it can drop records
+    (49 of 50 were seen for a kernel of a few microseconds, 16 of 20 for
+    one of a few hundred), so up to half may be missing, and none may be
+    extra."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -121,7 +134,7 @@ def device_ms_per_call(fn, n: int, kernel_name: str, torch) -> float:
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if kernel_name in e.key]
     count = sum(e.count for e in events)
-    if not 0.9 * n <= count <= n:
+    if not 0.5 * n <= count <= n:
         raise RuntimeError(f"profiler saw {count} launches of {kernel_name}, expected {n}")
     return sum(e.self_device_time_total for e in events) / count / 1e3
 
@@ -198,6 +211,8 @@ def gae_kernel_phase(torch) -> dict:
         "shape": [30, 256],
         "kernel_device_ms": flagship_shape["kernel_device_ms"],
         "at_20x512": physics_shape,
+        "design": "one thread per env column, 256 threads per block",
+        "ptxas": ptxas_row(("gae", ()), "gae_kernel"),
     }
 
 
@@ -207,12 +222,20 @@ DR_RANGES = dict(
 ROUGH = dict(seed=2, amplitude=0.03, wavelength=1.5)
 
 # The control-step configurations checked against the plain version:
-# name -> (batch, exact, full feature set).
+# name -> (batch, exact, full feature set). 33 and 1001 end inside a warp
+# at every group size from 2 to 16 lanes per env.
 CONTROL_STEP_CASES = {
     "held, full features, B=2048": (2048, False, True),
     "exact, full features, B=2048": (2048, True, True),
     "held, flat ground, no extras, B=1000": (1000, False, False),
+    "held, full features, B=33": (33, False, True),
+    "exact, full features, B=1001": (1001, True, True),
 }
+# The (lanes per env, threads per block) variants of --variants.
+CONTROL_STEP_GROUPS, SCENE_STEP_GROUPS = (2, 4, 8, 16), (1, 2, 4, 8)
+VARIANT_THREADS = (32, 64, 128, 256)
+# Dynamic shared memory a block of the H100 can have.
+MAX_BLOCK_SMEM_BYTES = 232448
 
 
 def control_step_case(name: str, torch):
@@ -239,22 +262,95 @@ def control_step_case(name: str, torch):
     return plan, [torch.tensor(arrays[k], device="cuda") for k in keys]
 
 
-def control_step_errors(plan, args, torch) -> dict:
+OUTPUTS = ("qpos", "qvel", "normals")
+
+
+def equal_to_the_bit(got, want, torch) -> dict:
+    """torch.equal of each output with the plain version's."""
+    return {k: bool(torch.equal(g, w)) for k, g, w in zip(OUTPUTS, got, want)}
+
+
+def describe_equal(equal: dict) -> str:
+    return "torch.equal " + " ".join(f"{k} {v}" for k, v in equal.items())
+
+
+def control_step_errors(plan, args, torch) -> tuple[dict, dict]:
     """Kernel against plain version on the card, at the stated tolerance:
     float32 on both; ten substeps; qpos 2e-4, qvel 2e-3, normals rtol
     5e-3 / atol 5e-2 (the contact switch phi > 0 and the 6000 N/m contact
-    stiffness amplify rounding)."""
+    stiffness amplify rounding). Also whether each output is equal to the
+    bit (the kernel repeats the plain version's operations in its order)."""
     got = plan.cuda(*args)
     want = plan.plain(*args)
     torch.cuda.synchronize()
     check(bool((want[2] > 0).any() and (want[2] == 0).any()), "some feet touch, some do not")
     for x in got:
         check(bool(torch.isfinite(x).all()), "kernel output is finite")
-    errs = {k: (g - w).abs().max().item() for k, g, w in zip(("qpos", "qvel", "normals"), got, want)}
+    errs = {k: (g - w).abs().max().item() for k, g, w in zip(OUTPUTS, got, want)}
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=2e-4)
     torch.testing.assert_close(got[1], want[1], rtol=0, atol=2e-3)
     torch.testing.assert_close(got[2], want[2], rtol=5e-3, atol=5e-2)
-    return errs
+    return errs, equal_to_the_bit(got, want, torch)
+
+
+def launch_design(plan) -> str:
+    """A lane-group kernel's launch, as the kernels line reports it."""
+    per_block = plan.threads_per_block // plan.group_size
+    return (f"lane group G={plan.group_size}, {plan.threads_per_block} threads per block "
+            f"({per_block} envs and {plan.shared_memory_bytes()} B of dynamic shared memory "
+            "per block)")
+
+
+def ptxas_row(spec, kernel: str, dynamic_smem_bytes: int = 0) -> dict:
+    """What ptxas reported of ``kernel`` when its library was built, and
+    the dynamic shared memory of its launch."""
+    from nnx_ppo_tpu_torch.ops import cuda_build
+
+    return dict(cuda_build.ptxas_info(spec[0], spec[1], kernel),
+                dynamic_smem_bytes=dynamic_smem_bytes)
+
+
+def sweep_variants(label: str, make_plan, args, groups, torch) -> dict:
+    """Each (lanes per env, threads per block) variant of a lane-group
+    kernel at one shape: built (all at once), checked equal to the bit with
+    the plain version, and timed with CUDA events twice, in one order and
+    then in the reverse one. Variants whose envs do not fit a block's
+    shared memory are listed and skipped."""
+    from nnx_ppo_tpu_torch.ops import cuda_build
+
+    plans = {}
+    for group in groups:
+        for threads in VARIANT_THREADS:
+            plan = make_plan()
+            plan.group_size, plan.threads_per_block = group, threads
+            plans[(group, threads)] = plan
+    cuda_build.build(sorted({plan.kernel_spec for plan in plans.values()}))
+    want = next(iter(plans.values())).plain(*args)
+    rows = {}
+    for key, plan in plans.items():
+        smem = plan.shared_memory_bytes()
+        rows[key] = {"group": key[0], "threads": key[1], "smem_bytes": smem,
+                     "fits": smem <= MAX_BLOCK_SMEM_BYTES, "ms": []}
+        if rows[key]["fits"]:
+            got = plan.cuda(*args)
+            torch.cuda.synchronize()
+            rows[key]["equal"] = all(equal_to_the_bit(got, want, torch).values())
+    order = [key for key, row in rows.items() if row["fits"]]
+    for key in order + order[::-1]:
+        rows[key]["ms"].append(time_ms(lambda: plans[key].cuda(*args), 30, torch))
+    fastest = min(order, key=lambda key: sum(rows[key]["ms"]))
+    for key, row in rows.items():
+        timing = (", ".join(f"{t:.4f}" for t in row["ms"]) + " ms, torch.equal "
+                  f"{row['equal']}") if row["fits"] else "does not fit a block"
+        print(f"{label} variant G={key[0]}, {key[1]} threads per block, {row['smem_bytes']} B "
+              f"shared per block: {timing}")
+    shipped = make_plan()
+    print(f"{label}: fastest G={fastest[0]}, {fastest[1]} threads per block; shipped "
+          f"G={shipped.group_size}, {shipped.threads_per_block}")
+    check(all(row["equal"] for row in rows.values() if row["fits"]),
+          f"{label}: every variant equals the plain version to the bit")
+    return {"rows": list(rows.values()), "fastest": list(fastest),
+            "shipped": [shipped.group_size, shipped.threads_per_block]}
 
 
 def count_plain_operations(plain_fn, args, torch) -> float:
@@ -292,13 +388,13 @@ def control_step_kernel_phase(torch, variants: bool) -> dict:
     for name in CONTROL_STEP_CASES:
         plan, args = control_step_case(name, torch)
         before = cuda_step.control_step_cuda.launches
-        errs = control_step_errors(plan, args, torch)
+        errs, equal = control_step_errors(plan, args, torch)
         check(cuda_step.control_step_cuda.launches == before + 1, "the wrapper counted its launch")
         max_err = max(max_err, errs["qpos"], errs["qvel"])
         cases[name] = (plan, args)
         print(f"control_step {name}: max_abs_err qpos {errs['qpos']:.3g} (atol 2e-4) "
               f"qvel {errs['qvel']:.3g} (atol 2e-3) normals {errs['normals']:.3g} "
-              "(rtol 5e-3, atol 5e-2)")
+              f"(rtol 5e-3, atol 5e-2); {describe_equal(equal)}")
 
     # The physics leg's shape: 2048 envs, all feature lanes, held factor.
     plan, args = cases["held, full features, B=2048"]
@@ -332,6 +428,8 @@ def control_step_kernel_phase(torch, variants: bool) -> dict:
         "exact_ms": exact_ms,
         "ops_per_env": ops_per_env,
         "bytes_per_env": bytes_per_env,
+        "design": launch_design(plan),
+        "ptxas": ptxas_row(plan.kernel_spec, "control_step_kernel", plan.shared_memory_bytes()),
     }
     if variants:
         # The same source with fused multiply-adds left on (nvcc's
@@ -352,21 +450,111 @@ def control_step_kernel_phase(torch, variants: bool) -> dict:
               "without (shipped)")
         result["fma"] = {"qpos": errs[0], "qvel": errs[1], "normals": errs[2], "ms": fma_ms,
                          "shipped_ms": again_ms}
-        # The shipped build at other block sizes (the same 2048 threads).
-        by_threads = {}
-        shipped_threads = cuda_step.THREADS_PER_BLOCK
-        try:
-            for threads in (32, 64, 128, 32):
-                cuda_step.THREADS_PER_BLOCK = threads
-                by_threads.setdefault(threads, []).append(
-                    time_ms(lambda: plan.cuda(*args), 50, torch)
-                )
-        finally:
-            cuda_step.THREADS_PER_BLOCK = shipped_threads
-        print("control_step ms by threads per block: "
-              + "; ".join(f"{k}: {', '.join(f'{v:.4f}' for v in vs)}" for k, vs in by_threads.items()))
-        result["ms_by_threads_per_block"] = by_threads
+        result["variants"] = sweep_variants(
+            "control_step", lambda: control_step_case("held, full features, B=2048", torch)[0],
+            args, CONTROL_STEP_GROUPS, torch,
+        )
     return result
+
+
+PHASE_CLOCKS = r"""
+// Instrumented copy (chip_smoke.py --phases): cycles between the barriers
+// of block 0's thread 0, summed over the launches since the last reset.
+__device__ unsigned long long cs_phase_cycles[128];
+__device__ long long cs_phase_last;
+#define CS_PHASE_START() do { if (blockIdx.x == 0 && threadIdx.x == 0) cs_phase_last = clock64(); } while (0)
+#define CS_PHASE_MARK(k) do { if (blockIdx.x == 0 && threadIdx.x == 0) { \
+  const long long t_ = clock64(); cs_phase_cycles[k] += t_ - cs_phase_last; cs_phase_last = t_; } } while (0)
+"""
+PHASE_READER = r"""
+extern "C" int phase_cycles(unsigned long long* out) {
+  const cudaError_t err = cudaMemcpyFromSymbol(out, cs_phase_cycles, sizeof(cs_phase_cycles));
+  static const unsigned long long zeros[128] = {};
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaMemcpyToSymbol(cs_phase_cycles, zeros, sizeof(zeros)));
+}
+"""
+# Where each kernel starts its clock: (source, the statement after which).
+PHASE_STARTS = {"control_step.cu": "Env& s = env_in_shared(envs);",
+                "scene_step.cu": "envs + static_cast<int>(threadIdx.x / SS_G) * kSceneEnvWords);"}
+
+
+def instrumented_sources(root: str) -> list[tuple[int, str]]:
+    """Copies of csrc/ under ``root`` with a clock mark after every lane-
+    group barrier; returns each mark's (id, "file:line label")."""
+    from nnx_ppo_tpu_torch.ops import cuda_build
+
+    if os.path.isdir(root):
+        shutil.rmtree(root)
+    shutil.copytree(cuda_build.CSRC_DIR, root)
+    labels = []
+    for name in ("spatial_math.cuh", "rigid_body.cuh", "control_step.cu", "scene_step.cu"):
+        path = os.path.join(root, name)
+        lines = open(path).read().split("\n")
+        label = ""
+        for n, line in enumerate(lines):
+            comment = re.match(r"\s*//\s*(.*)", line)
+            if comment and comment.group(1).strip("- "):
+                label = comment.group(1).strip("- ")
+            if re.search(r"\bg\.sync\(\);", line) and "void sync" not in line:
+                labels.append((len(labels), f"{name}:{n + 1} {label}"))
+                lines[n] = line.replace("g.sync();", f"g.sync(); CS_PHASE_MARK({labels[-1][0]});")
+            if name in PHASE_STARTS and PHASE_STARTS[name] in line:
+                lines[n] = line + " CS_PHASE_START();"
+        text = "\n".join(lines)
+        if name == "spatial_math.cuh":
+            text = text.replace("#include <math.h>", "#include <math.h>\n" + PHASE_CLOCKS)
+        if name.endswith(".cu"):
+            text += PHASE_READER
+        open(path, "w").write(text)
+    check(len(labels) < 128, "fewer than 128 marks")
+    return labels
+
+
+def phases_phase(torch) -> dict:
+    """Cycles of each phase of one launch, first env, at the physics leg's
+    control step (held factor, B=2048) and the pusher's and reacher's scene
+    step (B=4096), from the instrumented copies."""
+    import ctypes
+
+    from nnx_ppo_tpu_torch.ops import cuda_build
+
+    root = os.path.join(os.path.dirname(str(cuda_build.BUILD_DIR)), "phase_csrc")
+    labels = dict(instrumented_sources(root))
+    shipped_dir, shipped_libraries = cuda_build.CSRC_DIR, dict(cuda_build._LOADED)
+    out = {}
+    try:
+        # The loader caches libraries by name and flags: load the copies.
+        cuda_build.CSRC_DIR = type(shipped_dir)(root)
+        cuda_build._LOADED.clear()
+        cases = {
+            "control_step": control_step_case("held, full features, B=2048", torch),
+            "scene_step pusher": scene_step_case("pusher, B=4096", torch),
+            "scene_step reacher": scene_step_case("reacher, B=4096", torch),
+        }
+        cuda_build.build([plan.kernel_spec for plan, _ in cases.values()])
+        for label, (plan, args) in cases.items():
+            lib = cuda_build.load(*plan.kernel_spec)
+            read = lib.phase_cycles
+            read.argtypes, read.restype = [ctypes.c_void_p], ctypes.c_int
+            cycles = (ctypes.c_ulonglong * 128)()
+            plan.cuda(*args)
+            torch.cuda.synchronize()
+            check(read(cycles) == 0, "read the phase clocks")  # and reset them
+            plan.cuda(*args)
+            torch.cuda.synchronize()
+            check(read(cycles) == 0, "read the phase clocks")
+            total = sum(cycles)
+            rows = sorted(((int(c), labels[k]) for k, c in enumerate(cycles) if c), reverse=True)
+            out[label] = {"total_cycles": total, "phases": [[c, where] for c, where in rows]}
+            print(f"phases {label}: {total} cycles of the first env's lanes in one launch")
+            for c, where in rows:
+                print(f"phases {label}: {c:>9d} cycles, {c / total:.3f}: {where}")
+    finally:
+        cuda_build.CSRC_DIR = shipped_dir
+        cuda_build._LOADED.clear()
+        cuda_build._LOADED.update(shipped_libraries)
+    return out
 
 
 def data_terrain(n: int = 256, extent: float = 12.0):
@@ -467,6 +655,8 @@ def plane_sampler_kernel_phase(torch) -> dict:
         "kernel_device_ms": kernel_device_ms,
         "ops_per_env": ops_per_env,
         "bytes": n_bytes,
+        "design": "one thread per env, 32 threads per block",
+        "ptxas": ptxas_row(plan.kernel_specs[1], "plane_sampler_kernel"),
     }
 
 
@@ -520,7 +710,22 @@ def substeps_kernel_phase(torch, profile: bool) -> dict:
         runners[per_kernel] = run
         print(f"substeps B={B}, {n_launches} launch(es) for {n_substeps} substeps: max_abs_err "
               f"qpos {errs[0]:.3g} (atol 2e-4) qvel {errs[1]:.3g} (atol 2e-3) normals "
-              f"{errs[2]:.3g} (rtol 5e-3, atol 5e-2)")
+              f"{errs[2]:.3g} (rtol 5e-3, atol 5e-2); "
+              f"{describe_equal(equal_to_the_bit(got, want, torch))}")
+    # A batch that ends inside a warp.
+    ragged = standing_states(model, default_qpos(model), 33, seed=4)
+    ragged_args = [torch.tensor(ragged[k], device="cuda") for k in ("qpos", "qvel", "target")]
+    ragged_args.append(mass_matrix_factor(model, ragged_args[0], dt=0.002))
+    got = runners[-1](*ragged_args)
+    want_ragged = cuda_step.substeps_plain(model, *ragged_args, 60.0, 0.002, n_substeps)
+    torch.cuda.synchronize()
+    for g, w, atol, rtol in zip(got, want_ragged, (2e-4, 2e-3, 5e-2), (0, 0, 5e-3)):
+        torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
+    errs = [(g - w).abs().max().item() for g, w in zip(got, want_ragged)]
+    max_err = max(max_err, errs[0], errs[1])
+    print(f"substeps B=33, 1 launch for {n_substeps} substeps: max_abs_err qpos {errs[0]:.3g} "
+          f"qvel {errs[1]:.3g} normals {errs[2]:.3g}; "
+          f"{describe_equal(equal_to_the_bit(got, want_ragged, torch))}")
 
     # How far a control step with the outside factor lies from one with
     # the factor built inside the kernel (both kernels, same states).
@@ -582,37 +787,54 @@ def substeps_kernel_phase(torch, profile: bool) -> dict:
         "gap_to_inside_factor": {"qpos": gap[0], "qvel": gap[1], "normals": gap[2]},
         "ops_per_env": ops_per_env,
         "bytes_per_env": bytes_per_env,
+        "design": launch_design(plan),
+        "ptxas": ptxas_row(plan.kernel_spec, "substeps_kernel", plan.shared_memory_bytes()),
     }
 
 
 # The scene control-step configurations checked against the plain version:
-# name -> (env, batch).
+# name -> (scene, batch). "trees" is the five-body tree with every joint
+# type and a pair inside it, beside a slider tree, with two cross pairs.
 SCENE_STEP_CASES = {
     "pusher, B=4096": ("pusher", 4096),
     "reacher, B=4096": ("reacher", 4096),
     "pusher, B=1000": ("pusher", 1000),
+    "pusher, B=33": ("pusher", 33),
+    "general and slider trees, B=1001": ("trees", 1001),
 }
 
 
 def scene_step_case(name: str, torch):
     """(plan, args on the card) of one scene configuration: the runner of
     the env itself (pusher: arm + ball + cross pair, 16 substeps of 1.25
-    ms; reacher: the arm alone, 4 substeps of 5 ms) on seeded states."""
+    ms; reacher: the arm alone, 4 substeps of 5 ms), or the two test trees
+    (3 substeps of 2 ms), on seeded states."""
+    import numpy as np
+
     from nnx_ppo_tpu_torch.envs import ArmPush, ArmReacher
     from nnx_ppo_tpu_torch.envs.pusher import SHOULDER_HEIGHT
-    from nnx_ppo_tpu_torch.physics.testing import manipulation_states
+    from nnx_ppo_tpu_torch.physics.cuda_scene_step import make_scene_control_step_runner
+    from nnx_ppo_tpu_torch.physics.testing import (
+        general_tree, general_tree_states, manipulation_states, slider_tree, slider_tree_states,
+    )
 
     kind, B = SCENE_STEP_CASES[name]
     if kind == "pusher":
         plan = ArmPush()._scene_runner
         arrays = manipulation_states(B, seed=7, with_ball=True, shoulder_height=SHOULDER_HEIGHT)
-    else:
+    elif kind == "reacher":
         plan = ArmReacher()._scene_runner
         arrays = manipulation_states(B, seed=8, with_ball=False)
+    else:
+        plan = make_scene_control_step_runner(
+            (general_tree(), slider_tree()), ((0, 0, 1, 0), (1, 1, 0, 2)), 0.002, 3
+        )
+        parts = [general_tree_states(B, seed=1), slider_tree_states(B, seed=2)]
+        arrays = {k: np.concatenate([p[k] for p in parts], axis=1) for k in ("qpos", "qvel", "tau")}
     return plan, [torch.tensor(arrays[k], device="cuda") for k in ("qpos", "qvel", "tau")]
 
 
-def scene_step_kernel_phase(torch) -> dict:
+def scene_step_kernel_phase(torch, variants: bool) -> dict:
     """The scene kernel against its plain version on the card. The kernel
     repeats the plain version's float32 operations in its order, so 0 is
     expected; the stated tolerances are those the JAX package holds its
@@ -632,12 +854,14 @@ def scene_step_kernel_phase(torch) -> dict:
         for x in got:
             check(bool(torch.isfinite(x).all()), "kernel output is finite")
         check(got[2].shape == (args[0].shape[0], plan.n_normals), "normals shape")
-        if len(plan.models) == 2:
+        kind, B = SCENE_STEP_CASES[name]
+        if kind == "pusher" and B >= 1000:
             # Columns: arm tip on the ground, ball on the ground, cross pair.
             check(bool((want[2] > 0).any(dim=0).all() and (want[2] == 0).any(dim=0).all()),
                   "each contact fires in some envs and not in others")
-        errs = {k: (g - w).abs().max().item()
-                for k, g, w in zip(("qpos", "qvel", "normals"), got, want)}
+        if kind == "trees":
+            check(bool((want[2] > 0).any() and (want[2] == 0).any()), "some contacts fire")
+        errs = {k: (g - w).abs().max().item() for k, g, w in zip(OUTPUTS, got, want)}
         torch.testing.assert_close(got[0], want[0], rtol=2e-5, atol=2e-5)
         torch.testing.assert_close(got[1], want[1], rtol=5e-4, atol=5e-4)
         torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=1e-4)
@@ -645,7 +869,8 @@ def scene_step_kernel_phase(torch) -> dict:
         cases[name] = (plan, args)
         print(f"scene_step {name}, {plan.n_substeps} substeps: max_abs_err qpos {errs['qpos']:.3g} "
               f"(2e-5) qvel {errs['qvel']:.3g} (5e-4) normals {errs['normals']:.3g} (1e-4), "
-              f"normals max {want[2].max().item():.3g}")
+              f"normals max {want[2].max().item():.3g}; "
+              f"{describe_equal(equal_to_the_bit(got, want, torch))}")
 
     timed = {}
     for name in ("pusher, B=4096", "reacher, B=4096"):
@@ -666,11 +891,13 @@ def scene_step_kernel_phase(torch) -> dict:
             "bytes_per_env": bytes_per_env,
             "shape": [B, plan.nq],
             "n_substeps": plan.n_substeps,
+            "design": launch_design(plan),
+            "ptxas": ptxas_row(plan.kernel_spec, "scene_step_kernel", plan.shared_memory_bytes()),
         }
         print(f"scene_step {name}: {bytes_per_env} bytes and {ops_per_env:.0f} float operations "
               f"per env and control step of {plan.n_substeps} substeps")
     pusher = timed["pusher, B=4096"]
-    return {
+    result = {
         "name": "scene_step",
         "route": "cuda",
         "source": "nnx_ppo_tpu_torch/csrc/scene_step.cu",
@@ -686,8 +913,17 @@ def scene_step_kernel_phase(torch) -> dict:
         "kernel_device_ms": pusher["kernel_device_ms"],
         "ops_per_env": pusher["ops_per_env"],
         "bytes_per_env": pusher["bytes_per_env"],
+        "design": pusher["design"],
+        "ptxas": pusher["ptxas"],
         "at_reacher_4096": timed["reacher, B=4096"],
     }
+    if variants:
+        result["variants"] = {
+            label: sweep_variants(f"scene_step {label}", lambda n=name: scene_step_case(n, torch)[0],
+                                  cases[name][1], SCENE_STEP_GROUPS, torch)
+            for label, name in (("pusher", "pusher, B=4096"), ("reacher", "reacher, B=4096"))
+        }
+    return result
 
 
 def flagship(torch):
@@ -1155,6 +1391,7 @@ def main() -> int:
     parser.add_argument("--profile", metavar="DIR", default=None)
     parser.add_argument("--learn", metavar="ITERATIONS", type=int, default=0)
     parser.add_argument("--variants", action="store_true")
+    parser.add_argument("--phases", action="store_true")
     args = parser.parse_args()
 
     import torch
@@ -1196,7 +1433,7 @@ def main() -> int:
     control_kernel = control_step_kernel_phase(torch, args.variants)
     sampler_kernel = plane_sampler_kernel_phase(torch)
     substeps_kernel = substeps_kernel_phase(torch, bool(args.profile))
-    scene_kernel = scene_step_kernel_phase(torch)
+    scene_kernel = scene_step_kernel_phase(torch, args.variants)
 
     flagship_path = flagship_path_phase(torch, wrappers, args.profile)
     flagship_env, _, flagship_config, _ = flagship(torch)
@@ -1254,6 +1491,8 @@ def main() -> int:
         manipulation_env_step_reference_phase(torch, label, path["env"], scene_step_cuda)
     if args.learn:
         learning_phase(torch, args.learn)
+    if args.phases:
+        phases_phase(torch)
 
     # Launches on the main paths only (the comparisons above do not
     # count: every count was set to 0 just before each path).

@@ -33,25 +33,49 @@
 // Bound (control step): the function must move (nq + nv + nj + n_extra) * 4
 // bytes in and (nq + nv + n_geoms) * 4 bytes out per env: 404 bytes for the
 // quadruped with 7 extra lanes, 0.83 MB at B = 2048, 0.25 us at 3.35 TB/s.
-// It does some 1e5 float operations per env and control step, a few
-// microseconds at the float32 peak, so operations bound it, not bytes.
-// The substeps kernel also reads the 171-float factor: 1,060 bytes per
-// env, 0.65 us at B = 2048 by bytes, and the same substep operations less
-// the factor build. What sets both times in practice is neither: every env
-// is one long dependent chain.
+// It does some 1e5 float operations per env and control step, 3 us at the
+// float32 peak for 2048 envs, so operations bound it, not bytes. The
+// substeps kernel also reads the 171-float factor: 1,060 bytes per env,
+// 0.65 us at B = 2048 by bytes, and the same substep operations less the
+// factor build. What holds both back is neither: each env is one long
+// dependent chain (precise sqrtf, division, sinf and cosf in it), and a
+// few thousand envs at one thread each leave most of the card's 528
+// schedulers without a warp to switch to.
 //
-// Design: one thread per env; nothing but the inputs and outputs touches
-// device memory. The model (tree topology, inertias, geoms, gains, terrain
-// waves, feature switches) arrives as ONE struct passed by value as a
-// __grid_constant__ kernel argument, so the same binary serves every
-// model of the same sizes; only the sizes (bodies, geoms, pairs, waves)
-// are compile-time macros, because they size the per-thread arrays. The
-// per-body arrays (E, P, Rcp, v, a, f), the packed factor
-// (nv (nv + 1) / 2 floats) and rhs are per-thread arrays: they are indexed
-// through the topology, so they live in local memory (L1-cached), and a
-// small block (32 threads) spreads the few thousand envs over as many SMs
-// as there are warps. The ragged edge of B is masked. Structural zeros of
-// M (dofs on different branches) are plain zeros of the packed triangle.
+// Design for Hopper: a group of CS_G lanes per env (a -D size that divides
+// 32; a warp holds 32 / CS_G envs, a block several warps). The lanes share
+// out independent scalars; each scalar is still computed by one lane with
+// the plain version's operations in its order, so the kernel stays equal to
+// the bit with it (built with -fmad=false): kinematics, velocities,
+// accelerations and inertial wrenches level by level from the base, one body
+// per lane; every ground geom's and pair's contact on its own lane, their
+// wrenches then subtracted per body in the plain order; the backward pass
+// and the composite inertias level by level from the deepest, each body
+// adding its children in descending index order as the plain loop does; one
+// row of M, of the Cholesky factor and of the forward solve per lane (row r
+// on lane r % CS_G), column by column: the factor with one barrier per
+// column, the forward solve with each row's running sum in a register and
+// each y_k sent to the group's lanes by a shuffle; the backward solve, whose
+// sums run in ascending order, on one lane. The loops of the factor and the
+// solves run over compile-time bounds and are unrolled, so that loads start
+// ahead of the chains. Each env's state (qpos, qvel, targets, lanes, E, P,
+// Rcp, v, a, f, the composite inertias, the packed factor, rhs) lives in
+// shared memory, once per env, and the model struct, a __grid_constant__
+// argument, is copied into shared memory at block start, so that lanes that
+// read different bodies' entries at once do not serialise on parameter
+// space. No per-thread array is indexed through the topology; the host packs
+// the schedules (levels, children, contact slots) into the struct. Barriers
+// are __syncwarp over the whole warp, whose lanes all run the same sequence
+// of them (so the warp's envs reconverge there); __syncthreads only after
+// the model copy. The lanes of an env past B run every barrier and do no
+// work.
+//
+// Not used, and why: wgmma, mma.sync and TF32 (the per-env matrices are at
+// most 18 x 18 float32 and must stay equal to the bit with a float32 plain
+// version; TF32 keeps about 3 digits); TMA and cp.async (the bytes bound is
+// 0.25 us: loading is not what holds the kernel back). What Hopper offers
+// here is warps per SM to hide the chain's latency, 227 KB of shared memory
+// per block for the envs' state, and warp-level barriers.
 
 #include "rigid_body.cuh"
 
@@ -64,113 +88,175 @@ struct Lanes {
   float planes[3 * CS_AT_LEAST_1(CS_NG)];
 };
 
-// Identity lanes: no domain randomization, no push, no planes.
-CS_FN Lanes identity_lanes(const Params& p) {
+// Scratch of the factor build and of a substep, which never overlap.
+struct CrbaScratch {
+  M3 Ia[CS_NB], Ib[CS_NB], Ic[CS_NB];     // composite inertias
+  M3 Y11[CS_NB], Y12[CS_NB], Y22[CS_NB];  // X^T I X, to be added to the parent's
+};
+struct DynamicsScratch {
+  V6 v[CS_NB], a[CS_NB], f[CS_NB];
+  V6 up[CS_NB];          // X^T f of a body, to be added to its parent's f
+  V6 contact[CS_NC];     // contact wrenches, to be subtracted from f
+};
+
+// One env's state in shared memory.
+struct Env {
+  float qpos[CS_NQ], qvel[CS_NV], target[CS_NJ];
+  float normals[CS_AT_LEAST_1(CS_NN)];
+  float rhs[CS_NV];  // holds C first, then the right-hand side, then qacc
+  float L[CS_NT];    // packed factor: L[i (i + 1) / 2 + j], j <= i
   Lanes lane;
-  lane.mass_scale = 1.0f;
-  lane.friction = p.friction;
-  lane.damping_scale = 1.0f;
-  lane.gain_scale = 1.0f;
-  lane.push = v3(0.0f, 0.0f, 0.0f);
-  for (int k = 0; k < 3 * CS_NG; ++k) lane.planes[k] = 0.0f;
-  return lane;
+  M3 E[CS_NB], Rcp[CS_NB];
+  V3 P[CS_NB];
+  union {
+    CrbaScratch crba;
+    DynamicsScratch dyn;
+  };
+};
+
+// Words between two envs in shared memory: odd, so that the envs of a
+// warp that read the same member fall on different banks.
+constexpr int kEnvWords = static_cast<int>(sizeof(Env) / 4) | 1;
+
+// Dynamic shared memory of a block of `threads` threads.
+constexpr long long block_smem_bytes(int threads) {
+  return 4LL * (model_words<Params>() + static_cast<long long>(threads / CS_G) * kEnvWords);
 }
 
-// Row b of a [B, n] array into (or out of) a per-thread array.
-CS_FN void load_row(float* dst, const float* __restrict__ src, int b, int n) {
-  for (int k = 0; k < n; ++k) dst[k] = src[static_cast<size_t>(b) * n + k];
-}
-CS_FN void store_row(float* __restrict__ dst, const float* src, int b, int n) {
-  for (int k = 0; k < n; ++k) dst[static_cast<size_t>(b) * n + k] = src[k];
+// The first of rows after..CS_NV-1 that lane `lane` owns (row r on lane
+// r % size).
+CS_FN int first_owned_row(int after, const LaneGroup& g) {
+  return after + ((g.lane - after % g.size) + g.size) % g.size;
 }
 
 // CRBA mass matrix and in-place Cholesky factor of M + armature + dt*D on
-// the packed lower triangle L[i (i + 1) / 2 + j], j <= i.
-__device__ __noinline__ void crba_chol(const Params& p, const M3* Rcp,
-                                       const Lanes& lane, float* L) {
-  M3 Ia[CS_NB], Ib[CS_NB], Ic[CS_NB];
-#pragma unroll 1
-  for (int i = 0; i < CS_NB; ++i) {
-    Ia[i] = m3(p.blk_a[i]);
-    Ib[i] = m3(p.blk_b[i]);
-    Ic[i] = m3(p.blk_c[i]);
-  }
-  // Composite inertias, leaves to root: Y = X^T I X with
+// the packed lower triangle s.L.
+__device__ void crba_chol(const Params& p, Env& s, const LaneGroup& g) {
+  CrbaScratch& c = s.crba;
+  // Composite inertias, leaves to root, level by level: Y = X^T I X with
   // X = [[E, 0], [-U, E]], E = child_R_parent, U = E skew(joint_pos).
 #pragma unroll 1
-  for (int i = CS_NB - 1; i >= 1; --i) {
-    const M3 Ei = Rcp[i];
-    const V3 r = v3(p.joint_pos[i]);
-    const M3 sk = M3{{0.0f, -r.z, r.y, r.z, 0.0f, -r.x, -r.y, r.x, 0.0f}};
-    const M3 U = m3_mul(Ei, sk);
-    const M3 A = Ia[i], B = Ib[i], C = Ic[i];
-    const M3 Bt = m3_transpose(B);
-    const M3 W11 = m3_sub(m3_mul(A, Ei), m3_mul(B, U));
-    const M3 W12 = m3_mul(B, Ei);
-    const M3 W21 = m3_sub(m3_mul(Bt, Ei), m3_mul(C, U));
-    const M3 W22 = m3_mul(C, Ei);
-    const M3 Y11 = m3_sub(m3T_mul(Ei, W11), m3T_mul(U, W21));
-    const M3 Y12 = m3_sub(m3T_mul(Ei, W12), m3T_mul(U, W22));
-    const M3 Y22 = m3T_mul(Ei, W22);
-    const int parent = p.parent[i];
-    Ia[parent] = m3_add(Ia[parent], Y11);
-    Ib[parent] = m3_add(Ib[parent], Y12);
-    Ic[parent] = m3_add(Ic[parent], Y22);
-  }
-
+  for (int l = p.n_levels - 1; l >= 1; --l) {
+    if (g.active) {
 #pragma unroll 1
-  for (int k = 0; k < CS_NT; ++k) L[k] = 0.0f;
-  // Base 6x6 block: [[A0, B0], [B0^T, C0]], lower triangle.
-  {
-    const M3 A0 = Ia[0], B0 = Ib[0], C0 = Ic[0];
-    for (int i = 0; i < 3; ++i)
-      for (int j = 0; j <= i; ++j) L[i * (i + 1) / 2 + j] = A0.m[3 * i + j];
-    for (int i = 0; i < 3; ++i) {
-      const int row = 3 + i;
-      for (int j = 0; j < 3; ++j) L[row * (row + 1) / 2 + j] = B0.m[3 * j + i];
-      for (int j = 0; j <= i; ++j) L[row * (row + 1) / 2 + 3 + j] = C0.m[3 * i + j];
-    }
-  }
-  // Joint rows: walk each joint's force up the tree.
+      for (int k = p.level_start[l] + g.lane; k < p.level_start[l + 1]; k += g.size) {
+        const int i = p.level_body[k];
+        M3 A = m3(p.blk_a[i]), B = m3(p.blk_b[i]), C = m3(p.blk_c[i]);
 #pragma unroll 1
-  for (int i = 1; i < CS_NB; ++i) {
-    const int di = 5 + i;
-    const int row = di * (di + 1) / 2;
-    const V3 axis = v3(p.joint_axis[i]);
-    V6 F = V6{m3_vec(Ia[i], axis), m3T_vec(Ib[i], axis)};  // (A s, B^T s)
-    L[row + di] = dot(F.w, axis);
-    int j = i;
-    while (p.parent[j] >= 0) {
-      F = xup_force_T(Rcp[j], v3(p.joint_pos[j]), F);
-      j = p.parent[j];
-      if (j == 0) {
-        L[row + 0] = F.w.x; L[row + 1] = F.w.y; L[row + 2] = F.w.z;
-        L[row + 3] = F.l.x; L[row + 4] = F.l.y; L[row + 5] = F.l.z;
-      } else {
-        L[row + 5 + j] = dot(F.w, v3(p.joint_axis[j]));
+        for (int q = p.child_start[i]; q < p.child_start[i + 1]; ++q) {
+          const int ch = p.child_list[q];
+          A = m3_add(A, c.Y11[ch]);
+          B = m3_add(B, c.Y12[ch]);
+          C = m3_add(C, c.Y22[ch]);
+        }
+        c.Ia[i] = A;
+        c.Ib[i] = B;
+        c.Ic[i] = C;
+        const M3 Ei = s.Rcp[i];
+        const V3 r = v3(p.joint_pos[i]);
+        const M3 sk = M3{{0.0f, -r.z, r.y, r.z, 0.0f, -r.x, -r.y, r.x, 0.0f}};
+        const M3 U = m3_mul(Ei, sk);
+        const M3 Bt = m3_transpose(B);
+        const M3 W11 = m3_sub(m3_mul(A, Ei), m3_mul(B, U));
+        const M3 W12 = m3_mul(B, Ei);
+        const M3 W21 = m3_sub(m3_mul(Bt, Ei), m3_mul(C, U));
+        const M3 W22 = m3_mul(C, Ei);
+        c.Y11[i] = m3_sub(m3T_mul(Ei, W11), m3T_mul(U, W21));
+        c.Y12[i] = m3_sub(m3T_mul(Ei, W12), m3T_mul(U, W22));
+        c.Y22[i] = m3T_mul(Ei, W22);
       }
     }
+    g.sync();
   }
-  // Density scale on M (not on armature); damping scale on dt*D.
+  if (g.active && g.lane == 0) {
+    M3 A = m3(p.blk_a[0]), B = m3(p.blk_b[0]), C = m3(p.blk_c[0]);
 #pragma unroll 1
-  for (int k = 0; k < CS_NT; ++k) L[k] = L[k] * lane.mass_scale;
-#pragma unroll 1
-  for (int k = 0; k < CS_NV; ++k) {
-    const int d = k * (k + 1) / 2 + k;
-    L[d] = L[d] + p.armature[k];
-    L[d] = L[d] + p.dt_damping[k] * lane.damping_scale;
-  }
-  // Cholesky, row by row, in place.
-#pragma unroll 1
-  for (int i = 0; i < CS_NV; ++i) {
-    const int ri = i * (i + 1) / 2;
-#pragma unroll 1
-    for (int j = 0; j <= i; ++j) {
-      const int rj = j * (j + 1) / 2;
-      float s = L[ri + j];
-      for (int k = 0; k < j; ++k) s = s - L[ri + k] * L[rj + k];
-      L[ri + j] = (i == j) ? sqrtf(s) : s / L[rj + j];
+    for (int q = p.child_start[0]; q < p.child_start[1]; ++q) {
+      const int ch = p.child_list[q];
+      A = m3_add(A, c.Y11[ch]);
+      B = m3_add(B, c.Y12[ch]);
+      C = m3_add(C, c.Y22[ch]);
     }
+    c.Ia[0] = A;
+    c.Ib[0] = B;
+    c.Ic[0] = C;
+  }
+  g.sync();
+
+  // Rows of M + armature + dt*D, one per lane: the base 6x6 block
+  // [[A0, B0], [B0^T, C0]], or joint i's force walked up the tree; then
+  // the density scale on M (not on armature) and the damping scale on
+  // dt*D.
+  if (g.active) {
+    const float mass_scale = s.lane.mass_scale, damping_scale = s.lane.damping_scale;
+#pragma unroll 1
+    for (int di = g.lane; di < CS_NV; di += g.size) {
+      const int row = di * (di + 1) / 2;
+      float* Lr = s.L + row;
+#pragma unroll 1
+      for (int k = 0; k <= di; ++k) Lr[k] = 0.0f;
+      if (di < 3) {
+        for (int j = 0; j <= di; ++j) Lr[j] = c.Ia[0].m[3 * di + j];
+      } else if (di < 6) {
+        const int i = di - 3;
+        for (int j = 0; j < 3; ++j) Lr[j] = c.Ib[0].m[3 * j + i];
+        for (int j = 0; j <= i; ++j) Lr[3 + j] = c.Ic[0].m[3 * i + j];
+      } else {
+        const int i = di - 5;
+        const V3 axis = v3(p.joint_axis[i]);
+        V6 F = V6{m3_vec(c.Ia[i], axis), m3T_vec(c.Ib[i], axis)};  // (A s, B^T s)
+        Lr[di] = dot(F.w, axis);
+        int j = i;
+#pragma unroll 1
+        while (p.parent[j] >= 0) {
+          F = xup_force_T(s.Rcp[j], v3(p.joint_pos[j]), F);
+          j = p.parent[j];
+          if (j == 0) {
+            Lr[0] = F.w.x; Lr[1] = F.w.y; Lr[2] = F.w.z;
+            Lr[3] = F.l.x; Lr[4] = F.l.y; Lr[5] = F.l.z;
+          } else {
+            Lr[5 + j] = dot(F.w, v3(p.joint_axis[j]));
+          }
+        }
+      }
+#pragma unroll 1
+      for (int k = 0; k <= di; ++k) Lr[k] = Lr[k] * mass_scale;
+      Lr[di] = Lr[di] + p.armature[di];
+      Lr[di] = Lr[di] + p.dt_damping[di] * damping_scale;
+    }
+  }
+  g.sync();
+
+  // Cholesky in place, column by column: entry (i, j) is the plain row-by-
+  // row loop's, s = L[i][j] - sum over k < j, ascending, of L[i][k] L[j][k],
+  // then sqrtf on the diagonal or division by L[j][j]. Row i's lane, having
+  // finished L[i][j] with j = i - 1, finishes the diagonal L[i][i] too.
+  // The loops over columns and over k run over compile-time bounds and are
+  // unrolled, so that the loads of a sum start ahead of its chain of
+  // subtractions (which keeps its order).
+  float* L = s.L;
+  if (g.active && g.lane == 0) L[0] = sqrtf(L[0]);
+  g.sync();
+#pragma unroll
+  for (int j = 0; j + 1 < CS_NV; ++j) {
+    if (g.active) {
+      const int rj = j * (j + 1) / 2;
+#pragma unroll 1
+      for (int i = first_owned_row(j + 1, g); i < CS_NV; i += g.size) {
+        const int ri = i * (i + 1) / 2;
+        float acc = L[ri + j];
+#pragma unroll
+        for (int k = 0; k < j; ++k) acc = acc - L[ri + k] * L[rj + k];
+        L[ri + j] = acc / L[rj + j];
+        if (i == j + 1) {
+          float d = L[ri + i];
+#pragma unroll
+          for (int k = 0; k < j + 1; ++k) d = d - L[ri + k] * L[ri + k];
+          L[ri + i] = sqrtf(d);
+        }
+      }
+    }
+    g.sync();
   }
 }
 
@@ -178,196 +264,340 @@ CS_FN float contact_normal_force(const Params& p, float phi, float rate) {
   return normal_force(p.contact_stiffness, p.contact_damping, p.max_contact_force, phi, rate);
 }
 
-// One substep from (qpos, qvel), in place. E, P, Rcp are this qpos's
-// kinematics; L is the factor. `normals` gets the contact normal forces
-// of the pre-integration state.
-__device__ __noinline__ void substep(const Params& p, float* qpos, float* qvel,
-                                     const float* target, const float* L,
-                                     const M3* E, const V3* P, const M3* Rcp,
-                                     const Lanes& lane, float* normals) {
-  const float* jq = qpos + 7;
-  const float* jd = qvel + 6;
-  const V3 pos = v3(qpos);
-  V6 v[CS_NB], f[CS_NB];
+// One substep of env s from (qpos, qvel), in place. s.E, s.P, s.Rcp are
+// this qpos's kinematics; s.L is the factor. s.normals gets the contact
+// normal forces of the pre-integration state.
+__device__ void substep(const Params& p, Env& s, const LaneGroup& g) {
+  DynamicsScratch& d = s.dyn;
+  const float* jq = s.qpos + 7;
+  const float* jd = s.qvel + 6;
+  const V3 pos = v3(s.qpos);
 
   // ---- body velocities, RNEA accelerations and inertial wrenches ----
-  {
-    V6 a[CS_NB];
-    v[0] = V6{v3(qvel), v3(qvel + 3)};
+  if (g.active && g.lane == 0) {
+    d.v[0] = V6{v3(s.qvel), v3(s.qvel + 3)};
     const V6 a_world = V6{v3(0.0f, 0.0f, 0.0f), v3(0.0f, 0.0f, 0.0f + p.gravity_up)};
-    a[0] = xup_motion(m3_transpose(E[0]), pos, a_world);
-#pragma unroll 1
-    for (int i = 1; i < CS_NB; ++i) {
-      const int parent = p.parent[i];
-      const V3 axis = v3(p.joint_axis[i]);
-      const V3 jp = v3(p.joint_pos[i]);
-      const float qd = jd[i - 1];
-      V6 vi = xup_motion(Rcp[i], jp, v[parent]);
-      vi.w = v3(vi.w.x + axis.x * qd, vi.w.y + axis.y * qd, vi.w.z + axis.z * qd);
-      v[i] = vi;
-      const V6 ai = xup_motion(Rcp[i], jp, a[parent]);
-      const V6 vj = V6{scale(qd, axis), v3(0.0f, 0.0f, 0.0f)};
-      a[i] = add(ai, crm_apply(vi, vj));
-    }
-#pragma unroll 1
-    for (int i = 0; i < CS_NB; ++i) {
-      const V3 com = v3(p.com[i]);
-      const V6 Iv = inertia_apply(p.mass[i], com, p.inertia[i], v[i]);
-      const V6 Ia = inertia_apply(p.mass[i], com, p.inertia[i], a[i]);
-      f[i] = scale(lane.mass_scale, add(Ia, crf_apply(v[i], Iv)));
-    }
+    d.a[0] = xup_motion(m3_transpose(s.E[0]), pos, a_world);
+    const V3 com = v3(p.com[0]);
+    const V6 Iv = inertia_apply(p.mass[0], com, p.inertia[0], d.v[0]);
+    const V6 Ia = inertia_apply(p.mass[0], com, p.inertia[0], d.a[0]);
+    d.f[0] = scale(s.lane.mass_scale, add(Ia, crf_apply(d.v[0], Iv)));
   }
-
-  // ---- ground contacts ----
-  const float mu = lane.friction;
+  g.sync();
 #pragma unroll 1
-  for (int g = 0; g < CS_NG; ++g) {
-    const int b = p.geom_body[g];
-    const V3 offset = v3(p.geom_offset[g]);
-    const float radius = p.geom_radius[g];
-    const M3 E_b = E[b];
-    const V3 x_w = add(P[b], m3_vec(E_b, offset));
-    const V3 wb = v[b].w, lb = v[b].l;
-    float fn;
-    V3 contact_offset, f_w;
-    if (p.terrain_mode == 0) {
-      const float phi = radius - x_w.z;
-      const V3 down = m3T_vec(E_b, v3(0.0f, 0.0f, 0.0f - 1.0f));
-      contact_offset = v3(offset.x + down.x * radius, offset.y + down.y * radius,
-                          offset.z + down.z * radius);
-      const V3 v_pt = m3_vec(E_b, add(lb, cross(wb, contact_offset)));
-      fn = contact_normal_force(p, phi, v_pt.z);
-      const float vt_norm = sqrtf(v_pt.x * v_pt.x + v_pt.y * v_pt.y + 1e-6f);
-      const float s = -mu * fn / fmaxf(vt_norm, p.friction_vel);
-      f_w = v3(s * v_pt.x, s * v_pt.y, fn);
-    } else {
-      V3 n;
-      float h;
-      if (p.terrain_mode == 2) {
-        const float c_g = lane.planes[3 * g], gx = lane.planes[3 * g + 1],
-                    gy = lane.planes[3 * g + 2];
-        h = c_g + gx * x_w.x + gy * x_w.y;
-        const float inv = 1.0f / sqrtf(gx * gx + gy * gy + 1.0f);
-        n = v3(-gx * inv, -gy * inv, inv);
-      } else {
-        n = terrain_normal(p, x_w.x, x_w.y);
-        h = terrain_height(p, x_w.x, x_w.y);
+  for (int l = 1; l < p.n_levels; ++l) {
+    if (g.active) {
+#pragma unroll 1
+      for (int k = p.level_start[l] + g.lane; k < p.level_start[l + 1]; k += g.size) {
+        const int i = p.level_body[k];
+        const int parent = p.parent[i];
+        const V3 axis = v3(p.joint_axis[i]);
+        const V3 jp = v3(p.joint_pos[i]);
+        const float qd = jd[i - 1];
+        V6 vi = xup_motion(s.Rcp[i], jp, d.v[parent]);
+        vi.w = v3(vi.w.x + axis.x * qd, vi.w.y + axis.y * qd, vi.w.z + axis.z * qd);
+        d.v[i] = vi;
+        const V6 ai0 = xup_motion(s.Rcp[i], jp, d.a[parent]);
+        const V6 vj = V6{scale(qd, axis), v3(0.0f, 0.0f, 0.0f)};
+        const V6 ai = add(ai0, crm_apply(vi, vj));
+        d.a[i] = ai;
+        const V3 com = v3(p.com[i]);
+        const V6 Iv = inertia_apply(p.mass[i], com, p.inertia[i], vi);
+        const V6 Ia = inertia_apply(p.mass[i], com, p.inertia[i], ai);
+        d.f[i] = scale(s.lane.mass_scale, add(Ia, crf_apply(vi, Iv)));
       }
-      const float phi = radius - (x_w.z - h) * n.z;
-      contact_offset = add(offset, m3T_vec(E_b, scale(-radius, n)));
-      const V3 v_pt = m3_vec(E_b, add(lb, cross(wb, contact_offset)));
-      const float vn = dot(n, v_pt);
-      fn = contact_normal_force(p, phi, vn);
-      const V3 vt = sub(v_pt, scale(vn, n));
-      const float vt_norm = sqrtf(dot(vt, vt) + 1e-6f);
-      const float s = -mu * fn / fmaxf(vt_norm, p.friction_vel);
-      f_w = add(scale(fn, n), scale(s, vt));
     }
-    normals[g] = fn;
-    const V3 f_b = m3T_vec(E_b, f_w);
-    f[b] = sub(f[b], V6{cross(contact_offset, f_b), f_b});
+    g.sync();
   }
 
-  // ---- sphere-sphere pairs: equal and opposite at the midpoint ----
+  // ---- contacts, one ground geom or sphere pair per lane ----
+  const float mu = s.lane.friction;
+  if (g.active) {
 #pragma unroll 1
-  for (int k = 0; k < CS_NP; ++k) {
-    const int ga = p.pair_a[k], gb = p.pair_b[k];
-    const int ba = p.geom_body[ga], bb = p.geom_body[gb];
-    const float ra = p.geom_radius[ga], rb = p.geom_radius[gb];
-    const V3 xa = add(P[ba], m3_vec(E[ba], v3(p.geom_offset[ga])));
-    const V3 xb = add(P[bb], m3_vec(E[bb], v3(p.geom_offset[gb])));
-    const V3 d = sub(xb, xa);
-    const float dist = sqrtf(dot(d, d) + 1e-12f);
-    const V3 n = scale(1.0f / dist, d);  // a -> b
-    const float phi = ra + rb - dist;
-    const V3 c_w = add(xa, scale(ra - 0.5f * phi, n));
-    const V3 r_a = m3T_vec(E[ba], sub(c_w, P[ba]));
-    const V3 r_b = m3T_vec(E[bb], sub(c_w, P[bb]));
-    const V3 vel_a = m3_vec(E[ba], add(v[ba].l, cross(v[ba].w, r_a)));
-    const V3 vel_b = m3_vec(E[bb], add(v[bb].l, cross(v[bb].w, r_b)));
-    const V3 v_rel = sub(vel_b, vel_a);
-    const float sep = dot(n, v_rel);  // separation rate
-    const float fn = contact_normal_force(p, phi, sep);
-    const V3 vt = sub(v_rel, scale(sep, n));
-    const float vt_norm = sqrtf(dot(vt, vt) + 1e-6f);
-    const float s = -mu * fn / fmaxf(vt_norm, p.friction_vel);
-    const V3 f_w = add(scale(fn, n), scale(s, vt));
-    normals[CS_NG + k] = fn;
-    const V3 f_on_b = m3T_vec(E[bb], scale(1.0f, f_w));
-    f[bb] = sub(f[bb], V6{cross(r_b, f_on_b), f_on_b});
-    const V3 f_on_a = m3T_vec(E[ba], scale(-1.0f, f_w));
-    f[ba] = sub(f[ba], V6{cross(r_a, f_on_a), f_on_a});
-  }
-
-  // ---- backward pass: generalized bias, contacts included ----
-  float rhs[CS_NV];  // holds C first, then the right-hand side
-#pragma unroll 1
-  for (int i = CS_NB - 1; i >= 1; --i) {
-    rhs[5 + i] = dot(v3(p.joint_axis[i]), f[i].w);
-    const int parent = p.parent[i];
-    f[parent] = add(f[parent], xup_force_T(Rcp[i], v3(p.joint_pos[i]), f[i]));
-  }
-  rhs[0] = f[0].w.x; rhs[1] = f[0].w.y; rhs[2] = f[0].w.z;
-  rhs[3] = f[0].l.x; rhs[4] = f[0].l.y; rhs[5] = f[0].l.z;
-#pragma unroll 1
-  for (int k = 0; k < CS_NV; ++k)
-    if (p.damping[k] != 0.0f) rhs[k] = rhs[k] + (p.damping[k] * lane.damping_scale) * qvel[k];
-
-  // ---- applied torques: PD (P term), limits, springs, push ----
-  const float gain = lane.gain_scale * p.kp;
-  for (int k = 0; k < 6; ++k) rhs[k] = -rhs[k];
-#pragma unroll 1
-  for (int j = 0; j < CS_NJ; ++j) rhs[6 + j] = gain * (target[j] - jq[j]) - rhs[6 + j];
-  if (p.has_limits) {
-#pragma unroll 1
-    for (int j = 0; j < CS_NJ; ++j) {
-      const float lo = p.lower[j], hi = p.upper[j];
-      if (!(isfinite(lo) || isfinite(hi))) continue;
-      const float below = isfinite(lo) ? fmaxf(lo - jq[j], 0.0f) : 0.0f;
-      const float above = isfinite(hi) ? fmaxf(jq[j] - hi, 0.0f) : 0.0f;
-      const float violating = (below + above) > 0.0f ? 1.0f : 0.0f;
-      rhs[6 + j] = rhs[6 + j] + (p.limit_stiffness * (below - above) -
-                                 p.limit_damping * violating * jd[j]);
+    for (int n = g.lane; n < CS_NN; n += g.size) {
+      if (n < CS_NG) {
+        const int gi = n;
+        const int b = p.geom_body[gi];
+        const V3 offset = v3(p.geom_offset[gi]);
+        const float radius = p.geom_radius[gi];
+        const M3 E_b = s.E[b];
+        const V3 x_w = add(s.P[b], m3_vec(E_b, offset));
+        const V3 wb = d.v[b].w, lb = d.v[b].l;
+        float fn;
+        V3 contact_offset, f_w;
+        if (p.terrain_mode == 0) {
+          const float phi = radius - x_w.z;
+          const V3 down = m3T_vec(E_b, v3(0.0f, 0.0f, 0.0f - 1.0f));
+          contact_offset = v3(offset.x + down.x * radius, offset.y + down.y * radius,
+                              offset.z + down.z * radius);
+          const V3 v_pt = m3_vec(E_b, add(lb, cross(wb, contact_offset)));
+          fn = contact_normal_force(p, phi, v_pt.z);
+          const float vt_norm = sqrtf(v_pt.x * v_pt.x + v_pt.y * v_pt.y + 1e-6f);
+          const float sc = -mu * fn / fmaxf(vt_norm, p.friction_vel);
+          f_w = v3(sc * v_pt.x, sc * v_pt.y, fn);
+        } else {
+          V3 nrm;
+          float h;
+          if (p.terrain_mode == 2) {
+            const float c_g = s.lane.planes[3 * gi], gx = s.lane.planes[3 * gi + 1],
+                        gy = s.lane.planes[3 * gi + 2];
+            h = c_g + gx * x_w.x + gy * x_w.y;
+            const float inv = 1.0f / sqrtf(gx * gx + gy * gy + 1.0f);
+            nrm = v3(-gx * inv, -gy * inv, inv);
+          } else {
+            nrm = terrain_normal(p, x_w.x, x_w.y);
+            h = terrain_height(p, x_w.x, x_w.y);
+          }
+          const float phi = radius - (x_w.z - h) * nrm.z;
+          contact_offset = add(offset, m3T_vec(E_b, scale(-radius, nrm)));
+          const V3 v_pt = m3_vec(E_b, add(lb, cross(wb, contact_offset)));
+          const float vn = dot(nrm, v_pt);
+          fn = contact_normal_force(p, phi, vn);
+          const V3 vt = sub(v_pt, scale(vn, nrm));
+          const float vt_norm = sqrtf(dot(vt, vt) + 1e-6f);
+          const float sc = -mu * fn / fmaxf(vt_norm, p.friction_vel);
+          f_w = add(scale(fn, nrm), scale(sc, vt));
+        }
+        s.normals[gi] = fn;
+        const V3 f_b = m3T_vec(E_b, f_w);
+        d.contact[gi] = V6{cross(contact_offset, f_b), f_b};
+      } else {
+        // Sphere-sphere pair: equal and opposite at the midpoint.
+        const int k = n - CS_NG;
+        const int ga = p.pair_a[k], gb = p.pair_b[k];
+        const int ba = p.geom_body[ga], bb = p.geom_body[gb];
+        const float ra = p.geom_radius[ga], rb = p.geom_radius[gb];
+        const V3 xa = add(s.P[ba], m3_vec(s.E[ba], v3(p.geom_offset[ga])));
+        const V3 xb = add(s.P[bb], m3_vec(s.E[bb], v3(p.geom_offset[gb])));
+        const V3 dv = sub(xb, xa);
+        const float dist = sqrtf(dot(dv, dv) + 1e-12f);
+        const V3 nrm = scale(1.0f / dist, dv);  // a -> b
+        const float phi = ra + rb - dist;
+        const V3 c_w = add(xa, scale(ra - 0.5f * phi, nrm));
+        const V3 r_a = m3T_vec(s.E[ba], sub(c_w, s.P[ba]));
+        const V3 r_b = m3T_vec(s.E[bb], sub(c_w, s.P[bb]));
+        const V3 vel_a = m3_vec(s.E[ba], add(d.v[ba].l, cross(d.v[ba].w, r_a)));
+        const V3 vel_b = m3_vec(s.E[bb], add(d.v[bb].l, cross(d.v[bb].w, r_b)));
+        const V3 v_rel = sub(vel_b, vel_a);
+        const float sep = dot(nrm, v_rel);  // separation rate
+        const float fn = contact_normal_force(p, phi, sep);
+        const V3 vt = sub(v_rel, scale(sep, nrm));
+        const float vt_norm = sqrtf(dot(vt, vt) + 1e-6f);
+        const float sc = -mu * fn / fmaxf(vt_norm, p.friction_vel);
+        const V3 f_w = add(scale(fn, nrm), scale(sc, vt));
+        s.normals[CS_NG + k] = fn;
+        const V3 f_on_b = m3T_vec(s.E[bb], scale(1.0f, f_w));
+        d.contact[CS_NG + 2 * k] = V6{cross(r_b, f_on_b), f_on_b};
+        const V3 f_on_a = m3T_vec(s.E[ba], scale(-1.0f, f_w));
+        d.contact[CS_NG + 2 * k + 1] = V6{cross(r_a, f_on_a), f_on_a};
+      }
     }
   }
-  if (p.has_springs) {
+  g.sync();
+  // Each body's contact wrenches, subtracted in the plain order.
+  if (g.active) {
 #pragma unroll 1
-    for (int j = 0; j < CS_NJ; ++j)
-      if (p.spring_k[j] > 0.0f)
-        rhs[6 + j] = rhs[6 + j] - p.spring_k[j] * (jq[j] - p.spring_ref[j]);
+    for (int i = g.lane; i < CS_NB; i += g.size) {
+      V6 F = d.f[i];
+#pragma unroll 1
+      for (int q = p.contact_start[i]; q < p.contact_start[i + 1]; ++q)
+        F = sub(F, d.contact[p.contact_slot[q]]);
+      d.f[i] = F;
+    }
   }
-  if (p.idx_push >= 0) {
-    const V3 f_b = m3T_vec(E[0], lane.push);
-    rhs[3] = rhs[3] + f_b.x;
-    rhs[4] = rhs[4] + f_b.y;
-    rhs[5] = rhs[5] + f_b.z;
-  }
+  g.sync();
 
-  // ---- L y = rhs, then L^T qacc = y, in place ----
+  // ---- backward pass, deepest level first: generalized bias ----
 #pragma unroll 1
-  for (int i = 0; i < CS_NV; ++i) {
-    const int ri = i * (i + 1) / 2;
-    float acc = rhs[i];
-    for (int k = 0; k < i; ++k) acc = acc - L[ri + k] * rhs[k];
-    rhs[i] = acc / L[ri + i];
-  }
+  for (int l = p.n_levels - 1; l >= 1; --l) {
+    if (g.active) {
 #pragma unroll 1
-  for (int i = CS_NV - 1; i >= 0; --i) {
-    float acc = rhs[i];
-    for (int k = i + 1; k < CS_NV; ++k) acc = acc - L[k * (k + 1) / 2 + i] * rhs[k];
-    rhs[i] = acc / L[i * (i + 1) / 2 + i];
+      for (int k = p.level_start[l] + g.lane; k < p.level_start[l + 1]; k += g.size) {
+        const int i = p.level_body[k];
+        V6 F = d.f[i];
+#pragma unroll 1
+        for (int q = p.child_start[i]; q < p.child_start[i + 1]; ++q)
+          F = add(F, d.up[p.child_list[q]]);
+        s.rhs[5 + i] = dot(v3(p.joint_axis[i]), F.w);
+        d.up[i] = xup_force_T(s.Rcp[i], v3(p.joint_pos[i]), F);
+      }
+    }
+    g.sync();
   }
+  if (g.active && g.lane == 0) {
+    V6 F = d.f[0];
+#pragma unroll 1
+    for (int q = p.child_start[0]; q < p.child_start[1]; ++q) F = add(F, d.up[p.child_list[q]]);
+    s.rhs[0] = F.w.x; s.rhs[1] = F.w.y; s.rhs[2] = F.w.z;
+    s.rhs[3] = F.l.x; s.rhs[4] = F.l.y; s.rhs[5] = F.l.z;
+  }
+  g.sync();
+
+  // ---- right-hand side per dof: damping, then the base's sign and push,
+  // or the joint's PD (P term), limits and springs ----
+  if (g.active) {
+    const float gain = s.lane.gain_scale * p.kp;
+#pragma unroll 1
+    for (int k = g.lane; k < CS_NV; k += g.size) {
+      float r = s.rhs[k];
+      if (p.damping[k] != 0.0f) r = r + (p.damping[k] * s.lane.damping_scale) * s.qvel[k];
+      if (k < 6) {
+        r = -r;
+        if (p.idx_push >= 0 && k >= 3) {
+          const V3 f_b = m3T_vec(s.E[0], s.lane.push);
+          r = r + (k == 3 ? f_b.x : (k == 4 ? f_b.y : f_b.z));
+        }
+      } else {
+        const int j = k - 6;
+        r = gain * (s.target[j] - jq[j]) - r;
+        if (p.has_limits) {
+          const float lo = p.lower[j], hi = p.upper[j];
+          if (isfinite(lo) || isfinite(hi)) {
+            const float below = isfinite(lo) ? fmaxf(lo - jq[j], 0.0f) : 0.0f;
+            const float above = isfinite(hi) ? fmaxf(jq[j] - hi, 0.0f) : 0.0f;
+            const float violating = (below + above) > 0.0f ? 1.0f : 0.0f;
+            r = r + (p.limit_stiffness * (below - above) - p.limit_damping * violating * jd[j]);
+          }
+        }
+        if (p.has_springs && p.spring_k[j] > 0.0f)
+          r = r - p.spring_k[j] * (jq[j] - p.spring_ref[j]);
+      }
+      s.rhs[k] = r;
+    }
+  }
+  g.sync();
+
+  // ---- L y = rhs by columns: row i's running sum in a register of lane
+  // i % CS_G; each y_k, once divided out by its row's lane, goes to every
+  // lane by a shuffle. The loops run over compile-time bounds. ----
+  const float* L = s.L;
+  {
+    constexpr int kRows = (CS_NV + CS_G - 1) / CS_G;  // rows per lane, at most
+    float acc[kRows];
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      const int i = g.lane + q * CS_G;
+      acc[q] = (g.active && i < CS_NV) ? s.rhs[i] : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < CS_NV; ++k) {
+      float y = 0.0f;
+      if (g.lane == k % CS_G) {
+        y = acc[k / CS_G] / L[k * (k + 1) / 2 + k];
+        acc[k / CS_G] = y;
+      }
+      y = g.broadcast(y, k % CS_G);
+#pragma unroll
+      for (int q = 0; q < kRows; ++q) {
+        const int i = g.lane + q * CS_G;
+        if (i > k && i < CS_NV) acc[q] = acc[q] - L[i * (i + 1) / 2 + k] * y;
+      }
+    }
+    if (g.active) {
+#pragma unroll
+      for (int q = 0; q < kRows; ++q) {
+        const int i = g.lane + q * CS_G;
+        if (i < CS_NV) s.rhs[i] = acc[q];
+      }
+    }
+  }
+  g.sync();
+  // ---- L^T qacc = y on one lane: its sums run in ascending k ----
+  if (g.active && g.lane == 0) {
+    float* rhs = s.rhs;
+#pragma unroll
+    for (int i = CS_NV - 1; i >= 0; --i) {
+      float acc = rhs[i];
+#pragma unroll
+      for (int k = i + 1; k < CS_NV; ++k) acc = acc - L[k * (k + 1) / 2 + i] * rhs[k];
+      rhs[i] = acc / L[i * (i + 1) / 2 + i];
+    }
+  }
+  g.sync();
 
   // ---- semi-implicit Euler ----
   const float dt = p.dt;
+  if (g.active) {
 #pragma unroll 1
-  for (int k = 0; k < CS_NV; ++k) qvel[k] = qvel[k] + dt * rhs[k];
-  const V3 w_new = v3(qvel), v_new = v3(qvel + 3);
-  const V3 pos_new = add(pos, scale(dt, m3_vec(E[0], v_new)));
-  qpos[0] = pos_new.x; qpos[1] = pos_new.y; qpos[2] = pos_new.z;
-  quat_integrate(qpos + 3, w_new, dt);
+    for (int k = g.lane; k < CS_NV; k += g.size) {
+      s.qvel[k] = s.qvel[k] + dt * s.rhs[k];
+      if (k >= 6) s.qpos[k + 1] = s.qpos[k + 1] + dt * s.qvel[k];
+    }
+  }
+  g.sync();
+  if (g.active && g.lane == 0) {
+    const V3 w_new = v3(s.qvel), v_new = v3(s.qvel + 3);
+    const V3 pos_new = add(pos, scale(dt, m3_vec(s.E[0], v_new)));
+    s.qpos[0] = pos_new.x; s.qpos[1] = pos_new.y; s.qpos[2] = pos_new.z;
+    quat_integrate(s.qpos + 3, w_new, dt);
+  }
+  g.sync();
+}
+
+// The group's env in the block's shared memory, after the model copy.
+__device__ Env& env_in_shared(float* envs) {
+  return *reinterpret_cast<Env*>(envs + static_cast<int>(threadIdx.x / CS_G) * kEnvWords);
+}
+
+// Identity lanes (no domain randomization, no push, no planes), then the
+// env's own from `extra` where the struct names a column; on lane 0.
+__device__ void load_lanes(const Params& p, const float* extra, int env, Lanes& lane) {
+  lane.mass_scale = 1.0f;
+  lane.friction = p.friction;
+  lane.damping_scale = 1.0f;
+  lane.gain_scale = 1.0f;
+  lane.push = v3(0.0f, 0.0f, 0.0f);
+  for (int k = 0; k < 3 * CS_NG; ++k) lane.planes[k] = 0.0f;
+  if (extra == nullptr) return;
+  const float* e = extra + static_cast<size_t>(env) * p.n_extra;
+  if (p.idx_mass_scale >= 0) lane.mass_scale = e[p.idx_mass_scale];
+  if (p.idx_friction >= 0) lane.friction = e[p.idx_friction];
+  if (p.idx_damping_scale >= 0) lane.damping_scale = e[p.idx_damping_scale];
+  if (p.idx_gain_scale >= 0) lane.gain_scale = e[p.idx_gain_scale];
+  if (p.idx_push >= 0) lane.push = v3(e + p.idx_push);
+  if (p.idx_planes >= 0)
+    for (int k = 0; k < 3 * CS_NG; ++k) lane.planes[k] = e[p.idx_planes + k];
+}
+
+// The control step: either the factor is built here (control_step_kernel:
+// `extra` holds the per-env lanes, `chol_in` is null) or it comes in packed
+// (substeps_kernel: `chol_in` [B, NT], identity lanes).
+__device__ void control_step_body(const float* __restrict__ qpos_in,
+                                  const float* __restrict__ qvel_in,
+                                  const float* __restrict__ target_in,
+                                  const float* __restrict__ extra,
+                                  const float* __restrict__ chol_in,
+                                  float* __restrict__ qpos_out, float* __restrict__ qvel_out,
+                                  float* __restrict__ normals_out, int B, const Params& p_arg) {
+  extern __shared__ float4 cs_smem[];
+  float* envs = copy_model_to_shared(p_arg, reinterpret_cast<float*>(cs_smem));
+  const Params& p = *reinterpret_cast<const Params*>(cs_smem);
+  int env;
+  const LaneGroup g = lane_group(CS_G, B, &env);
+  Env& s = env_in_shared(envs);
+
+  if (g.active) {
+    load_row(s.qpos, qpos_in, env, CS_NQ, g);
+    load_row(s.qvel, qvel_in, env, CS_NV, g);
+    load_row(s.target, target_in, env, CS_NJ, g);
+    if (chol_in != nullptr) load_row(s.L, chol_in, env, CS_NT, g);
+    for (int k = g.lane; k < CS_NN; k += g.size) s.normals[k] = 0.0f;
+    if (g.lane == 0) load_lanes(p, extra, env, s.lane);
+  }
+  g.sync();
+
 #pragma unroll 1
-  for (int j = 0; j < CS_NJ; ++j) qpos[7 + j] = qpos[7 + j] + dt * qvel[6 + j];
+  for (int step = 0; step < p.n_substeps; ++step) {
+    kinematics(p, s.qpos, s.E, s.P, s.Rcp, g);
+    if (chol_in == nullptr && (step == 0 || p.exact)) crba_chol(p, s, g);
+    substep(p, s, g);
+  }
+
+  if (g.active) {
+    store_row(qpos_out, s.qpos, env, CS_NQ, g);
+    store_row(qvel_out, s.qvel, env, CS_NV, g);
+    store_row(normals_out, s.normals, env, CS_NN, g);
+  }
 }
 
 __global__ void control_step_kernel(const float* __restrict__ qpos_in,
@@ -378,39 +608,8 @@ __global__ void control_step_kernel(const float* __restrict__ qpos_in,
                                     float* __restrict__ qvel_out,
                                     float* __restrict__ normals_out, int B,
                                     const __grid_constant__ Params p) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-
-  float qpos[CS_NQ], qvel[CS_NV], target[CS_NJ];
-  float normals[CS_AT_LEAST_1(CS_NN)];
-  load_row(qpos, qpos_in, b, CS_NQ);
-  load_row(qvel, qvel_in, b, CS_NV);
-  load_row(target, target_in, b, CS_NJ);
-  for (int k = 0; k < CS_NN; ++k) normals[k] = 0.0f;
-
-  Lanes lane = identity_lanes(p);
-  const float* e = extra + static_cast<size_t>(b) * p.n_extra;
-  if (p.idx_mass_scale >= 0) lane.mass_scale = e[p.idx_mass_scale];
-  if (p.idx_friction >= 0) lane.friction = e[p.idx_friction];
-  if (p.idx_damping_scale >= 0) lane.damping_scale = e[p.idx_damping_scale];
-  if (p.idx_gain_scale >= 0) lane.gain_scale = e[p.idx_gain_scale];
-  if (p.idx_push >= 0) lane.push = v3(e + p.idx_push);
-  if (p.idx_planes >= 0)
-    for (int k = 0; k < 3 * CS_NG; ++k) lane.planes[k] = e[p.idx_planes + k];
-
-  M3 E[CS_NB], Rcp[CS_NB];
-  V3 P[CS_NB];
-  float L[CS_NT];
-#pragma unroll 1
-  for (int s = 0; s < p.n_substeps; ++s) {
-    kinematics(p, qpos, E, P, Rcp);
-    if (s == 0 || p.exact) crba_chol(p, Rcp, lane, L);
-    substep(p, qpos, qvel, target, L, E, P, Rcp, lane, normals);
-  }
-
-  store_row(qpos_out, qpos, b, CS_NQ);
-  store_row(qvel_out, qvel, b, CS_NV);
-  store_row(normals_out, normals, b, CS_NN);
+  control_step_body(qpos_in, qvel_in, target_in, p.n_extra > 0 ? extra : nullptr, nullptr,
+                    qpos_out, qvel_out, normals_out, B, p);
 }
 
 __global__ void substeps_kernel(const float* __restrict__ qpos_in,
@@ -421,58 +620,59 @@ __global__ void substeps_kernel(const float* __restrict__ qpos_in,
                                 float* __restrict__ qvel_out,
                                 float* __restrict__ normals_out, int B,
                                 const __grid_constant__ Params p) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  control_step_body(qpos_in, qvel_in, target_in, nullptr, chol_in, qpos_out, qvel_out,
+                    normals_out, B, p);
+}
 
-  float qpos[CS_NQ], qvel[CS_NV], target[CS_NJ], L[CS_NT];
-  float normals[CS_AT_LEAST_1(CS_NN)];
-  load_row(qpos, qpos_in, b, CS_NQ);
-  load_row(qvel, qvel_in, b, CS_NV);
-  load_row(target, target_in, b, CS_NJ);
-  load_row(L, chol_in, b, CS_NT);
-  for (int k = 0; k < CS_NN; ++k) normals[k] = 0.0f;
-  const Lanes lane = identity_lanes(p);
-
-  M3 E[CS_NB], Rcp[CS_NB];
-  V3 P[CS_NB];
-#pragma unroll 1
-  for (int s = 0; s < p.n_substeps; ++s) {
-    kinematics(p, qpos, E, P, Rcp);
-    substep(p, qpos, qvel, target, L, E, P, Rcp, lane, normals);
+template <class Kernel>
+int launch(Kernel kernel, const float* qpos, const float* qvel, const float* target,
+           const float* fourth, float* qpos_out, float* qvel_out, float* normals_out, int B,
+           const Params* params, int threads, int device, void* stream) {
+  if (threads <= 0 || threads % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const long long smem = block_smem_bytes(threads);
+  if (smem > 48 * 1024) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (attr != cudaSuccess) return static_cast<int>(attr);
   }
-
-  store_row(qpos_out, qpos, b, CS_NQ);
-  store_row(qvel_out, qvel, b, CS_NV);
-  store_row(normals_out, normals, b, CS_NN);
+  const long long lanes = static_cast<long long>(B) * CS_G;
+  const int blocks = static_cast<int>((lanes + threads - 1) / threads);
+  kernel<<<blocks, threads, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
+      qpos, qvel, target, fourth, qpos_out, qvel_out, normals_out, B, *params);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Size of the model struct and the sizes this library was built for, so
-// that the caller can check its packing: out = {NB, NG, NP, NW}.
+// that the caller can check its packing: out = {NB, NG, NP, NW, G}.
 extern "C" int control_step_params_size(int* out) {
   out[0] = CS_NB;
   out[1] = CS_NG;
   out[2] = CS_NP;
   out[3] = CS_NW;
+  out[4] = CS_G;
   return static_cast<int>(sizeof(Params));
 }
 
+// Dynamic shared memory of one block of `threads` threads, in bytes.
+extern "C" long long control_step_smem_bytes(int threads) { return block_smem_bytes(threads); }
+
 // Launches on `stream` of CUDA device `device` and returns the launch's
-// cudaError_t (0 on success). `params` points to a host copy of the
-// struct; `extra` may be null when params->n_extra is 0.
+// cudaError_t (0 on success), or that of setting the kernel's shared-memory
+// limit. `params` points to a host copy of the struct; `extra` may be null
+// when params->n_extra is 0. `threads` (per block) is a multiple of 32;
+// each env takes CS_G of them.
 extern "C" int control_step_forward(const float* qpos, const float* qvel,
                                     const float* target, const float* extra,
                                     float* qpos_out, float* qvel_out,
                                     float* normals_out, int B,
                                     const Params* params, int threads,
                                     int device, void* stream) {
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  const int blocks = (B + threads - 1) / threads;
-  control_step_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      qpos, qvel, target, extra, qpos_out, qvel_out, normals_out, B, *params);
-  return static_cast<int>(cudaGetLastError());
+  return launch(control_step_kernel, qpos, qvel, target, extra, qpos_out, qvel_out,
+                normals_out, B, params, threads, device, stream);
 }
 
 // The same for substeps_kernel; `chol` is the packed factor [B, NT].
@@ -481,10 +681,6 @@ extern "C" int substeps_forward(const float* qpos, const float* qvel,
                                 float* qpos_out, float* qvel_out,
                                 float* normals_out, int B, const Params* params,
                                 int threads, int device, void* stream) {
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  const int blocks = (B + threads - 1) / threads;
-  substeps_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      qpos, qvel, target, chol, qpos_out, qvel_out, normals_out, B, *params);
-  return static_cast<int>(cudaGetLastError());
+  return launch(substeps_kernel, qpos, qvel, target, chol, qpos_out, qvel_out, normals_out,
+                B, params, threads, device, stream);
 }

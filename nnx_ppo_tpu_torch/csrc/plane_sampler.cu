@@ -24,8 +24,9 @@
 // per geom: 300 bytes per env for the quadruped, 0.6 MB at B = 2048, some
 // 0.2 us at 3.35 TB/s; the operations (kinematics of 12 hinges and 8
 // lookups, about 1e3 per env) take less, so bytes bound it. The table
-// (256 KB at 256 x 256) stays in L2. One thread per env as in
-// control_step.cu, whose struct and kinematics this kernel shares.
+// (256 KB at 256 x 256) stays in L2. One thread per env; it shares
+// control_step.cu's struct and its kinematics, which it runs as a group of
+// one lane.
 
 #include "rigid_body.cuh"
 
@@ -44,7 +45,9 @@ __global__ void plane_sampler_kernel(const float* __restrict__ qpos_in,
   for (int k = 0; k < CS_NQ; ++k) qpos[k] = qpos_in[static_cast<size_t>(b) * CS_NQ + k];
   M3 E[CS_NB], Rcp[CS_NB];
   V3 P[CS_NB];
-  kinematics(p, qpos, E, P, Rcp);
+  // The control step's kinematics, run by a group of one lane.
+  const LaneGroup solo{0, 1, 1u << (threadIdx.x & 31u), true};
+  kinematics(p, qpos, E, P, Rcp, solo);
 
   float* out = planes_out + static_cast<size_t>(b) * (3 * CS_NG);
 #pragma unroll 1
@@ -79,12 +82,14 @@ __global__ void plane_sampler_kernel(const float* __restrict__ qpos_in,
 }  // namespace
 
 // Size of the model struct and the sizes this library was built for, so
-// that the caller can check its packing: out = {NB, NG, NP, NW}.
+// that the caller can check its packing: out = {NB, NG, NP, NW, G}; G is
+// the control step's group size, which this kernel does not use.
 extern "C" int plane_sampler_params_size(int* out) {
   out[0] = CS_NB;
   out[1] = CS_NG;
   out[2] = CS_NP;
   out[3] = CS_NW;
+  out[4] = CS_G;
   return static_cast<int>(sizeof(Params));
 }
 

@@ -38,18 +38,34 @@
 // per env (228 bytes for the arm-and-ball scene, 0.9 MB at B = 4096, 0.28 us
 // at 3.35 TB/s) and does some 2,800 float operations per env and substep
 // there (45 thousand per control step of 16 substeps, 2.8 us at 67 TFLOP/s
-// for 4096 envs), so operations bound it. What sets the time in practice is
-// neither: every env is one long dependent chain.
+// for 4096 envs), so operations bound it. What holds it back is neither:
+// each env is one long dependent chain, and a few thousand envs at one
+// thread each leave most of the card's schedulers without a warp.
 //
-// Design: one thread per env; nothing but the inputs and outputs touches
-// device memory. The scene (trees, joints, inertias, geoms, pairs, gains,
-// terrain waves) arrives as ONE struct passed by value as a
-// __grid_constant__ kernel argument; only the sizes are compile-time
-// macros, because they size the per-thread arrays. The per-body arrays and
-// the packed factor of the tree in hand are per-thread arrays indexed
-// through the topology, so they live in local memory (L1-cached); a small
-// block (32 threads) spreads a few thousand envs over as many SMs as there
-// are warps. The ragged edge of B is masked.
+// Design for Hopper: a group of SS_G lanes per env (a -D size that divides
+// 32). The lanes share out independent scalars; each scalar is still
+// computed by one lane with the plain version's operations in its order, so
+// the kernel stays equal to the bit with it (-fmad=false): kinematics,
+// velocities, accelerations and inertial wrenches level by level from the
+// roots, one body per lane; each ground geom's and pair's contact on its own
+// lane, their wrenches then subtracted per body in the plain order; then the
+// trees side by side, one tree per lane: its CRBA, factor, backward pass,
+// solves and integration read only its own slices, and the frames and
+// wrenches are complete before them. Each env's state (qpos, qvel, tau, the
+// frames, v, a, f, the contact wrenches, the composite inertias, each tree's
+// packed factor and rhs) lives in shared memory, once per env; the scene
+// struct, a __grid_constant__ argument, is copied into shared memory at
+// block start. No per-thread array is indexed through the topology; the host
+// packs the schedules (levels, contact slots) into the struct. Barriers are
+// __syncwarp over the whole warp, whose lanes all run the same sequence of
+// them; __syncthreads only after the struct copy. The lanes of an env past B
+// run every barrier and do no work.
+//
+// Not used, and why: wgmma, mma.sync and TF32 (a tree's matrices are at most
+// SS_MV x SS_MV float32 and must stay equal to the bit with a float32 plain
+// version); TMA and cp.async (the bytes bound is 0.28 us). What Hopper
+// offers here is warps per SM to hide the chain's latency, shared memory for
+// the envs' state, and warp-level barriers.
 
 #include "spatial_math.cuh"
 
@@ -77,8 +93,17 @@
 #ifndef SS_NW
 #define SS_NW 0  // terrain waves
 #endif
+#ifndef SS_G
+#define SS_G 2  // lanes per env
+#endif
 
 #define SS_AT_LEAST_1(n) ((n) > 0 ? (n) : 1)
+// Contact wrenches: one per ground geom, two per pair (on b, then on a).
+#define SS_NC SS_AT_LEAST_1(SS_NG + 2 * SS_NP)
+// Entries of the largest tree's packed factor.
+#define SS_NTRI (SS_MV * (SS_MV + 1) / 2)
+
+static_assert(SS_G >= 1 && SS_G <= 32 && 32 % SS_G == 0, "SS_G must divide 32");
 
 enum JointType { JOINT_FREE = 0, JOINT_BALL = 1, JOINT_HINGE = 2, JOINT_SLIDE = 3 };
 
@@ -161,6 +186,17 @@ struct SceneParams {
   int n_substeps;
   int terrain_mode;  // 0 flat, 1 analytic waves
   int n_normals;     // columns of the normals output (at least 1)
+  // Schedules (cuda_step.py::tree_schedule, contact_schedule). Levels: the
+  // bodies of depth l are level_body[level_start[l] .. level_start[l + 1]),
+  // in index order; level 0 holds the roots of every tree. Contact wrenches
+  // on body i: contact_slot[contact_start[i] .. contact_start[i + 1]), in
+  // the plain version's order; slot g is ground geom g, slots NG + 2 j and
+  // NG + 2 j + 1 pair j's force on its b and a bodies.
+  int level_start[SS_NB + 1];
+  int level_body[SS_NB];
+  int contact_start[SS_NB + 1];
+  int contact_slot[SS_NC];
+  int n_levels;
   static constexpr int kWaves = SS_NW;  // for terrain_height / terrain_normal
 };
 
@@ -169,13 +205,6 @@ static_assert(sizeof(SceneParams) <= 4096,
               "to __constant__ memory");
 
 namespace {
-
-CS_FN void load_row(float* dst, const float* __restrict__ src, int b, int n) {
-  for (int k = 0; k < n; ++k) dst[k] = src[static_cast<size_t>(b) * n + k];
-}
-CS_FN void store_row(float* __restrict__ dst, const float* src, int b, int n) {
-  for (int k = 0; k < n; ++k) dst[static_cast<size_t>(b) * n + k] = src[k];
-}
 
 CS_FN V6 v6(const float* p) { return V6{v3(p), v3(p + 3)}; }
 
@@ -209,40 +238,73 @@ struct Frames {
   V3 P[SS_NB], r[SS_NB];
 };
 
-__device__ __noinline__ void kinematics(const SceneParams& p, const float* qpos, Frames& k) {
+// One env's state in shared memory.
+struct SceneEnv {
+  float qpos[SS_NQ], qvel[SS_NV], tau[SS_NV];
+  float normals[SS_NG + SS_NP + 1];
+  Frames k;
+  V6 v[SS_NB], a[SS_NB], f[SS_NB];
+  V6 contact[SS_NC];  // contact wrenches, to be subtracted from f
+  M3 Ia[SS_NB], Ib[SS_NB], Ic[SS_NB];
+  float L[SS_NT][SS_NTRI];  // each tree's packed factor
+  float rhs[SS_NT][SS_AT_LEAST_1(SS_MV)];
+};
+
+// Words between two envs in shared memory: odd, so that the envs of a
+// warp that read the same member fall on different banks.
+constexpr int kSceneEnvWords = static_cast<int>(sizeof(SceneEnv) / 4) | 1;
+
+// Dynamic shared memory of a block of `threads` threads.
+constexpr long long scene_block_smem_bytes(int threads) {
+  return 4LL * (model_words<SceneParams>() +
+                static_cast<long long>(threads / SS_G) * kSceneEnvWords);
+}
+
+// Body i's frame from qpos (its parent's, if any, is complete).
+__device__ void body_frame(const SceneParams& p, const float* qpos, Frames& k, int i) {
+  const float* q = qpos + p.q_start[i];
+  const int type = p.joint_type[i];
+  if (type == JOINT_FREE) {
+    k.E[i] = quat_to_m3(q[3], q[4], q[5], q[6]);
+    k.P[i] = v3(q);
+    k.Rcp[i] = m3_transpose(k.E[i]);
+    k.r[i] = k.P[i];
+    return;
+  }
+  M3 R_j;  // parent_R_child
+  V3 r = v3(p.joint_pos[i]);
+  if (type == JOINT_BALL) {
+    R_j = quat_to_m3(q[0], q[1], q[2], q[3]);
+  } else if (type == JOINT_HINGE) {
+    R_j = axis_angle_m3(v3(p.joint_axis[i]), p.axis_outer[i], q[0]);
+  } else {  // SLIDE: the origin slides along the axis
+    R_j = M3{{1.0f, 0.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0.0f, 0.0f, 1.0f}};
+    const V3 axis = v3(p.joint_axis[i]);
+    r = v3(r.x + axis.x * q[0], r.y + axis.y * q[0], r.z + axis.z * q[0]);
+  }
+  k.Rcp[i] = m3_transpose(R_j);
+  k.r[i] = r;
+  const int parent = p.parent[i];
+  if (parent < 0) {
+    k.E[i] = R_j;
+    k.P[i] = r;
+  } else {
+    const M3 E_par = k.E[parent];
+    k.E[i] = m3_mul(E_par, R_j);
+    k.P[i] = add(k.P[parent], m3_vec(E_par, r));
+  }
+}
+
+// Frames of every body, level by level from the roots.
+__device__ void kinematics(const SceneParams& p, SceneEnv& s, const LaneGroup& g) {
 #pragma unroll 1
-  for (int i = 0; i < SS_NB; ++i) {
-    const float* q = qpos + p.q_start[i];
-    const int type = p.joint_type[i];
-    if (type == JOINT_FREE) {
-      k.E[i] = quat_to_m3(q[3], q[4], q[5], q[6]);
-      k.P[i] = v3(q);
-      k.Rcp[i] = m3_transpose(k.E[i]);
-      k.r[i] = k.P[i];
-      continue;
+  for (int l = 0; l < p.n_levels; ++l) {
+    if (g.active) {
+#pragma unroll 1
+      for (int n = p.level_start[l] + g.lane; n < p.level_start[l + 1]; n += g.size)
+        body_frame(p, s.qpos, s.k, p.level_body[n]);
     }
-    M3 R_j;  // parent_R_child
-    V3 r = v3(p.joint_pos[i]);
-    if (type == JOINT_BALL) {
-      R_j = quat_to_m3(q[0], q[1], q[2], q[3]);
-    } else if (type == JOINT_HINGE) {
-      R_j = axis_angle_m3(v3(p.joint_axis[i]), p.axis_outer[i], q[0]);
-    } else {  // SLIDE: the origin slides along the axis
-      R_j = M3{{1.0f, 0.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0.0f, 0.0f, 1.0f}};
-      const V3 axis = v3(p.joint_axis[i]);
-      r = v3(r.x + axis.x * q[0], r.y + axis.y * q[0], r.z + axis.z * q[0]);
-    }
-    k.Rcp[i] = m3_transpose(R_j);
-    k.r[i] = r;
-    const int parent = p.parent[i];
-    if (parent < 0) {
-      k.E[i] = R_j;
-      k.P[i] = r;
-    } else {
-      const M3 E_par = k.E[parent];
-      k.E[i] = m3_mul(E_par, R_j);
-      k.P[i] = add(k.P[parent], m3_vec(E_par, r));
-    }
+    g.sync();
   }
 }
 
@@ -252,51 +314,24 @@ CS_FN V3 point_velocity(const Frames& k, const V6* v, int b, V3 c_w, V3* r_loc) 
   return m3_vec(k.E[b], add(v[b].l, cross(v[b].w, *r_loc)));
 }
 
-// Fold the world force f_w at body-frame lever arm r_loc into body b's
-// bias-force accumulator (contacts subtract, so rhs = tau - C carries them
-// positively).
-CS_FN void accumulate_point_force(const Frames& k, V6* f, int b, V3 r_loc, V3 f_w) {
+// The wrench on body b of the world force f_w at body-frame lever arm
+// r_loc, as it is subtracted from b's bias-force accumulator (so rhs = tau
+// - C carries it positively).
+CS_FN V6 point_wrench(const Frames& k, int b, V3 r_loc, V3 f_w) {
   const V3 f_b = m3T_vec(k.E[b], f_w);
-  f[b] = sub(f[b], V6{cross(r_loc, f_b), f_b});
+  return V6{cross(r_loc, f_b), f_b};
 }
 
-// Body velocities v, then the inertial wrenches f less every contact
-// force; `normals` gets the contact normal forces.
-__device__ __noinline__ void wrenches(const SceneParams& p, const float* qvel, const Frames& k,
-                                      V6* v, V6* f, float* normals) {
-  {
-    V6 a[SS_NB];
-#pragma unroll 1
-    for (int i = 0; i < SS_NB; ++i) {
-      const int vs = p.v_start[i];
-      float s[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};  // S qd
-      for (int d = 0; d < p.n_dof[i]; ++d)
-        for (int c = 0; c < 6; ++c) s[c] = s[c] + p.s_col[vs + d][c] * qvel[vs + d];
-      const V6 vj = v6(s);
-      const int parent = p.parent[i];
-      V6 a_par;
-      if (parent < 0) {
-        v[i] = vj;
-        // Gravity as an upward acceleration of the world.
-        a_par = V6{v3(0.0f, 0.0f, 0.0f), v3(0.0f, 0.0f, p.gravity_up[p.body_tree[i]])};
-      } else {
-        v[i] = add(xup_motion(k.Rcp[i], k.r[i], v[parent]), vj);
-        a_par = a[parent];
-      }
-      a[i] = add(xup_motion(k.Rcp[i], k.r[i], a_par), crm_apply(v[i], vj));
-      const V3 com = v3(p.com[i]);
-      const V6 Iv = inertia_apply(p.mass[i], com, p.inertia[i], v[i]);
-      const V6 Ia = inertia_apply(p.mass[i], com, p.inertia[i], a[i]);
-      f[i] = add(Ia, crf_apply(v[i], Iv));
-    }
-  }
-
-  // ---- ground contacts ----
-#pragma unroll 1
-  for (int g = 0; g < SS_NG; ++g) {
-    const int b = p.geom_body[g], t = p.geom_tree[g];
-    const V3 offset = v3(p.geom_offset[g]);
-    const float radius = p.geom_radius[g];
+// Ground geom gi's or pair j's contact: its normal force into s.normals
+// and its wrenches into s.contact.
+__device__ void contact(const SceneParams& p, SceneEnv& s, int n) {
+  const Frames& k = s.k;
+  const V6* v = s.v;
+  if (n < SS_NG) {
+    const int gi = n;
+    const int b = p.geom_body[gi], t = p.geom_tree[gi];
+    const V3 offset = v3(p.geom_offset[gi]);
+    const float radius = p.geom_radius[gi];
     const M3 E_b = k.E[b];
     const V3 x_w = add(k.P[b], m3_vec(E_b, offset));
     const V3 wb = v[b].w, lb = v[b].l;
@@ -312,64 +347,121 @@ __device__ __noinline__ void wrenches(const SceneParams& p, const float* qvel, c
       fn = normal_force(p.contact_stiffness[t], p.contact_damping[t], p.max_contact_force[t],
                         phi, v_pt.z);
       const float vt_norm = sqrtf(v_pt.x * v_pt.x + v_pt.y * v_pt.y + 1e-6f);
-      const float s = -mu * fn / fmaxf(vt_norm, p.friction_vel[t]);
-      f_w = v3(s * v_pt.x, s * v_pt.y, fn);
+      const float sc = -mu * fn / fmaxf(vt_norm, p.friction_vel[t]);
+      f_w = v3(sc * v_pt.x, sc * v_pt.y, fn);
     } else {
-      const V3 n = terrain_normal(p, x_w.x, x_w.y);
+      const V3 nrm = terrain_normal(p, x_w.x, x_w.y);
       const float h = terrain_height(p, x_w.x, x_w.y);
-      const float phi = radius - (x_w.z - h) * n.z;
-      contact_offset = add(offset, m3T_vec(E_b, scale(-radius, n)));
+      const float phi = radius - (x_w.z - h) * nrm.z;
+      contact_offset = add(offset, m3T_vec(E_b, scale(-radius, nrm)));
       const V3 v_pt = m3_vec(E_b, add(lb, cross(wb, contact_offset)));
-      const float vn = dot(n, v_pt);
+      const float vn = dot(nrm, v_pt);
       fn = normal_force(p.contact_stiffness[t], p.contact_damping[t], p.max_contact_force[t],
                         phi, vn);
-      const V3 vt = sub(v_pt, scale(vn, n));
+      const V3 vt = sub(v_pt, scale(vn, nrm));
       const float vt_norm = sqrtf(dot(vt, vt) + 1e-6f);
-      const float s = -mu * fn / fmaxf(vt_norm, p.friction_vel[t]);
-      f_w = add(scale(fn, n), scale(s, vt));
+      const float sc = -mu * fn / fmaxf(vt_norm, p.friction_vel[t]);
+      f_w = add(scale(fn, nrm), scale(sc, vt));
     }
-    normals[p.geom_slot[g]] = fn;
+    s.normals[p.geom_slot[gi]] = fn;
     const V3 f_b = m3T_vec(E_b, f_w);
-    f[b] = sub(f[b], V6{cross(contact_offset, f_b), f_b});
+    s.contact[gi] = V6{cross(contact_offset, f_b), f_b};
+    return;
   }
+  // Sphere-sphere pair, inside a tree or across trees.
+  const int j = n - SS_NG;
+  const int ga = p.pair_a[j], gb = p.pair_b[j];
+  const int ba = p.geom_body[ga], bb = p.geom_body[gb];
+  const float ra = p.geom_radius[ga];
+  const V3 xa = add(k.P[ba], m3_vec(k.E[ba], v3(p.geom_offset[ga])));
+  const V3 xb = add(k.P[bb], m3_vec(k.E[bb], v3(p.geom_offset[gb])));
+  const V3 d = sub(xb, xa);
+  const float dist = sqrtf(dot(d, d) + 1e-12f);
+  const V3 nrm = scale(1.0f / dist, d);  // a -> b
+  const float phi = p.pair_radius_sum[j] - dist;
+  const V3 c_w = add(xa, scale(ra - 0.5f * phi, nrm));
+  V3 r_a, r_b;
+  const V3 vel_b = point_velocity(k, v, bb, c_w, &r_b);
+  const V3 vel_a = point_velocity(k, v, ba, c_w, &r_a);
+  const V3 v_rel = sub(vel_b, vel_a);
+  const float sep = dot(nrm, v_rel);  // separation rate
+  const float fn = normal_force(p.pair_stiffness[j], p.pair_damping[j], p.pair_max_force[j],
+                                phi, sep);
+  const V3 vt = sub(v_rel, scale(sep, nrm));
+  const float vt_norm = sqrtf(dot(vt, vt) + 1e-6f);
+  const float sc = -p.pair_friction[j] * fn / fmaxf(vt_norm, p.pair_friction_vel[j]);
+  const V3 f_w = add(scale(fn, nrm), scale(sc, vt));
+  s.normals[p.pair_slot[j]] = fn;
+  s.contact[SS_NG + 2 * j] = point_wrench(k, bb, r_b, f_w);
+  s.contact[SS_NG + 2 * j + 1] = point_wrench(k, ba, r_a, scale(-1.0f, f_w));
+}
 
-  // ---- sphere-sphere pairs, inside a tree and across trees ----
+// Body velocities v, then the inertial wrenches f less every contact
+// force; s.normals gets the contact normal forces.
+__device__ void wrenches(const SceneParams& p, SceneEnv& s, const LaneGroup& g) {
+  const Frames& k = s.k;
 #pragma unroll 1
-  for (int j = 0; j < SS_NP; ++j) {
-    const int ga = p.pair_a[j], gb = p.pair_b[j];
-    const int ba = p.geom_body[ga], bb = p.geom_body[gb];
-    const float ra = p.geom_radius[ga];
-    const V3 xa = add(k.P[ba], m3_vec(k.E[ba], v3(p.geom_offset[ga])));
-    const V3 xb = add(k.P[bb], m3_vec(k.E[bb], v3(p.geom_offset[gb])));
-    const V3 d = sub(xb, xa);
-    const float dist = sqrtf(dot(d, d) + 1e-12f);
-    const V3 n = scale(1.0f / dist, d);  // a -> b
-    const float phi = p.pair_radius_sum[j] - dist;
-    const V3 c_w = add(xa, scale(ra - 0.5f * phi, n));
-    V3 r_a, r_b;
-    const V3 vel_b = point_velocity(k, v, bb, c_w, &r_b);
-    const V3 vel_a = point_velocity(k, v, ba, c_w, &r_a);
-    const V3 v_rel = sub(vel_b, vel_a);
-    const float sep = dot(n, v_rel);  // separation rate
-    const float fn = normal_force(p.pair_stiffness[j], p.pair_damping[j], p.pair_max_force[j],
-                                  phi, sep);
-    const V3 vt = sub(v_rel, scale(sep, n));
-    const float vt_norm = sqrtf(dot(vt, vt) + 1e-6f);
-    const float s = -p.pair_friction[j] * fn / fmaxf(vt_norm, p.pair_friction_vel[j]);
-    const V3 f_w = add(scale(fn, n), scale(s, vt));
-    normals[p.pair_slot[j]] = fn;
-    accumulate_point_force(k, f, bb, r_b, f_w);
-    accumulate_point_force(k, f, ba, r_a, scale(-1.0f, f_w));
+  for (int l = 0; l < p.n_levels; ++l) {
+    if (g.active) {
+#pragma unroll 1
+      for (int n = p.level_start[l] + g.lane; n < p.level_start[l + 1]; n += g.size) {
+        const int i = p.level_body[n];
+        const int vs = p.v_start[i];
+        float sq[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};  // S qd
+        for (int d = 0; d < p.n_dof[i]; ++d)
+          for (int c = 0; c < 6; ++c) sq[c] = sq[c] + p.s_col[vs + d][c] * s.qvel[vs + d];
+        const V6 vj = v6(sq);
+        const int parent = p.parent[i];
+        V6 vi, a_par;
+        if (parent < 0) {
+          vi = vj;
+          // Gravity as an upward acceleration of the world.
+          a_par = V6{v3(0.0f, 0.0f, 0.0f), v3(0.0f, 0.0f, p.gravity_up[p.body_tree[i]])};
+        } else {
+          vi = add(xup_motion(k.Rcp[i], k.r[i], s.v[parent]), vj);
+          a_par = s.a[parent];
+        }
+        s.v[i] = vi;
+        const V6 ai = add(xup_motion(k.Rcp[i], k.r[i], a_par), crm_apply(vi, vj));
+        s.a[i] = ai;
+        const V3 com = v3(p.com[i]);
+        const V6 Iv = inertia_apply(p.mass[i], com, p.inertia[i], vi);
+        const V6 Ia = inertia_apply(p.mass[i], com, p.inertia[i], ai);
+        s.f[i] = add(Ia, crf_apply(vi, Iv));
+      }
+    }
+    g.sync();
   }
+  if (g.active) {
+#pragma unroll 1
+    for (int n = g.lane; n < SS_NG + SS_NP; n += g.size) contact(p, s, n);
+  }
+  g.sync();
+  // Each body's contact wrenches, subtracted in the plain order.
+  if (g.active) {
+#pragma unroll 1
+    for (int i = g.lane; i < SS_NB; i += g.size) {
+      V6 F = s.f[i];
+#pragma unroll 1
+      for (int q = p.contact_start[i]; q < p.contact_start[i + 1]; ++q)
+        F = sub(F, s.contact[p.contact_slot[q]]);
+      s.f[i] = F;
+    }
+  }
+  g.sync();
 }
 
 // CRBA mass matrix of tree t and the in-place Cholesky factor of
-// M + armature + dt*D on the packed lower triangle L[i (i + 1) / 2 + j],
-// j <= i, over the tree's own dofs.
-__device__ __noinline__ void crba_chol(const SceneParams& p, int t, const Frames& k, float* L) {
+// M + armature + dt*D on the packed lower triangle s.L[t][i (i + 1) / 2 +
+// j], j <= i, over the tree's own dofs.
+__device__ void crba_chol(const SceneParams& p, int t, SceneEnv& s) {
+  const Frames& k = s.k;
+  M3* Ia = s.Ia;
+  M3* Ib = s.Ib;
+  M3* Ic = s.Ic;
+  float* L = s.L[t];
   const int b0 = p.tree_body_start[t], b1 = p.tree_body_end[t];
   const int v0 = p.tree_v_start[t], nv = p.tree_nv[t];
-  M3 Ia[SS_NB], Ib[SS_NB], Ic[SS_NB];
 #pragma unroll 1
   for (int i = b0; i < b1; ++i) {
     Ia[i] = m3(p.blk_a[i]);
@@ -422,6 +514,7 @@ __device__ __noinline__ void crba_chol(const SceneParams& p, int t, const Frames
         if (p.damping[dof] != 0.0f) L[d] = L[d] + p.dt_damping[dof];
       }
       int j = i;
+#pragma unroll 1
       while (p.parent[j] >= 0) {
         F = xup_force_T(k.Rcp[j], k.r[j], F);
         j = p.parent[j];
@@ -430,27 +523,34 @@ __device__ __noinline__ void crba_chol(const SceneParams& p, int t, const Frames
       }
     }
   }
-  // Cholesky, row by row, in place.
-#pragma unroll 1
-  for (int i = 0; i < nv; ++i) {
+  // Cholesky, row by row, in place; unrolled over the largest tree's
+  // size, so that the loads of a sum start ahead of its chain of
+  // subtractions (which keeps its order).
+#pragma unroll
+  for (int i = 0; i < SS_MV; ++i) {
+    if (i >= nv) break;
     const int ri = i * (i + 1) / 2;
-#pragma unroll 1
+#pragma unroll
     for (int j = 0; j <= i; ++j) {
       const int rj = j * (j + 1) / 2;
-      float s = L[ri + j];
-      for (int n = 0; n < j; ++n) s = s - L[ri + n] * L[rj + n];
-      L[ri + j] = (i == j) ? sqrtf(s) : s / L[rj + j];
+      float acc = L[ri + j];
+#pragma unroll
+      for (int n = 0; n < j; ++n) acc = acc - L[ri + n] * L[rj + n];
+      L[ri + j] = (i == j) ? sqrtf(acc) : acc / L[rj + j];
     }
   }
 }
 
-// Tree t from the wrenches f to its integrated qpos and qvel, in place.
-__device__ __noinline__ void solve_and_integrate(const SceneParams& p, int t, const Frames& k,
-                                                 V6* f, const float* L, const float* tau,
-                                                 float* qpos, float* qvel) {
+// Tree t from the wrenches s.f to its integrated qpos and qvel, in place.
+__device__ void solve_and_integrate(const SceneParams& p, int t, SceneEnv& s) {
+  const Frames& k = s.k;
+  V6* f = s.f;
+  const float* L = s.L[t];
+  float* rhs = s.rhs[t];  // holds C first, then the right-hand side, then qacc
+  float* qpos = s.qpos;
+  float* qvel = s.qvel;
   const int b0 = p.tree_body_start[t], b1 = p.tree_body_end[t];
   const int v0 = p.tree_v_start[t], nv = p.tree_nv[t];
-  float rhs[SS_MV];  // holds C first, then the right-hand side, then qacc
 
   // ---- backward pass: generalized bias, contacts included ----
 #pragma unroll 1
@@ -465,7 +565,7 @@ __device__ __noinline__ void solve_and_integrate(const SceneParams& p, int t, co
     const int dof = v0 + n;
     float C = rhs[n];
     if (p.damping[dof] != 0.0f) C = C + p.damping[dof] * qvel[dof];
-    rhs[n] = tau[dof] - C;
+    rhs[n] = s.tau[dof] - C;
   }
 
   // ---- joint limits and springs of the 1-dof joints ----
@@ -493,18 +593,26 @@ __device__ __noinline__ void solve_and_integrate(const SceneParams& p, int t, co
       rhs[n] = rhs[n] - p.spring_k[dof] * (qpos[p.q_start[i]] - p.spring_ref[dof]);
   }
 
-  // ---- L y = rhs, then L^T qacc = y, in place ----
-#pragma unroll 1
-  for (int i = 0; i < nv; ++i) {
+  // ---- L y = rhs, then L^T qacc = y, in place (unrolled as above) ----
+#pragma unroll
+  for (int i = 0; i < SS_MV; ++i) {
+    if (i >= nv) break;
     const int ri = i * (i + 1) / 2;
     float acc = rhs[i];
+#pragma unroll
     for (int n = 0; n < i; ++n) acc = acc - L[ri + n] * rhs[n];
     rhs[i] = acc / L[ri + i];
   }
-#pragma unroll 1
-  for (int i = nv - 1; i >= 0; --i) {
+#pragma unroll
+  for (int m = SS_MV - 1; m >= 0; --m) {
+    if (m >= nv) continue;
+    const int i = m;
     float acc = rhs[i];
-    for (int n = i + 1; n < nv; ++n) acc = acc - L[n * (n + 1) / 2 + i] * rhs[n];
+#pragma unroll
+    for (int n = i + 1; n < SS_MV; ++n) {
+      if (n >= nv) break;
+      acc = acc - L[n * (n + 1) / 2 + i] * rhs[n];
+    }
     rhs[i] = acc / L[i * (i + 1) / 2 + i];
   }
 
@@ -534,41 +642,50 @@ __global__ void scene_step_kernel(const float* __restrict__ qpos_in,
                                   const float* __restrict__ tau_in,
                                   float* __restrict__ qpos_out, float* __restrict__ qvel_out,
                                   float* __restrict__ normals_out, int B,
-                                  const __grid_constant__ SceneParams p) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+                                  const __grid_constant__ SceneParams p_arg) {
+  extern __shared__ float4 ss_smem[];
+  float* envs = copy_model_to_shared(p_arg, reinterpret_cast<float*>(ss_smem));
+  const SceneParams& p = *reinterpret_cast<const SceneParams*>(ss_smem);
+  int env;
+  const LaneGroup g = lane_group(SS_G, B, &env);
+  SceneEnv& s = *reinterpret_cast<SceneEnv*>(
+      envs + static_cast<int>(threadIdx.x / SS_G) * kSceneEnvWords);
 
-  float qpos[SS_NQ], qvel[SS_NV], tau[SS_NV];
-  float normals[SS_NG + SS_NP + 1];
-  load_row(qpos, qpos_in, b, SS_NQ);
-  load_row(qvel, qvel_in, b, SS_NV);
-  load_row(tau, tau_in, b, SS_NV);
-  for (int n = 0; n < SS_NG + SS_NP + 1; ++n) normals[n] = 0.0f;
+  if (g.active) {
+    load_row(s.qpos, qpos_in, env, SS_NQ, g);
+    load_row(s.qvel, qvel_in, env, SS_NV, g);
+    load_row(s.tau, tau_in, env, SS_NV, g);
+    for (int n = g.lane; n < SS_NG + SS_NP + 1; n += g.size) s.normals[n] = 0.0f;
+  }
+  g.sync();
 
-  Frames frames;
-  V6 v[SS_NB], f[SS_NB];
-  float L[SS_MV * (SS_MV + 1) / 2];
 #pragma unroll 1
-  for (int s = 0; s < p.n_substeps; ++s) {
-    kinematics(p, qpos, frames);
-    wrenches(p, qvel, frames, v, f, normals);
+  for (int step = 0; step < p.n_substeps; ++step) {
+    kinematics(p, s, g);
+    wrenches(p, s, g);
+    // The trees side by side, one per lane.
+    if (g.active) {
 #pragma unroll 1
-    for (int t = 0; t < SS_NT; ++t) {
-      crba_chol(p, t, frames, L);
-      solve_and_integrate(p, t, frames, f, L, tau, qpos, qvel);
+      for (int t = g.lane; t < SS_NT; t += g.size) {
+        crba_chol(p, t, s);
+        solve_and_integrate(p, t, s);
+      }
     }
+    g.sync();
   }
 
-  store_row(qpos_out, qpos, b, SS_NQ);
-  store_row(qvel_out, qvel, b, SS_NV);
-  store_row(normals_out, normals, b, p.n_normals);
+  if (g.active) {
+    store_row(qpos_out, s.qpos, env, SS_NQ, g);
+    store_row(qvel_out, s.qvel, env, SS_NV, g);
+    store_row(normals_out, s.normals, env, p.n_normals, g);
+  }
 }
 
 }  // namespace
 
 // Size of the scene struct and the sizes this library was built for, so
 // that the caller can check its packing:
-// out = {NT, NB, NQ, NV, MV, NG, NP, NW}.
+// out = {NT, NB, NQ, NV, MV, NG, NP, NW, G}.
 extern "C" int scene_step_params_size(int* out) {
   out[0] = SS_NT;
   out[1] = SS_NB;
@@ -578,19 +695,34 @@ extern "C" int scene_step_params_size(int* out) {
   out[5] = SS_NG;
   out[6] = SS_NP;
   out[7] = SS_NW;
+  out[8] = SS_G;
   return static_cast<int>(sizeof(SceneParams));
 }
 
+// Dynamic shared memory of one block of `threads` threads, in bytes.
+extern "C" long long scene_step_smem_bytes(int threads) { return scene_block_smem_bytes(threads); }
+
 // Launches on `stream` of CUDA device `device` and returns the launch's
-// cudaError_t (0 on success). `params` points to a host copy of the struct.
+// cudaError_t (0 on success), or that of setting the kernel's shared-memory
+// limit. `params` points to a host copy of the struct; `threads` (per
+// block) is a multiple of 32; each env takes SS_G of them.
 extern "C" int scene_step_forward(const float* qpos, const float* qvel, const float* tau,
                                   float* qpos_out, float* qvel_out, float* normals_out, int B,
                                   const SceneParams* params, int threads, int device,
                                   void* stream) {
+  if (threads <= 0 || threads % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const int blocks = (B + threads - 1) / threads;
-  scene_step_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      qpos, qvel, tau, qpos_out, qvel_out, normals_out, B, *params);
+  const long long smem = scene_block_smem_bytes(threads);
+  if (smem > 48 * 1024) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        scene_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+  }
+  const long long lanes = static_cast<long long>(B) * SS_G;
+  const int blocks = static_cast<int>((lanes + threads - 1) / threads);
+  scene_step_kernel<<<blocks, threads, static_cast<size_t>(smem),
+                      static_cast<cudaStream_t>(stream)>>>(qpos, qvel, tau, qpos_out, qvel_out,
+                                                           normals_out, B, *params);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,9 @@
 // Shared device arithmetic of the rigid-body kernels (control_step.cu,
 // plane_sampler.cu, scene_step.cu): 3-vectors, 3x3 matrices, spatial
-// 6-vectors, the quaternion exponential map, the analytic-wave terrain and
-// the penalty normal force. It repeats nnx_ppo_tpu_torch/physics/soa.py and
-// the terrain lanes of engine_soa.py operation by operation. The model
+// 6-vectors, the quaternion exponential map, the analytic-wave terrain,
+// the penalty normal force, and the group of lanes that shares one env. It
+// repeats nnx_ppo_tpu_torch/physics/soa.py and the terrain lanes of
+// engine_soa.py operation by operation. The model
 // structs live with their kernels (rigid_body.cuh, scene_step.cu). This
 // file's text joins the hash that names each library (ops/cuda_build.py).
 
@@ -18,6 +19,67 @@ struct M3 { float m[9]; };
 struct V6 { V3 w, l; };  // angular, linear
 
 #define CS_FN __device__ __forceinline__
+
+// The lanes that share one env: `lane` in [0, size), and a barrier over
+// `mask`, the lanes that run the same sequence of barriers. `active` is
+// false for the lanes of an env past the batch: they reach every barrier
+// and do no work, so no lane returns before a barrier that others wait at.
+struct LaneGroup {
+  int lane, size;
+  unsigned mask;
+  bool active;
+  CS_FN void sync() const { __syncwarp(mask); }
+  // `value` of the group's lane `src`, to every lane of the group.
+  CS_FN float broadcast(float value, int src) const { return __shfl_sync(mask, value, src, size); }
+};
+
+// Lane group of `size` lanes (a divisor of 32) for thread threadIdx.x of a
+// block whose size is a multiple of 32; its env is returned in `env`. Every
+// lane of a warp runs the same barriers, so a barrier spans the whole warp
+// and the warp's envs reconverge at it.
+CS_FN LaneGroup lane_group(int size, int n_envs, int* env) {
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  *env = static_cast<int>(t / size);
+  LaneGroup g;
+  g.lane = static_cast<int>(threadIdx.x) % size;
+  g.size = size;
+  g.mask = 0xffffffffu;
+  g.active = *env < n_envs;
+  return g;
+}
+
+// Row `env` of a [B, n] array into (or out of) an env's shared array,
+// across the group's lanes.
+CS_FN void load_row(float* dst, const float* __restrict__ src, int env, int n,
+                    const LaneGroup& g) {
+  for (int k = g.lane; k < n; k += g.size) dst[k] = src[static_cast<size_t>(env) * n + k];
+}
+CS_FN void store_row(float* __restrict__ dst, const float* src, int env, int n,
+                     const LaneGroup& g) {
+  for (int k = g.lane; k < n; k += g.size) dst[static_cast<size_t>(env) * n + k] = src[k];
+}
+
+// Words of shared memory that a model struct's copy takes, rounded up to a
+// multiple of 4 (16 bytes), so that what follows it stays aligned.
+template <class Model>
+__host__ __device__ constexpr int model_words() {
+  return static_cast<int>((sizeof(Model) / 4 + 3) / 4 * 4);
+}
+
+// The block's copy of a model struct in shared memory: every thread copies
+// a share of its 4-byte words, then the whole block waits. Returns the
+// first float after the copy, rounded up to 16 bytes.
+template <class Model>
+__device__ float* copy_model_to_shared(const Model& src, float* smem) {
+  static_assert(sizeof(Model) % 4 == 0, "the model struct is made of 4-byte members");
+  const int* from = reinterpret_cast<const int*>(&src);
+  int* to = reinterpret_cast<int*>(smem);
+  for (int k = static_cast<int>(threadIdx.x); k < static_cast<int>(sizeof(Model) / 4);
+       k += static_cast<int>(blockDim.x))
+    to[k] = from[k];
+  __syncthreads();
+  return smem + model_words<Model>();
+}
 
 CS_FN V3 v3(float x, float y, float z) { return V3{x, y, z}; }
 CS_FN V3 v3(const float* p) { return V3{p[0], p[1], p[2]}; }

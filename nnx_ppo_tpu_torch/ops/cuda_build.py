@@ -10,7 +10,9 @@ loaded with ``ctypes``. A source may be specialised by ``-D`` defines
 include the headers ``csrc/*.cuh``; the library's file name carries a
 hash of the source, of every header and of all flags, defines included,
 so an edited source or header or another size is built anew and an
-unchanged one is reused. Nothing is built at import time: the first
+unchanged one is reused. What ptxas reports of each kernel (registers,
+stack frame, spills, static shared memory) is kept beside the library and
+read with :func:`ptxas_info`. Nothing is built at import time: the first
 caller builds.
 """
 
@@ -19,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -77,8 +80,9 @@ def library_path(name: str, flags: Sequence[str] = ()) -> Path:
 
 def build(specs: Sequence[Spec], verbose: bool = False) -> dict[tuple[str, tuple[str, ...]], Path]:
     """Compile every kernel in ``specs`` that is not built yet, one
-    ``nvcc`` process per library, all started together. ``verbose``
-    prints what nvcc and ptxas (``-v``: registers, stack, spills) say."""
+    ``nvcc`` process per library, all started together. What nvcc and
+    ptxas (``-v``: registers, stack, spills) say goes into the library's
+    ``.log`` beside it; ``verbose`` also prints it."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     keys = [_normalize(spec) for spec in specs]
     procs = {}
@@ -89,10 +93,8 @@ def build(specs: Sequence[Spec], verbose: bool = False) -> dict[tuple[str, tuple
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, *flags]
-        if verbose:
-            cmd += ["-Xptxas", "-v"]
-        cmd += ["-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-Xptxas", "-v", "-o", tmp,
+               str(CSRC_DIR / f"{name}.cu")]
         procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), tmp)
     failures = []
     for (name, flags), (proc, tmp) in procs.items():
@@ -102,6 +104,7 @@ def build(specs: Sequence[Spec], verbose: bool = False) -> dict[tuple[str, tuple
             os.unlink(tmp)
             failures.append(f"{name}.cu {' '.join(flags)}:\n{text}")
         else:
+            library_path(name, flags).with_suffix(".log").write_text(text)
             os.replace(tmp, library_path(name, flags))
             if verbose and text.strip():
                 print(f"nvcc {name}.cu {' '.join(flags)}:\n{text.strip()}")
@@ -119,3 +122,34 @@ def load(name: str, flags: Sequence[str] = ()) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build([key])[key]))
         _LOADED[key] = lib
     return lib
+
+
+def ptxas_info(name: str, flags: Sequence[str], kernel: str) -> dict[str, int]:
+    """What ptxas reported, when the library of ``name`` with ``flags`` was
+    built, of the ``__global__`` function whose name contains ``kernel``:
+    registers per thread, stack frame, spill stores and loads and static
+    shared memory, in bytes (dynamic shared memory is the launch's)."""
+    log = library_path(name, flags).with_suffix(".log").read_text()
+    info: dict[str, int] = {}
+    current = None  # the function the next lines describe
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        props = re.search(r"Function properties for (\S+)", line)
+        if entry or props:
+            current = (entry or props).group(1)
+            continue
+        if current is None or kernel not in current:
+            continue
+        stack = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if stack:
+            info.update(stack_bytes=int(stack.group(1)), spill_store_bytes=int(stack.group(2)),
+                        spill_load_bytes=int(stack.group(3)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            smem = re.search(r"(\d+) bytes smem", line)
+            info.update(registers=int(used.group(1)),
+                        static_smem_bytes=int(smem.group(1)) if smem else 0)
+    if "registers" not in info:
+        raise RuntimeError(f"ptxas reported nothing of {kernel} in {name}.cu {' '.join(flags)}")
+    return info

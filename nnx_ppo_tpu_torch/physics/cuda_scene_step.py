@@ -38,8 +38,10 @@ have no counterpart: the batch dimension is written out and the kernel
 masks the ragged edge, so any ``B`` works.
 
 The kernel's array sizes (trees, bodies, ``Σnq``, ``Σnv``, the largest
-tree's ``nv``, geoms, pairs, terrain waves) are ``-D`` defines, so each
-scene size is one library; everything else about the scene is a struct
+tree's ``nv``, geoms, pairs, terrain waves) and its lanes per env are
+``-D`` defines, so each scene size is one library; everything else about
+the scene, with the schedules its lane groups walk (levels and contact
+slots, ``cuda_step.tree_schedule`` and ``contact_schedule``), is a struct
 filled here from the models and passed to the kernel by value. Where the
 plain version folds two model constants in float64 before its first
 float32 operation (a leaf body's rows of ``M``, pair radius sums, mean
@@ -57,7 +59,12 @@ import numpy as np
 import torch
 
 from nnx_ppo_tpu_torch.ops import cuda_build
-from nnx_ppo_tpu_torch.physics.cuda_step import KERNEL_FLAGS, THREADS_PER_BLOCK
+from nnx_ppo_tpu_torch.physics.cuda_step import (
+    KERNEL_FLAGS,
+    contact_schedule,
+    padded_schedule,
+    tree_schedule,
+)
 from nnx_ppo_tpu_torch.physics.engine_soa_general import (
     _blocks_times_sp,
     _const_blocks,
@@ -72,7 +79,12 @@ from nnx_ppo_tpu_torch.physics.terrain import Terrain
 # The kernel's joint-type codes (enum JointType of csrc/scene_step.cu).
 JOINT_CODES = {FREE: 0, BALL: 1, HINGE: 2, SLIDE: 3}
 # The -D defines, in the order scene_step_params_size reports them.
-SIZE_NAMES = ("SS_NT", "SS_NB", "SS_NQ", "SS_NV", "SS_MV", "SS_NG", "SS_NP", "SS_NW")
+SIZE_NAMES = ("SS_NT", "SS_NB", "SS_NQ", "SS_NV", "SS_MV", "SS_NG", "SS_NP", "SS_NW", "SS_G")
+# Lanes per env (a -D size that divides 32) and threads per block (a
+# multiple of 32) of the scene kernel: the fastest pair of the sweep of
+# ``chip_smoke.py --variants`` on the H100 (PERF.md).
+SCENE_STEP_GROUP = 4
+SCENE_STEP_THREADS = 64
 
 
 class SceneStepPlan:
@@ -104,6 +116,10 @@ class SceneStepPlan:
             len(m.geom_body) + len(m.pair_geom_a) for m in self.models
         ) + len(self.pairs)
         self.n_normals = max(self.n_contacts, 1)
+        # The kernel's launch: lanes per env and threads per block (set
+        # before the first CUDA call to try others).
+        self.group_size = SCENE_STEP_GROUP
+        self.threads_per_block = SCENE_STEP_THREADS
 
     # -- shapes ------------------------------------------------------------
 
@@ -158,7 +174,8 @@ class SceneStepPlan:
 
     @property
     def sizes(self) -> dict[str, int]:
-        """The ``-D`` defines that size the kernel's arrays."""
+        """The ``-D`` defines that size the kernel's arrays, and its lanes
+        per env."""
         return {
             "SS_NT": len(self.models),
             "SS_NB": sum(m.n_bodies for m in self.models),
@@ -168,6 +185,7 @@ class SceneStepPlan:
             "SS_NG": sum(len(m.geom_body) for m in self.models),
             "SS_NP": sum(len(m.pair_geom_a) for m in self.models) + len(self.pairs),
             "SS_NW": 0 if self.terrain is None else len(self.terrain.amplitudes),
+            "SS_G": self.group_size,
         }
 
     @property
@@ -203,12 +221,21 @@ class SceneStepPlan:
         fn.restype = ctypes.c_int
         return fn
 
+    def shared_memory_bytes(self) -> int:
+        """Dynamic shared memory of one block at this plan's launch (the
+        scene struct and ``threads_per_block / group_size`` envs), from the
+        library."""
+        self._entry_point  # builds and checks the library
+        smem = cuda_build.load(*self.kernel_spec).scene_step_smem_bytes
+        smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_longlong
+        return int(smem(self.threads_per_block))
+
     def cuda(self, qpos_cat, qvel_cat, tau_cat):
         B = self.check(qpos_cat, qvel_cat, tau_cat)
         device = qpos_cat.device
         if device.type != "cuda":
             raise ValueError(f"the kernel takes CUDA tensors, got {device}")
-        if B >= 2**31 // max(self.nq, self.n_normals):
+        if B >= 2**31 // max(self.nq, self.n_normals, self.group_size):
             raise ValueError(f"B = {B} is too large for the kernel")
         qpos_out = torch.empty((B, self.nq), dtype=torch.float32, device=device)
         qvel_out = torch.empty((B, self.nv), dtype=torch.float32, device=device)
@@ -222,7 +249,7 @@ class SceneStepPlan:
         err = self._entry_point(
             *(x.data_ptr() for x in ins),
             qpos_out.data_ptr(), qvel_out.data_ptr(), normals_out.data_ptr(),
-            B, ctypes.addressof(self._params), THREADS_PER_BLOCK,
+            B, ctypes.addressof(self._params), self.threads_per_block,
             stream.device.index, stream.cuda_stream,
         )
         if err != 0:
@@ -453,6 +480,23 @@ def pack_scene_params(plan: SceneStepPlan) -> ctypes.Structure:
         ("n_normals", i32, plan.n_normals),
     ]
     fields.extend((name, ctype) for name, ctype, _ in scalars)
+    nb = sizes["SS_NB"]
+    schedule = padded_schedule(
+        {
+            **tree_schedule(body["parent"]),
+            **contact_schedule(
+                nb, geom["geom_body"], [geom["geom_body"][g] for g in pair["pair_a"]],
+                [geom["geom_body"][g] for g in pair["pair_b"]],
+            ),
+        },
+        {"level_start": nb + 1, "level_body": nb, "contact_start": nb + 1,
+         "contact_slot": at_least_1(n_geoms + 2 * n_pairs)},
+    )
+    for name in ("level_start", "level_body", "contact_start", "contact_slot"):
+        fields.append((name, i32 * len(schedule[name])))
+        values[name] = (i32, np.asarray(schedule[name], np.float64))
+    fields.append(("n_levels", i32))
+    scalars.append(("n_levels", i32, schedule["n_levels"]))
 
     class SceneParams(ctypes.Structure):
         _fields_ = fields

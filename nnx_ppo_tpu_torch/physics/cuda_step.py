@@ -41,11 +41,12 @@ caller's lanes, so the caller's ``extra`` stays ``[len(dr_fields) +
 ``custom_partitioning`` and tile picking have no counterpart: the batch
 dimension is written out and the kernels mask the ragged edge.
 
-The kernels' array sizes (bodies, geoms, pairs, terrain waves) are ``-D``
-defines, so each model size is one library per source; everything else
-about the model (topology, inertias, geoms, gains, terrain waves, feature
-switches) is a struct filled here from the ``Model`` and passed to the
-kernels by value.
+The kernels' array sizes (bodies, geoms, pairs, terrain waves) and the
+control step's lanes per env are ``-D`` defines, so each model size is one
+library per source; everything else about the model (topology, inertias,
+geoms, gains, terrain waves, feature switches, and the schedules the lane
+groups walk: :func:`tree_schedule`, :func:`contact_schedule`) is a struct
+filled here from the ``Model`` and passed to the kernels by value.
 """
 
 from __future__ import annotations
@@ -70,9 +71,17 @@ from nnx_ppo_tpu_torch.physics.model import Model
 from nnx_ppo_tpu_torch.physics.randomize import FIELDS as DR_FIELDS
 from nnx_ppo_tpu_torch.physics.terrain import HeightGrid, Terrain
 
-# One warp per block: a few thousand envs then spread over as many SMs as
-# there are warps, and each warp has its SM's L1 for its per-thread arrays.
-THREADS_PER_BLOCK = 32
+# The -D defines, in the order the libraries' *_params_size report them.
+SIZE_NAMES = ("CS_NB", "CS_NG", "CS_NP", "CS_NW", "CS_G")
+
+# Lanes per env (a -D size that divides 32) and threads per block (a
+# multiple of 32) of the control-step and substeps kernels: the fastest
+# pair of the sweep of ``chip_smoke.py --variants`` on the H100 (PERF.md).
+CONTROL_STEP_GROUP = 16
+CONTROL_STEP_THREADS = 128
+# The plane sampler runs one thread per env: one warp per block spreads a
+# few thousand envs over as many SMs as there are warps.
+SAMPLER_THREADS_PER_BLOCK = 32
 # Without fused multiply-adds the kernels round every product and sum on
 # their own, as the plain versions do, which keeps the two within the
 # stated tolerances across the contact switch (phi > 0).
@@ -97,6 +106,68 @@ def _split_extra(extra_lanes: Sequence, dr_fields: Sequence[str], has_push: bool
         )
     crba_kw = {k: v for k, v in sub_kw.items() if k in ("mass_scale", "damping_scale")}
     return sub_kw, crba_kw
+
+
+def tree_schedule(parent: Sequence[int]) -> dict:
+    """The order in which a kernel's lane group walks a forest whose bodies
+    come after their parents (``parent[i] < i``, -1 at a root):
+    ``level_body[level_start[l]:level_start[l + 1]]`` are the bodies of
+    depth ``l`` in index order (roots first), and
+    ``child_list[child_start[i]:child_start[i + 1]]`` body ``i``'s children
+    in descending index order, the order in which the plain versions'
+    leaves-to-root loops add them into it."""
+    nb = len(parent)
+    depth: list[int] = []
+    for i, p in enumerate(parent):
+        if p >= i:
+            raise ValueError(f"body {i} comes before its parent {p}")
+        depth.append(0 if p < 0 else depth[p] + 1)
+    n_levels = max(depth) + 1 if nb else 0
+    children = [[c for c in reversed(range(nb)) if parent[c] == i] for i in range(nb)]
+    return {
+        "n_levels": n_levels,
+        "level_start": [sum(d < l for d in depth) for l in range(n_levels + 1)],
+        "level_body": sorted(range(nb), key=lambda i: (depth[i], i)),
+        "child_start": [int(x) for x in np.cumsum([0] + [len(c) for c in children])],
+        "child_list": [c for cs in children for c in cs],
+    }
+
+
+def contact_schedule(n_bodies: int, geom_body: Sequence[int], pair_body_a: Sequence[int],
+                     pair_body_b: Sequence[int]) -> dict:
+    """Which contact wrenches each body takes, in the order the plain
+    versions subtract them: its ground geoms in order (slot ``g``), then
+    each pair ``k`` that touches it, the force on the pair's b body (slot
+    ``n_geoms + 2k``) before the one on its a body (``n_geoms + 2k + 1``).
+    Body ``i``'s slots are ``contact_slot[contact_start[i]:contact_start[i
+    + 1]]``."""
+    ng = len(geom_body)
+    slots: list[list[int]] = [[] for _ in range(n_bodies)]
+    for g, b in enumerate(geom_body):
+        slots[int(b)].append(g)
+    for k, (ba, bb) in enumerate(zip(pair_body_a, pair_body_b)):
+        slots[int(bb)].append(ng + 2 * k)
+        slots[int(ba)].append(ng + 2 * k + 1)
+    return {
+        "contact_start": [int(x) for x in np.cumsum([0] + [len(x) for x in slots])],
+        "contact_slot": [x for xs in slots for x in xs],
+    }
+
+
+def padded_schedule(schedule: dict, lengths: dict) -> dict:
+    """Each list of ``schedule`` padded to its struct length (``lengths``)
+    with its last entry (or 0): a padded ``*_start`` entry marks an empty
+    range."""
+    out = {}
+    for name, values in schedule.items():
+        if name not in lengths:
+            out[name] = values
+            continue
+        n = lengths[name]
+        if len(values) > n:
+            raise ValueError(f"{name}: {len(values)} entries for {n}")
+        out[name] = list(values) + [values[-1] if values else 0] * (n - len(values))
+    return out
 
 
 def _tri_indices(nv: int) -> list[tuple[int, int]]:
@@ -154,6 +225,10 @@ class ControlStepPlan:
             3 * self.n_terrain_planes if self.heightgrid is not None else 0
         )
         self.n_geoms = len(model.geom_body) + len(model.pair_geom_a)
+        # The control-step and substeps kernels' launch: lanes per env and
+        # threads per block (set before the first CUDA call to try others).
+        self.group_size = CONTROL_STEP_GROUP
+        self.threads_per_block = CONTROL_STEP_THREADS
 
     # -- shapes ------------------------------------------------------------
 
@@ -267,12 +342,14 @@ class ControlStepPlan:
 
     @property
     def sizes(self) -> dict[str, int]:
-        """The ``-D`` defines that size the kernels' arrays."""
+        """The ``-D`` defines that size the kernels' arrays, and the
+        control step's lanes per env."""
         return {
             "CS_NB": self.model.n_bodies,
             "CS_NG": len(self.model.geom_body),
             "CS_NP": len(self.model.pair_geom_a),
             "CS_NW": 0 if self.terrain is None else len(self.terrain.amplitudes),
+            "CS_G": self.group_size,
         }
 
     def _spec(self, name: str) -> tuple[str, tuple[str, ...]]:
@@ -300,12 +377,12 @@ class ControlStepPlan:
         """The library of source ``name``, checked against this plan's
         struct: a library built for other sizes must not be launched."""
         lib = cuda_build.load(*self._spec(name))
-        built_for = (ctypes.c_int * 4)()
+        built_for = (ctypes.c_int * len(SIZE_NAMES))()
         size_fn = getattr(lib, f"{name}_params_size")
         size_fn.argtypes = [ctypes.c_void_p]
         size_fn.restype = ctypes.c_int
         size = size_fn(built_for)
-        want = [self.sizes[k] for k in ("CS_NB", "CS_NG", "CS_NP", "CS_NW")]
+        want = [self.sizes[k] for k in SIZE_NAMES]
         if size != ctypes.sizeof(self._params) or list(built_for) != want:
             raise RuntimeError(
                 f"{name} library was built for sizes {list(built_for)} "
@@ -328,7 +405,17 @@ class ControlStepPlan:
             ]
             fn.restype = ctypes.c_int
             fns[name] = fn
+        smem = lib.control_step_smem_bytes
+        smem.argtypes = [ctypes.c_int]
+        smem.restype = ctypes.c_longlong
+        fns["control_step_smem_bytes"] = smem
         return fns
+
+    def shared_memory_bytes(self) -> int:
+        """Dynamic shared memory of one block of the control-step and
+        substeps kernels at this plan's launch (the model struct and
+        ``threads_per_block / group_size`` envs), from the library."""
+        return int(self._step_entry_points["control_step_smem_bytes"](self.threads_per_block))
 
     @functools.cached_property
     def _sampler_entry_point(self):
@@ -344,7 +431,8 @@ class ControlStepPlan:
         device = qpos.device
         if device.type != "cuda":
             raise ValueError(f"the kernels take CUDA tensors, got {device}")
-        if B >= 2**31 // max(self.model.nv * (self.model.nv + 1) // 2, self.n_extra, 1):
+        widest = max(self.model.nv * (self.model.nv + 1) // 2, self.n_extra, self.group_size, 1)
+        if B >= 2**31 // widest:
             raise ValueError(f"B = {B} is too large for the kernels")
         return device
 
@@ -366,7 +454,7 @@ class ControlStepPlan:
             *(x.data_ptr() for x in ins),
             None if fourth_in is None else fourth_in.data_ptr(),
             qpos_out.data_ptr(), qvel_out.data_ptr(), normals_out.data_ptr(),
-            B, ctypes.addressof(self._params), THREADS_PER_BLOCK,
+            B, ctypes.addressof(self._params), self.threads_per_block,
             stream.device.index, stream.cuda_stream,
         )
         if err != 0:
@@ -393,7 +481,7 @@ class ControlStepPlan:
         err = self._sampler_entry_point(
             qpos_in.data_ptr(), table.data_ptr(), planes.data_ptr(), B, nx, ny,
             grid.x0, grid.y0, 1.0 / grid.dx, 1.0 / grid.dy,
-            ctypes.addressof(self._params), THREADS_PER_BLOCK,
+            ctypes.addressof(self._params), SAMPLER_THREADS_PER_BLOCK,
             stream.device.index, stream.cuda_stream,
         )
         if err != 0:
@@ -550,9 +638,24 @@ def pack_params(plan: ControlStepPlan) -> ctypes.Structure:
         ("idx_planes", i32, idx_planes),
         ("n_extra", i32, plan.n_extra),
     ]
+    schedule = padded_schedule(
+        {
+            **tree_schedule(model.parent),
+            **contact_schedule(
+                nb, model.geom_body, [model.geom_body[g] for g in model.pair_geom_a],
+                [model.geom_body[g] for g in model.pair_geom_b],
+            ),
+        },
+        {"level_start": nb + 1, "level_body": nb, "child_start": nb + 1, "child_list": nb,
+         "contact_start": nb + 1, "contact_slot": at_least_1(ng + 2 * npairs)},
+    )
+    for name in ("level_start", "level_body", "child_start", "child_list", "contact_start",
+                 "contact_slot", "n_levels"):
+        members.append((name, i32, np.asarray(schedule[name], np.int64)))
     expected_counts = {
         "parent": nb, "joint_axis": 3 * nb, "inertia": 9 * nb, "damping": nv,
         "lower": nj, "geom_offset": 3 * at_least_1(ng), "wave_amp": at_least_1(nw),
+        "level_start": nb + 1, "child_list": nb, "contact_slot": at_least_1(ng + 2 * npairs),
     }
     fields, values = [], {}
     for name, ctype, value in members:

@@ -169,7 +169,9 @@ def quat_integrate(q, omega, dt):
     """q ← normalize(q ⊗ exp(ω·dt/2)) — matches ``spatial.quat_integrate``."""
     angle = torch.sqrt(v3_dot(omega, omega) + 0.0) * dt
     half = 0.5 * angle
-    sinc = torch.sinc(half / math.pi)
+    # A tensor divisor: PyTorch divides by a Python scalar on the card as a
+    # product with its reciprocal, and the CPU and the kernels divide.
+    sinc = torch.sinc(half / torch.full_like(half, math.pi))
     k = 0.5 * dt * sinc
     dq = (torch.cos(half), k * omega[0], k * omega[1], k * omega[2])
     out = quat_mul(q, dq)

@@ -102,14 +102,18 @@ def test_ppo_step_launches_the_gae_kernel_once_per_minibatch(cuda):
     assert torch.isfinite(metrics["losses/actor/mean"])
 
 
-# The three control-step configurations that chip_smoke.py checks:
-# (batch, n_substeps, exact, full feature set).
+# The three control-step configurations that chip_smoke.py checks, and
+# more: (batch, n_substeps, exact, full feature set). 33 and 1001 envs end
+# inside a warp at every group size from 2 to 16 lanes per env.
 CONTROL_STEP_CASES = {
     "held_full_2048": (2048, 10, False, True),
     "exact_full_2048": (2048, 10, True, True),
     "flat_ragged_1000": (1000, 10, False, False),
     "one_substep_full_256": (256, 1, False, True),
     "pairs_limits_planes_512": (512, 10, False, "planes"),
+    "held_full_ragged_33": (33, 10, False, True),
+    "exact_full_ragged_1001": (1001, 10, True, True),
+    "held_full_one_env": (1, 10, False, True),
 }
 DR_FIELDS = ("mass_scale", "friction", "damping_scale", "gain_scale")
 
@@ -149,26 +153,33 @@ def control_step_case(name, device):
     return plan, args
 
 
+def assert_equal_to_the_bit(got, want):
+    for name, g, w in zip(("qpos", "qvel", "normals"), got, want):
+        assert torch.equal(g, w), f"{name}: max abs error {(g - w).abs().max().item():.3g}"
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", list(CONTROL_STEP_CASES))
 def test_control_step_kernel_matches_plain_version(cuda, case):
-    """float32 on both; the kernel repeats the plain version's operations
-    in its order, but sinf/cosf/sqrtf/division round differently from
-    PyTorch's elementwise kernels and the contact switch (phi > 0, 6000
-    N/m) amplifies that. One substep: qpos 2e-5, qvel 2e-4; ten substeps:
-    qpos 2e-4, qvel 2e-3; normals rtol 5e-3 / atol 5e-2."""
+    """float32 on both; each of the kernel's lanes repeats the plain
+    version's operations on its scalars in the plain order, without fused
+    multiply-adds, and on the card both sides use libdevice's sinf, cosf
+    and sqrtf: equal to the bit. (The tolerances stated for a kernel that
+    sums in another order would be one substep: qpos 2e-5, qvel 2e-4; ten
+    substeps: qpos 2e-4, qvel 2e-3; normals rtol 5e-3 / atol 5e-2, since
+    the contact switch phi > 0 and the 6000 N/m stiffness amplify
+    rounding.)"""
     plan, args = control_step_case(case, cuda)
     before = control_step_cuda.launches
-    qpos, qvel, normals = plan(*args)
+    got = plan(*args)
     assert control_step_cuda.launches == before + 1
-    want_qpos, want_qvel, want_normals = plan.plain(*args)
-    assert (want_normals > 0).any() and (want_normals == 0).any()
+    want = plan.plain(*args)
+    want_normals = want[2]
+    if args[0].shape[0] > 1:
+        assert (want_normals > 0).any() and (want_normals == 0).any()
     if want_normals.shape[1] > 8:
         assert (want_normals[:, 8:] > 0).any()  # a sphere pair touches
-    tol = 1.0 if plan.n_substeps > 1 else 0.1
-    torch.testing.assert_close(qpos, want_qpos, rtol=0, atol=2e-4 * tol)
-    torch.testing.assert_close(qvel, want_qvel, rtol=0, atol=2e-3 * tol)
-    torch.testing.assert_close(normals, want_normals, rtol=5e-3, atol=5e-2)
+    assert_equal_to_the_bit(got, want)
 
 
 @pytest.mark.gpu
@@ -233,9 +244,10 @@ def test_heightgrid_runner_launches_sampler_then_control_step(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("per_kernel", [-1, 1, 5])
 def test_substeps_kernel_matches_plain_version_on_the_same_factor(cuda, per_kernel):
-    """Both sides take the factor built outside, so they differ only as
-    the control-step kernel and its plain version do: ten substeps qpos
-    2e-4, qvel 2e-3, normals rtol 5e-3 / atol 5e-2."""
+    """Both sides take the factor built outside, so they agree as the
+    control-step kernel and its plain version do: to the bit (the stated
+    fallback: ten substeps qpos 2e-4, qvel 2e-3, normals rtol 5e-3 / atol
+    5e-2)."""
     B = 2048 if per_kernel == -1 else 1000
     model = make_quadruped(self_collision=True, joint_limits=True)
     arrays = standing_states(model, default_qpos(model), B, seed=3)
@@ -247,9 +259,7 @@ def test_substeps_kernel_matches_plain_version_on_the_same_factor(cuda, per_kern
     assert substeps_cuda.launches == before + (1 if per_kernel == -1 else 10 // per_kernel)
     want = substeps_plain(model, qpos, qvel, target, chol, 60.0, 0.002, 10)
     assert (want[2] > 0).any() and (want[2] == 0).any()
-    torch.testing.assert_close(got[0], want[0], rtol=0, atol=2e-4)
-    torch.testing.assert_close(got[1], want[1], rtol=0, atol=2e-3)
-    torch.testing.assert_close(got[2], want[2], rtol=5e-3, atol=5e-2)
+    assert_equal_to_the_bit(got, want)
     with pytest.raises(ValueError):
         run(qpos, qvel, target, chol[:, :5])
     with pytest.raises(ValueError):
@@ -288,6 +298,8 @@ SCENE_CASES = {
     "reacher_4096": (4096, 4),
     "general_and_slider_trees_1000": (1000, 3),
     "general_uncapped_on_waves_777": (777, 3),
+    "pusher_ragged_33": (33, 16),
+    "general_and_slider_trees_ragged_33": (33, 3),
 }
 
 
@@ -317,23 +329,42 @@ def scene_case(name, device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", list(SCENE_CASES))
 def test_scene_step_kernel_matches_plain_version(cuda, case):
-    """float32 on both; the kernel repeats the plain version's operations
-    in its order (0 is expected). Held to the tolerances of the JAX lane
-    code against its generic engine: qpos 2e-5, qvel 5e-4, normals 1e-4."""
+    """float32 on both; each lane repeats the plain version's operations on
+    its scalars in the plain order: equal to the bit. (The stated fallback,
+    the tolerances of the JAX lane code against its generic engine: qpos
+    2e-5, qvel 5e-4, normals 1e-4.)"""
     run, args = scene_case(case, cuda)
     before = scene_step_cuda.launches
-    qpos, qvel, normals = run(*args)
+    got = run(*args)
     assert scene_step_cuda.launches == before + 1
-    want_qpos, want_qvel, want_normals = run.plain(*args)
-    assert normals.shape == (args[0].shape[0], run.n_normals)
-    assert all(torch.isfinite(x).all() for x in (qpos, qvel, normals))
+    want = run.plain(*args)
+    want_normals = want[2]
+    assert got[2].shape == (args[0].shape[0], run.n_normals)
+    assert all(torch.isfinite(x).all() for x in got)
     if not case.startswith("reacher"):
         assert (want_normals > 0).any() and (want_normals == 0).any()
     if case.startswith("pusher"):
         assert (want_normals[:, 2] > 0).any()  # the cross pair fires
-    torch.testing.assert_close(qpos, want_qpos, rtol=2e-5, atol=2e-5)
-    torch.testing.assert_close(qvel, want_qvel, rtol=5e-4, atol=5e-4)
-    torch.testing.assert_close(normals, want_normals, rtol=1e-4, atol=1e-4)
+    assert_equal_to_the_bit(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["control_step", "scene_step"])
+def test_two_group_sizes_give_the_same_bits(cuda, kernel):
+    """The same kernel built for two numbers of lanes per env, launched
+    with two block sizes, on a batch that ends inside a warp: the lanes
+    share out whole scalars, so the results are the same bits."""
+    outs = []
+    for group, threads in ((2, 32), (16, 128)) if kernel == "control_step" else ((1, 32), (8, 256)):
+        if kernel == "control_step":
+            run, args = control_step_case("exact_full_ragged_1001", cuda)
+        else:
+            run, args = scene_case("general_and_slider_trees_1000", cuda)
+            args = [x[:999] for x in args]
+        run.group_size, run.threads_per_block = group, threads
+        assert run.sizes[("CS_G" if kernel == "control_step" else "SS_G")] == group
+        outs.append(run(*args))
+    assert_equal_to_the_bit(outs[0], outs[1])
 
 
 @pytest.mark.gpu

@@ -338,7 +338,8 @@ def test_kernel_struct_packing_and_build_spec():
     tm = make_quadruped(self_collision=True, joint_limits=True)
     plan = ControlStepPlan(tm, KP, DT, 10, True, terrain=terrain.rough_terrain(**ROUGH),
                            dr_fields=("friction", "gain_scale"), has_push=True)
-    assert plan.sizes == {"CS_NB": 13, "CS_NG": 8, "CS_NP": 4, "CS_NW": 6}
+    assert plan.sizes == {"CS_NB": 13, "CS_NG": 8, "CS_NP": 4, "CS_NW": 6,
+                          "CS_G": plan.group_size}
     name, flags = plan.kernel_spec
     assert name == "control_step" and "-DCS_NP=4" in flags and "--use_fast_math" not in flags
     p = pack_params(plan)

@@ -350,7 +350,8 @@ def test_a_scene_without_contacts_returns_one_zero_column():
 def test_scene_struct_packing_and_build_spec():
     arm, ball = make_arm(shoulder_height=0.55, friction_vel=1.0, max_contact_force=60.0), _make_ball()
     plan = SceneStepPlan((arm, ball), ((0, 0, 1, 0),), DT, 16)
-    assert plan.sizes == dict(SS_NT=2, SS_NB=3, SS_NQ=12, SS_NV=10, SS_MV=6, SS_NG=2, SS_NP=1, SS_NW=0)
+    assert plan.sizes == dict(SS_NT=2, SS_NB=3, SS_NQ=12, SS_NV=10, SS_MV=6, SS_NG=2, SS_NP=1, SS_NW=0,
+                              SS_G=plan.group_size)
     assert tuple(plan.sizes) == SIZE_NAMES
     name, flags = plan.kernel_spec
     assert name == "scene_step" and "-DSS_NQ=12" in flags and "-fmad=false" in flags
