@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (nnx_ppo_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--profile DIR] [--learn N] [--variants]
+    python3 chip_smoke.py [--profile DIR] [--learn N] [--variants] [--phases]
+    python3 chip_smoke.py --ab-kernels [--package-root DIR]
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -14,8 +15,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 3. kernels: each kernel against its plain PyTorch version on the card at
    the training paths' shapes and at ragged ones (a batch that ends inside
    a warp; for the scene kernel also a two-tree scene with every joint
-   type), printing whether each output is equal to the bit, then timed
-   with CUDA events and torch.profiler against the plain version;
+   type; for GAE every reward key of a minibatch in one launch), printing
+   whether each output is equal to the bit (GAE and the plane sampler
+   must be), then timed with CUDA events and torch.profiler against the
+   plain version, GAE and the sampler also in a CUDA graph; GAE's columns
+   per block and the sampler's (lanes per env, threads per block) are
+   swept, each variant equal to the bit;
 4. paths, each through new_training_state and ppo_multi_step with every
    kernel's launch count set to 0 just before and read just after:
    the flagship (CartpoleBalance with a 500-step time limit, 1024 envs,
@@ -23,8 +28,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    shuffled minibatches, adam); the physics leg (QuadrupedJoystick
    with domain randomization, pushes and rough terrain, held factor,
    2048 envs, T=20, Concat encoder 128+32, actor 128, two critic heads,
-   per-key GAE with combined advantages, shuffled and then contiguous
-   minibatches); the data-terrain path (the same quadruped, net and
+   GAE of both reward keys in one launch, combined advantages, shuffled
+   and then contiguous minibatches); the data-terrain path (the same quadruped, net and
    config on a 256 x 256 HeightGrid sampled from the rough terrain, no
    randomization or pushes: plane sampler, then control step); and the
    passed-in-factor path (flat ground, the factor of M + dt D built
@@ -36,9 +41,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (ArmReacher, 150-step limit, the arm alone, 4 substeps);
 5. reference: for the flagship, the physics leg and the pusher the PPO
    loss and its gradients on the card against the same computation on
-   the CPU (plain versions) for one minibatch, and for each quadruped
-   and manipulation path one env step on the card (kernels) against the
-   CPU (plain versions) from the same state, action and draws.
+   the CPU (plain versions) for one minibatch, and against the card's
+   own with one GAE launch per reward key (the same bits), and for each
+   quadruped and manipulation path one env step on the card (kernels)
+   against the CPU (plain versions) from the same state, action and
+   draws.
 
 It prints a ``kernels`` JSON line (each kernel's design, and its
 registers, stack, spills and shared memory from ptxas and the launch), the
@@ -55,7 +62,12 @@ version and timed with CUDA events, in one order and then the reverse;
 ``--phases`` also builds copies of the control-step and scene kernels that
 read the SM's clock at every barrier of the first env's lanes (under
 build/phase_csrc/) and prints the cycles of each phase at the paths'
-shapes.
+shapes. ``--ab-kernels`` runs only the device line and the timing of GAE
+and the plane sampler at the paths' shapes (wrapper, profiler, CUDA
+graph), printing an ``ab_kernels`` JSON line; ``--package-root DIR``
+imports nnx_ppo_tpu_torch from DIR instead, so that another checkout (the
+parent commit's, unpacked with ``git archive``) is timed by the same
+script in the same chip call.
 """
 
 from __future__ import annotations
@@ -117,29 +129,107 @@ def time_ms(fn, n: int, torch) -> float:
     return start.elapsed_time(end) / n
 
 
-def device_ms_per_call(fn, n: int, kernel_name: str, torch) -> float:
-    """Device time per launch of the CUDA kernel whose name contains
-    ``kernel_name``, from torch.profiler over ``n`` calls of ``fn``. The
-    mean is over the launches the profiler recorded: it can drop records
-    (49 of 50 were seen for a kernel of a few microseconds, 16 of 20 for
-    one of a few hundred), so up to half may be missing, and none may be
-    extra."""
+def profile_calls(fn, n: int, kernel_name: str, torch, per_call: int = 1) -> dict:
+    """torch.profiler over ``n`` calls of ``fn``: device time per launch of
+    the CUDA kernel whose name contains ``kernel_name`` (``per_call``
+    launches a call), and every device kernel per call. The profiler can
+    drop records (49 of 50 were seen for a kernel of a few microseconds,
+    16 of 20 for one of a few hundred, and once none of 50), so up to half
+    of the launches may be missing, and none may be extra; how many it saw
+    is printed, and a window that saw fewer than half is profiled again,
+    three times at most."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    expected = n * per_call
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+        events = [e for e in device if kernel_name in e.key]
+        count = sum(e.count for e in events)
+        print(f"profiler: {count} of {expected} launches of {kernel_name} recorded")
+        if 0.5 * expected <= count <= expected:
+            break
+        if count > expected or attempt == 2:
+            raise RuntimeError(f"profiler saw {count} launches of {kernel_name}, expected {expected}")
+    return {
+        "kernel_ms": sum(e.self_device_time_total for e in events) / count / 1e3,
+        "launches_seen": count,
+        "launches_expected": expected,
+        "kernels_per_call": sum(e.count for e in device) / n,
+        "device_ms_per_call": sum(e.self_device_time_total for e in device) / n / 1e3,
+    }
+
+
+def device_ms_per_call(fn, n: int, kernel_name: str, torch) -> float:
+    """Device time per launch of the CUDA kernel whose name contains
+    ``kernel_name``, from torch.profiler over ``n`` calls of ``fn`` (one
+    launch each; see :func:`profile_calls`)."""
+    return profile_calls(fn, n, kernel_name, torch)["kernel_ms"]
+
+
+def graph_device_ms(fn, n: int, torch) -> float:
+    """Milliseconds per call of ``fn`` on the device alone: ``n`` calls
+    captured in one CUDA graph, one replay timed with CUDA events. Back-to-
+    back wrapper calls (:func:`time_ms`) measure the host's enqueue rate
+    whenever the wrapper is slower than its kernel; the replay launches
+    the captured kernels with no host in between."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
         for _ in range(n):
             fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if kernel_name in e.key]
-    count = sum(e.count for e in events)
-    if not 0.5 * n <= count <= n:
-        raise RuntimeError(f"profiler saw {count} launches of {kernel_name}, expected {n}")
-    return sum(e.self_device_time_total for e in events) / count / 1e3
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
 
 
-def gae_inputs(T: int, B: int, seed: int, device, torch):
+def kernel_times(fn, kernel_name: str, torch, per_call: int = 1, n_wrapper: int = 500,
+                 n_profile: int = 100, n_graph: int = 100) -> dict:
+    """A kernel's call timed three ways: the wrapper by CUDA events over
+    back-to-back calls, the kernel by torch.profiler, and the call's
+    device work in a CUDA graph."""
+    prof = profile_calls(fn, n_profile, kernel_name, torch, per_call)
+    return {
+        "wrapper_ms": time_ms(fn, n_wrapper, torch),
+        "kernel_device_ms": prof["kernel_ms"],
+        "graph_ms": graph_device_ms(fn, n_graph, torch),
+        "device_kernels_per_call": prof["kernels_per_call"],
+        "device_ms_per_call": prof["device_ms_per_call"],
+        "profiler_launches": [prof["launches_seen"], prof["launches_expected"]],
+    }
+
+
+def floor_kernel_times(torch) -> dict:
+    """The shortest kernel the card runs, a floor for the microsecond-scale
+    kernels: PyTorch's add of 1 to a one-element tensor, timed by the
+    profiler and in a CUDA graph (it is measured here, not used)."""
+    x = torch.zeros(1, device="cuda")
+    prof = profile_calls(lambda: x.add_(1.0), 100, "elementwise_kernel", torch)
+    out = {"kernel_device_ms": prof["kernel_ms"],
+           "graph_ms": graph_device_ms(lambda: x.add_(1.0), 100, torch)}
+    print(f"floor: a one-element add, {1e3 * out['kernel_device_ms']:.3f} us per launch "
+          f"(profiler), {1e3 * out['graph_ms']:.3f} us (CUDA graph)")
+    return out
+
+
+def gae_inputs(T: int, B: int, seed: int, device, torch, flag_dtype=None):
+    """rewards, values, last value and the done / truncation flags of one
+    key (float32 flags, or ``flag_dtype``)."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
@@ -152,7 +242,62 @@ def gae_inputs(T: int, B: int, seed: int, device, torch):
         done.astype(np.float32),
         truncated.astype(np.float32),
     )
-    return [torch.tensor(a, device=device) for a in arrays]
+    out = [torch.tensor(a, device=device) for a in arrays]
+    if flag_dtype is not None:
+        out[3:] = [x.to(flag_dtype) for x in out[3:]]
+    return out
+
+
+# One minibatch of GAE on each path: (T, B, reward keys). The flags come
+# as the rollout stores them, bool, one tensor shared by the keys.
+GAE_PATH_SHAPES = {"flagship": (30, 256, 1), "quadruped": (20, 512, 2)}
+# Columns (threads) per block of the GAE kernel that the run compares.
+GAE_COLUMN_VARIANTS = (16, 32, 64, 128)
+
+
+def gae_path_inputs(T: int, B: int, n_keys: int, torch, per_key_flags: bool = False) -> tuple:
+    """(rewards, values, last values, done, truncation) of one minibatch:
+    dicts per reward key (a tensor for one key) and one pair of bool flags
+    shared by the keys (or a pair per key)."""
+    keys = [f"key{k}" for k in range(n_keys)]
+    per_key = {k: gae_inputs(T, B, seed=i, device="cuda", torch=torch, flag_dtype=torch.bool)
+               for i, k in enumerate(keys)}
+    tree = [{k: per_key[k][j] for k in keys} for j in range(5)]
+    if not per_key_flags:
+        tree[3], tree[4] = per_key[keys[0]][3], per_key[keys[0]][4]
+    if n_keys == 1:
+        tree = [x[keys[0]] if isinstance(x, dict) else x for x in tree]
+    return tuple(tree)
+
+
+def gae_keys(inputs: tuple) -> dict:
+    """Key -> (rewards, values, last value, done, truncation) of
+    :func:`gae_path_inputs`' tuple."""
+    if not isinstance(inputs[0], dict):
+        return {"key0": inputs}
+    return {k: tuple(x[k] if isinstance(x, dict) else x for x in inputs) for k in inputs[0]}
+
+
+def gae_call(inputs: tuple, lam: float, gamma: float):
+    """One minibatch's GAE as ppo_loss runs it: gae_per_key (one launch for
+    all keys) where the package has it, else one gae_cuda call per key."""
+    from nnx_ppo_tpu_torch.ops import gae as gae_module
+
+    if hasattr(gae_module, "gae_per_key"):
+        return lambda: gae_module.gae_per_key(*inputs, lam, gamma)
+    rewards, values, last, done, truncation = inputs
+    if not isinstance(rewards, dict):
+        return lambda: gae_module.gae_cuda(rewards, values, last, done, truncation, lam, gamma)
+    keys = list(rewards)
+    return lambda: {k: gae_module.gae_cuda(rewards[k], values[k], last[k], done, truncation,
+                                           lam, gamma) for k in keys}
+
+
+def gae_bound_ms(T: int, B: int, n_keys: int, flag_bytes: int = 1) -> tuple[float, str]:
+    """Bytes per key: rewards, values and the output as float32, the two
+    flags at ``flag_bytes`` each, last value; some 10 operations a step."""
+    n_bytes = n_keys * ((12 + 2 * flag_bytes) * T * B + 4 * B)
+    return bound_ms(n_bytes, 10 * T * B * n_keys)
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -163,39 +308,80 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 
 def gae_kernel_phase(torch) -> dict:
-    from nnx_ppo_tpu_torch.ops.gae import gae_cuda, gae_scan
+    from nnx_ppo_tpu_torch.ops import gae as gae_module
+    from nnx_ppo_tpu_torch.ops.gae import gae_cuda, gae_per_key, gae_scan
 
     lam, gamma = 0.95, 0.99
     max_err = 0.0
+    # One key through gae_cuda, float flags.
     for i, (T, B) in enumerate([(30, 256), (20, 512), (30, 1024), (7, 1000)]):
         args = gae_inputs(T, B, seed=i, device="cuda", torch=torch)
         check(bool(args[3].any() and args[4].any()), "done and truncation flags are set")
         got = gae_cuda(*args, lam, gamma)
         want = gae_scan(*args, lam, gamma)
         torch.cuda.synchronize()
-        # float32; both round every product and sum on its own.
-        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
         err = (got - want).abs().max().item()
         max_err = max(max_err, err)
-        print(f"gae [{T}, {B}]: max_abs_err {err:.3g} (rtol 1e-6, atol 1e-6)")
+        check(bool(torch.equal(got, want)), f"gae [{T}, {B}] equals gae_scan to the bit")
+        print(f"gae [{T}, {B}]: max_abs_err {err:.3g}; torch.equal True")
+    # Every key in one launch, bool flags: the paths' minibatches and a
+    # ragged batch with three keys and per-key flags.
+    for T, B, n_keys, per_key_flags in ((30, 256, 1, False), (20, 512, 2, False), (7, 33, 3, True)):
+        inputs = gae_path_inputs(T, B, n_keys, torch, per_key_flags)
+        before = gae_cuda.launches
+        got = gae_per_key(*inputs, lam, gamma)
+        check(gae_cuda.launches == before + 1, f"gae_per_key [{T}, {B}] x {n_keys}: one launch")
+        got = got if isinstance(got, dict) else {"key0": got}
+        for k, key in gae_keys(inputs).items():
+            want = gae_scan(*key, lam, gamma)
+            max_err = max(max_err, (got[k] - want).abs().max().item())
+            check(bool(torch.equal(got[k], want)),
+                  f"gae_per_key [{T}, {B}] {k} equals gae_scan to the bit")
+        print(f"gae_per_key [{T}, {B}] x {n_keys} keys, bool flags"
+              f"{' per key' if per_key_flags else ' shared'}: one launch, every key torch.equal True")
 
-    # The training paths' shapes: one minibatch of the flagship (T=30,
-    # B=1024/4) and of the physics leg (T=20, B=2048/4).
+    # Columns per block: each variant equal to the bit, then timed in a
+    # CUDA graph at both path shapes, in one order and then the reverse.
+    shipped_columns = gae_module.GAE_COLUMNS
+    shapes = {label: gae_path_inputs(*shape, torch) for label, shape in GAE_PATH_SHAPES.items()}
+    columns_ms: dict = {c: {label: [] for label in shapes} for c in GAE_COLUMN_VARIANTS}
+    try:
+        for order in (GAE_COLUMN_VARIANTS, GAE_COLUMN_VARIANTS[::-1]):
+            for columns in order:
+                gae_module.GAE_COLUMNS = columns
+                for label, inputs in shapes.items():
+                    got = gae_per_key(*inputs, lam, gamma)
+                    gae_module.GAE_COLUMNS = shipped_columns
+                    want = gae_per_key(*inputs, lam, gamma)
+                    gae_module.GAE_COLUMNS = columns
+                    same = [torch.equal(got[k], want[k]) for k in got] if isinstance(got, dict) \
+                        else [torch.equal(got, want)]
+                    check(all(same), f"gae {columns} columns per block: the same bits")
+                    columns_ms[columns][label].append(
+                        graph_device_ms(gae_call(inputs, lam, gamma), 100, torch))
+    finally:
+        gae_module.GAE_COLUMNS = shipped_columns
+    for columns, by_label in columns_ms.items():
+        print(f"gae variant {columns} columns per block: " + ", ".join(
+            f"{label} " + " / ".join(f"{1e3 * t:.3f}" for t in ts) + " us (graph)"
+            for label, ts in by_label.items()))
+
     timed = {}
-    for T, B in [(30, 256), (20, 512)]:
-        args = gae_inputs(T, B, seed=0, device="cuda", torch=torch)
-        n_bytes = (5 * T + 1) * B * 4
-        bound, bound_by = bound_ms(n_bytes, 10 * T * B)
-        timed[(T, B)] = {
-            "ms": time_ms(lambda: gae_cuda(*args, lam, gamma), 500, torch),
-            "kernel_device_ms": device_ms_per_call(
-                lambda: gae_cuda(*args, lam, gamma), 100, "gae_kernel", torch
-            ),
-            "plain_ms": time_ms(lambda: gae_scan(*args, lam, gamma), 50, torch),
-            "bound_ms": bound,
-            "bound_by": bound_by,
-        }
-    flagship_shape, physics_shape = timed[(30, 256)], timed[(20, 512)]
+    for label, (T, B, n_keys) in GAE_PATH_SHAPES.items():
+        inputs = shapes[label]
+        times = kernel_times(gae_call(inputs, lam, gamma), "gae_kernel", torch)
+        keys = list(gae_keys(inputs).values())
+        times["plain_ms"] = time_ms(lambda: [gae_scan(*key, lam, gamma) for key in keys], 20, torch)
+        times["bound_ms"], times["bound_by"] = gae_bound_ms(T, B, n_keys)
+        times["shape"] = [T, B, n_keys]
+        timed[label] = times
+        print(f"gae [{T}, {B}] x {n_keys} key(s) in one launch: wrapper {1e3 * times['wrapper_ms']:.2f} "
+              f"us, kernel {1e3 * times['kernel_device_ms']:.3f} us (profiler), "
+              f"{1e3 * times['graph_ms']:.3f} us (CUDA graph), "
+              f"{times['device_kernels_per_call']:.1f} device kernels per call, bound "
+              f"{1e3 * times['bound_ms']:.4f} us ({times['bound_by']})")
+    flagship_shape, quadruped_shape = timed["flagship"], timed["quadruped"]
+    floor = floor_kernel_times(torch)
     return {
         "name": "gae",
         "route": "cuda",
@@ -203,16 +389,21 @@ def gae_kernel_phase(torch) -> dict:
         "replaces": "nnx_ppo_tpu/ops/gae.py:105",
         "launches": None,
         "max_abs_err": max_err,
-        "ms": flagship_shape["ms"],
+        "ms": flagship_shape["wrapper_ms"],
         "plain_ms": flagship_shape["plain_ms"],
         "bound_ms": flagship_shape["bound_ms"],
         "bound_by": flagship_shape["bound_by"],
         "library_ms": None,  # no single PyTorch call computes GAE
-        "shape": [30, 256],
+        "shape": flagship_shape["shape"],
         "kernel_device_ms": flagship_shape["kernel_device_ms"],
-        "at_20x512": physics_shape,
-        "design": "one thread per env column, 256 threads per block",
-        "ptxas": ptxas_row(("gae", ()), "gae_kernel"),
+        "graph_ms": flagship_shape["graph_ms"],
+        "at_20x512x2": quadruped_shape,
+        "floor_kernel": floor,
+        "columns_graph_ms": {str(c): v for c, v in columns_ms.items()},
+        "design": (f"one launch for every reward key (blockIdx.y), {shipped_columns} columns per "
+                   "block, [T, columns] tiles staged by cp.async before the recurrence, flags read "
+                   "as bool or float32"),
+        "ptxas": ptxas_row(("gae", ()), "gae_kernelIhh"),
     }
 
 
@@ -567,11 +758,15 @@ def data_terrain(n: int = 256, extent: float = 12.0):
 
 # The sampler configurations checked against the plain version:
 # name -> (batch, table points per side, table half-extent in metres). The
-# envs stand within +-5 m, so some stand outside the small table.
+# envs stand within +-5 m, so some stand outside the small table; 33 ends
+# inside a block at every launch of the sweep.
 PLANE_SAMPLER_CASES = {
     "B=2048 on the 256x256 table": (2048, 256, 12.0),
     "B=1000 on a 32x32 table, some envs outside": (1000, 32, 3.0),
+    "B=33 on the 256x256 table": (33, 256, 12.0),
 }
+# The (lanes per env, threads per block) variants of the plane sampler.
+SAMPLER_GROUPS, SAMPLER_THREADS = (4, 8, 16), (64, 128, 256)
 
 
 def plane_sampler_case(name: str, torch):
@@ -589,10 +784,22 @@ def plane_sampler_case(name: str, torch):
     return plan, [torch.tensor(arrays[k], device="cuda") for k in ("qpos", "qvel", "target")]
 
 
+def sampler_variant(plan, group: int, threads: int):
+    """A plan on the same model and table whose sampler runs ``group`` lanes
+    per env in blocks of ``threads``."""
+    from nnx_ppo_tpu_torch.physics.cuda_step import ControlStepPlan
+
+    variant = ControlStepPlan(plan.model, 60.0, 0.002, 10, terrain=plan.heightgrid)
+    variant.sampler_group, variant.sampler_threads = group, threads
+    return variant
+
+
 def plane_sampler_kernel_phase(torch) -> dict:
     """The plane sampler against its plain version: the kernel repeats the
-    plain version's float32 operations in its order, so 0 is expected;
-    the stated tolerance is 1e-6 (heights and slopes are below 1)."""
+    plain version's float32 operations in its order, so every variant of
+    the (lanes per env, threads per block) sweep must equal it to the bit
+    on every case; then the variants timed in a CUDA graph at the
+    data-terrain path's shape, in one order and then the reverse."""
     from nnx_ppo_tpu_torch.physics import cuda_step
 
     max_err = 0.0
@@ -610,20 +817,40 @@ def plane_sampler_kernel_phase(torch) -> dict:
         extent = PLANE_SAMPLER_CASES[name][2]
         outside = (qpos[:, :2].abs() > extent).any(dim=1)
         check(bool(outside.any()) == (extent < 5.0), "envs outside the table only on the small one")
-        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
         err = (got - want).abs().max().item()
         max_err = max(max_err, err)
-        cases[name] = (plan, args)
-        print(f"plane_sampler {name}: max_abs_err {err:.3g} (atol 1e-6), "
+        check(bool(torch.equal(got, want)), f"plane_sampler {name} equals the plain version")
+        cases[name] = (plan, qpos, want)
+        print(f"plane_sampler {name}: max_abs_err {err:.3g}, torch.equal True, "
               f"{int(outside.sum())} envs outside")
 
-    # The data-terrain path's shape.
-    plan, args = cases["B=2048 on the 256x256 table"]
-    qpos, model, grid = args[0], plan.model, plan.heightgrid
-    ms = time_ms(lambda: plan.sample_planes_cuda(qpos), 200, torch)
-    kernel_device_ms = device_ms_per_call(
-        lambda: plan.sample_planes_cuda(qpos), 50, "plane_sampler_kernel", torch
-    )
+    path_case = "B=2048 on the 256x256 table"
+    plan, qpos, _ = cases[path_case]
+    variants = {(g, t): {c: sampler_variant(cases[c][0], g, t) for c in cases}
+                for g in SAMPLER_GROUPS for t in SAMPLER_THREADS}
+    for (group, threads), plans in variants.items():
+        for name, variant in plans.items():
+            got = variant.sample_planes_cuda(cases[name][1])
+            check(bool(torch.equal(got, cases[name][2])),
+                  f"plane_sampler G={group}, {threads} threads, {name}: equal to the bit")
+    sweep_ms: dict = {key: [] for key in variants}
+    for order in (list(variants), list(variants)[::-1]):
+        for key in order:
+            variant = variants[key][path_case]
+            sweep_ms[key].append(graph_device_ms(lambda: variant.sample_planes_cuda(qpos), 100, torch))
+    fastest = min(sweep_ms, key=lambda key: sum(sweep_ms[key]))
+    for (group, threads), ts in sweep_ms.items():
+        smem = variants[(group, threads)][path_case].sampler_shared_memory_bytes()
+        print(f"plane_sampler variant G={group}, {threads} threads per block, {smem} B shared per "
+              f"block: " + " / ".join(f"{1e3 * t:.3f}" for t in ts) + " us (graph), torch.equal "
+              "True on every case")
+    print(f"plane_sampler: fastest G={fastest[0]}, {fastest[1]} threads per block; shipped "
+          f"G={plan.sampler_group}, {plan.sampler_threads}")
+
+    # The data-terrain path's shape, at the shipped launch.
+    model, grid = plan.model, plan.heightgrid
+    times = kernel_times(lambda: plan.sample_planes_cuda(qpos), "plane_sampler_kernel", torch,
+                         n_wrapper=200, n_profile=50)
     plain_ms = time_ms(lambda: plan.sample_planes_plain(qpos), 5, torch)
     # Bytes: qpos in, planes out, and every table entry that this run's
     # geoms read, once.
@@ -638,7 +865,14 @@ def plane_sampler_kernel_phase(torch) -> dict:
     ops_per_env = count_plain_operations(plan.sample_planes_plain, [qpos], torch)
     bound, bound_by = bound_ms(n_bytes, ops_per_env * B)
     print(f"plane_sampler: {n_bytes} bytes ({table_bytes} of the table) and {ops_per_env:.0f} "
-          "float operations per env")
+          f"float operations per env; wrapper {1e3 * times['wrapper_ms']:.2f} us, kernel "
+          f"{1e3 * times['kernel_device_ms']:.3f} us (profiler), {1e3 * times['graph_ms']:.3f} us "
+          f"(CUDA graph), bound {1e3 * bound:.4f} us ({bound_by})")
+    ptxas = {f"G={g}": ptxas_row(variants[(g, plan.sampler_threads)][path_case].sampler_spec,
+                                 "plane_sampler_kernel",
+                                 variants[(g, plan.sampler_threads)][path_case]
+                                 .sampler_shared_memory_bytes())
+             for g in SAMPLER_GROUPS}
     return {
         "name": "plane_sampler",
         "route": "cuda",
@@ -646,17 +880,24 @@ def plane_sampler_kernel_phase(torch) -> dict:
         "replaces": "nnx_ppo_tpu/physics/pallas_step.py:212",
         "launches": None,
         "max_abs_err": max_err,
-        "ms": ms,
+        "ms": times["wrapper_ms"],
         "plain_ms": plain_ms,
         "bound_ms": bound,
         "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call does FK and a bilinear tangent plane
         "shape": [B, model.nq],
-        "kernel_device_ms": kernel_device_ms,
+        "kernel_device_ms": times["kernel_device_ms"],
+        "graph_ms": times["graph_ms"],
+        "profiler_launches": times["profiler_launches"],
         "ops_per_env": ops_per_env,
         "bytes": n_bytes,
-        "design": "one thread per env, 32 threads per block",
-        "ptxas": ptxas_row(plan.kernel_specs[1], "plane_sampler_kernel"),
+        "sweep_graph_ms": {f"G={g},{t}": ms for (g, t), ms in sweep_ms.items()},
+        "fastest": list(fastest),
+        "design": (f"lane group G={plan.sampler_group}, {plan.sampler_threads} threads per block "
+                   f"({plan.sampler_threads // plan.sampler_group} envs and "
+                   f"{plan.sampler_shared_memory_bytes()} B of dynamic shared memory per block)"),
+        "ptxas": ptxas[f"G={plan.sampler_group}"],
+        "ptxas_by_group": ptxas,
     }
 
 
@@ -1223,9 +1464,12 @@ def physics_path_phase(torch, kernels: list, profile_dir: str | None, label: str
     return result
 
 
-def loss_reference_phase(torch, label: str, env, config, ts, n_gae: int) -> float:
-    """Loss and gradients on the card (GAE kernel) against the CPU (plain
-    GAE) for one full-width minibatch of a fresh rollout."""
+def loss_reference_phase(torch, label: str, env, config, ts) -> float:
+    """Loss and gradients on the card (one GAE launch for all reward keys)
+    against the CPU (plain GAE) for one full-width minibatch of a fresh
+    rollout, and against the card's loss with one GAE launch per key (the
+    calls that gae_per_key replaced): the same bits."""
+    from nnx_ppo_tpu_torch.algorithms import ppo as ppo_module
     from nnx_ppo_tpu_torch.algorithms import ppo_loss
     from nnx_ppo_tpu_torch.algorithms.ppo import ReplayMinibatch
     from nnx_ppo_tpu_torch.algorithms.rollout import unroll_env
@@ -1255,7 +1499,7 @@ def loss_reference_phase(torch, label: str, env, config, ts, n_gae: int) -> floa
     net_gpu.zero_grad(set_to_none=True)
     loss_gpu, _ = ppo_loss(net_gpu, tree_map(lambda x: x[:width], ts.network_states), view, **kw)
     loss_gpu.backward()
-    check(gae_cuda.launches == before + n_gae, "the loss on the card launched the GAE kernel")
+    check(gae_cuda.launches == before + 1, "the loss on the card launched the GAE kernel once")
     loss_cpu, _ = ppo_loss(
         net_cpu, tree_map(lambda x: x[:width].cpu(), ts.network_states), view_cpu, **kw
     )
@@ -1267,9 +1511,33 @@ def loss_reference_phase(torch, label: str, env, config, ts, n_gae: int) -> floa
         torch.testing.assert_close(p_gpu.grad.cpu(), p_cpu.grad, rtol=1e-3, atol=1e-5)
         scale = p_cpu.grad.abs().max().clamp(min=1e-12)
         max_rel = max(max_rel, ((p_gpu.grad.cpu() - p_cpu.grad).abs().max() / scale).item())
+    grads = [p.grad for p in net_gpu.parameters()]
+    net_gpu.zero_grad(set_to_none=True)
+
+    def one_launch_per_key(rewards, values, last_values, done, truncated, lambda_, gamma):
+        done = tree_map(lambda _: done, rewards) if torch.is_tensor(done) else done
+        truncated = tree_map(lambda _: truncated, rewards) if torch.is_tensor(truncated) else truncated
+        return tree_map(lambda r, v, lv, d, tr: gae_cuda(r, v, lv, d, tr, lambda_, gamma),
+                        rewards, values, last_values, done, truncated)
+
+    n_keys = len(view.rewards) if isinstance(view.rewards, dict) else 1
+    shipped = ppo_module.gae_per_key
+    before = gae_cuda.launches
+    try:
+        ppo_module.gae_per_key = one_launch_per_key
+        loss_per_key, _ = ppo_loss(net_gpu, tree_map(lambda x: x[:width], ts.network_states), view,
+                                   **kw)
+        loss_per_key.backward()
+    finally:
+        ppo_module.gae_per_key = shipped
+    check(gae_cuda.launches == before + n_keys, "one launch per key")
+    same = bool(torch.equal(loss_per_key, loss_gpu)) and all(
+        torch.equal(p.grad, g) for p, g in zip(net_gpu.parameters(), grads))
+    check(same, f"{label}: the loss with one GAE launch equals the per-key launches' to the bit")
     net_gpu.zero_grad(set_to_none=True)
     print(f"reference {label}: loss cuda {loss_gpu.item():.6f} cpu {loss_cpu.item():.6f}; "
-          f"max grad diff / max |grad| {max_rel:.3g}")
+          f"max grad diff / max |grad| {max_rel:.3g}; with one GAE launch per key ({n_keys}) "
+          "loss and gradients torch.equal True")
     return abs(loss_gpu.item() - loss_cpu.item())
 
 
@@ -1362,6 +1630,36 @@ def manipulation_env_step_reference_phase(torch, label: str, env, scene_wrapper)
           f"{worst['qvel']:.3g} over {B} envs and 2 steps")
 
 
+def ab_kernels_phase(torch) -> dict:
+    """GAE and the plane sampler at the paths' shapes, each call timed three
+    ways (:func:`kernel_times`), for the package this run imports: with
+    ``--package-root`` another checkout's, such as the parent commit's, so
+    that two versions are compared in one chip call with one script. A
+    package without ``gae_per_key`` runs one ``gae_cuda`` call per key, as
+    its ``ppo_loss`` does."""
+    from nnx_ppo_tpu_torch.ops import gae as gae_module
+
+    lam, gamma = 0.95, 0.99
+    per_key = hasattr(gae_module, "gae_per_key")
+    out: dict = {"package": os.path.dirname(os.path.dirname(os.path.abspath(gae_module.__file__))),
+                 "gae_per_key": per_key}
+    for label, (T, B, n_keys) in GAE_PATH_SHAPES.items():
+        inputs = gae_path_inputs(T, B, n_keys, torch)
+        out[f"gae_{label}"] = kernel_times(gae_call(inputs, lam, gamma), "gae_kernel", torch,
+                                           per_call=1 if per_key else n_keys)
+    plan, args = plane_sampler_case("B=2048 on the 256x256 table", torch)
+    out["plane_sampler"] = kernel_times(lambda: plan.sample_planes_cuda(args[0]),
+                                        "plane_sampler_kernel", torch, n_wrapper=200, n_profile=50)
+    out["floor"] = floor_kernel_times(torch)
+    for name in ("gae_flagship", "gae_quadruped", "plane_sampler"):
+        t = out[name]
+        print(f"ab {name}: wrapper {1e3 * t['wrapper_ms']:.2f} us, kernel "
+              f"{1e3 * t['kernel_device_ms']:.3f} us per launch (profiler), {1e3 * t['graph_ms']:.3f}"
+              f" us per call (CUDA graph), {t['device_kernels_per_call']:.1f} device kernels and "
+              f"{1e3 * t['device_ms_per_call']:.3f} us of device time per call")
+    return out
+
+
 def learning_phase(torch, iterations: int) -> None:
     """train_ppo on the flagship for ``iterations`` PPO iterations, with a
     deterministic eval (64 envs, 500 steps) every tenth of the run."""
@@ -1392,7 +1690,12 @@ def main() -> int:
     parser.add_argument("--learn", metavar="ITERATIONS", type=int, default=0)
     parser.add_argument("--variants", action="store_true")
     parser.add_argument("--phases", action="store_true")
+    parser.add_argument("--ab-kernels", action="store_true")
+    parser.add_argument("--package-root", metavar="DIR", default=None)
     args = parser.parse_args()
+    if args.package_root:
+        # Import nnx_ppo_tpu_torch from another checkout (--ab-kernels).
+        sys.path.insert(0, os.path.abspath(args.package_root))
 
     import torch
 
@@ -1413,13 +1716,23 @@ def main() -> int:
 
     card = card_line()
     print(f"card: {card}")
+    if args.ab_kernels:
+        print(json.dumps({"ab_kernels": ab_kernels_phase(torch)}))
+        print(f"card: {card}")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                   "kind": torch.cuda.get_device_name(0),
+                                                   "count": torch.cuda.device_count()}}))
+        return 0
 
     t0 = time.perf_counter()
     specs = {control_step_case(name, torch)[0].kernel_spec for name in CONTROL_STEP_CASES}
     # The data-terrain plan names the plane sampler's library and the
     # flat-ground control-step library, whose second entry point is the
     # substeps kernel.
-    specs.update(plane_sampler_case(next(iter(PLANE_SAMPLER_CASES)), torch)[0].kernel_specs)
+    sampler_plan = plane_sampler_case(next(iter(PLANE_SAMPLER_CASES)), torch)[0]
+    specs.update(sampler_plan.kernel_specs)
+    # The sampler at every number of lanes per env of its sweep.
+    specs.update(sampler_variant(sampler_plan, group, 128).sampler_spec for group in SAMPLER_GROUPS)
     # The scene kernel at the pusher's and at the reacher's sizes.
     specs.update(scene_step_case(name, torch)[0].kernel_spec for name in SCENE_STEP_CASES)
     # With --profile, also print what ptxas says of each kernel
@@ -1438,16 +1751,16 @@ def main() -> int:
     flagship_path = flagship_path_phase(torch, wrappers, args.profile)
     flagship_env, _, flagship_config, _ = flagship(torch)
     loss_reference_phase(torch, "flagship", flagship_env, flagship_config,
-                         flagship_path["state"], n_gae=1)
+                         flagship_path["state"])
 
     # Launches per ppo_step: one env step per rollout step (T = 20), one
-    # GAE per minibatch update (16) and reward key (2 on the quadruped
+    # GAE per minibatch update (16) for all reward keys (2 on the quadruped
     # paths, 1 on the manipulation paths).
     none = {k.__name__: 0 for k in wrappers}
     per_step = {
-        "physics": dict(none, gae_cuda=32, control_step_cuda=20),
-        "heightgrid": dict(none, gae_cuda=32, control_step_cuda=20, plane_sampler_cuda=20),
-        "xlafactor": dict(none, gae_cuda=32, substeps_cuda=20),
+        "physics": dict(none, gae_cuda=16, control_step_cuda=20),
+        "heightgrid": dict(none, gae_cuda=16, control_step_cuda=20, plane_sampler_cuda=20),
+        "xlafactor": dict(none, gae_cuda=16, substeps_cuda=20),
         "pusher": dict(none, gae_cuda=16, scene_step_cuda=20),
         "reacher": dict(none, gae_cuda=16, scene_step_cuda=20),
     }
@@ -1461,7 +1774,7 @@ def main() -> int:
         PHYSICS_STEPS_TIMED, per_step["physics"], PHYSICS_STEPS_NOSHUFFLE,
     )
     loss_reference_phase(torch, "physics", physics_path["env"], physics_path["config"],
-                         physics_path["state"], n_gae=2)
+                         physics_path["state"])
     heightgrid_path = physics_path_phase(
         torch, wrappers, args.profile, "heightgrid", heightgrid_leg, HEIGHTGRID_STEPS_CHECKED,
         HEIGHTGRID_STEPS_TIMED, per_step["heightgrid"],
@@ -1482,7 +1795,7 @@ def main() -> int:
     }
     pusher_path = manipulation_paths["pusher"]
     loss_reference_phase(torch, "pusher", pusher_path["env"], pusher_path["config"],
-                         pusher_path["state"], n_gae=1)
+                         pusher_path["state"])
     # After every path has been driven and its counts read: these steps
     # launch kernels too and must not count as the main paths'.
     for label, path in quadruped_paths.items():

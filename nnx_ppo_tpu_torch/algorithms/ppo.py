@@ -14,8 +14,9 @@ Kept from the JAX package:
 * the time-major fused replay: the network is replay-time-static, so
   the loss replays each minibatch as one forward over its ``[T, b]``
   leading dims;
-* GAE (``ops/gae.py``) under no gradient, once per minibatch and reward
-  key: the CUDA kernel for CUDA tensors, the plain version on the CPU.
+* GAE (``ops/gae.py::gae_per_key``) under no gradient, once per
+  minibatch for all reward keys: one CUDA kernel launch for CUDA
+  tensors, the plain version per key on the CPU.
   Observations, rewards and value estimates may be dicts (one value
   head per reward key); ``combine_advantages`` sums the per-key
   advantages for the actor.
@@ -41,7 +42,7 @@ from nnx_ppo_tpu_torch.algorithms.types import LoggingLevel, TrainingState, Tran
 from nnx_ppo_tpu_torch.core.device import resolve_device
 from nnx_ppo_tpu_torch.core.struct import tree_leaves, tree_map, tree_stack
 from nnx_ppo_tpu_torch.networks.types import StatefulModule
-from nnx_ppo_tpu_torch.ops.gae import gae
+from nnx_ppo_tpu_torch.ops.gae import gae_per_key
 from nnx_ppo_tpu_torch.parallel.permutation import minibatch_plan
 
 Schedule = Callable[[int], float]
@@ -373,20 +374,12 @@ def ppo_loss(
         # Only the value is read, and GAE carries no gradient.
         last_values = networks(final_net_state, view.last_next_obs).output.value_estimates
 
-    done, truncated = view.done, view.truncated
-    if torch.is_tensor(done):
-        done = tree_map(lambda _: view.done, view.rewards)
-        truncated = tree_map(lambda _: view.truncated, view.rewards)
     values = network_output.value_estimates
-    advantages = tree_map(
-        lambda r, v, v_last, d, tr: gae(
-            r, v.detach(), v_last, d, tr, lambda_=gae_lambda, gamma=discounting_factor
-        ),
-        view.rewards,
-        values,
-        last_values,
-        done,
-        truncated,
+    # Every reward key in one call (one kernel launch on the card); done
+    # and truncated are one tensor shared by the keys, or one per key.
+    advantages = gae_per_key(
+        view.rewards, values, last_values, view.done, view.truncated,
+        lambda_=gae_lambda, gamma=discounting_factor,
     )
     target_values = tree_map(lambda v, a: v.detach() + a, values, advantages)
 

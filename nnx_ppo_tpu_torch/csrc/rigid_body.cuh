@@ -24,7 +24,7 @@
 #define CS_NW 6  // terrain waves
 #endif
 #ifndef CS_G
-#define CS_G 8  // lanes per env in control_step.cu (the plane sampler runs one)
+#define CS_G 8  // lanes per env in control_step.cu (plane_sampler.cu has PS_G)
 #endif
 
 #define CS_NJ (CS_NB - 1)

@@ -41,12 +41,14 @@ caller's lanes, so the caller's ``extra`` stays ``[len(dr_fields) +
 ``custom_partitioning`` and tile picking have no counterpart: the batch
 dimension is written out and the kernels mask the ragged edge.
 
-The kernels' array sizes (bodies, geoms, pairs, terrain waves) and the
-control step's lanes per env are ``-D`` defines, so each model size is one
-library per source; everything else about the model (topology, inertias,
+The kernels' array sizes (bodies, geoms, pairs, terrain waves) and each
+kernel's lanes per env (``CS_G`` of the control step, ``PS_G`` of the plane
+sampler) are ``-D`` defines, so each model size is one library per source;
+everything else about the model (topology, inertias,
 geoms, gains, terrain waves, feature switches, and the schedules the lane
 groups walk: :func:`tree_schedule`, :func:`contact_schedule`) is a struct
-filled here from the ``Model`` and passed to the kernels by value.
+filled here from the ``Model`` and passed to the kernels by value (to the
+plane sampler as a copy uploaded once per device).
 """
 
 from __future__ import annotations
@@ -71,17 +73,21 @@ from nnx_ppo_tpu_torch.physics.model import Model
 from nnx_ppo_tpu_torch.physics.randomize import FIELDS as DR_FIELDS
 from nnx_ppo_tpu_torch.physics.terrain import HeightGrid, Terrain
 
-# The -D defines, in the order the libraries' *_params_size report them.
+# The -D defines, in the order the libraries' *_params_size report them:
+# the model sizes, then the lanes per env of the library's kernel.
 SIZE_NAMES = ("CS_NB", "CS_NG", "CS_NP", "CS_NW", "CS_G")
+SAMPLER_SIZE_NAMES = SIZE_NAMES[:4] + ("PS_G",)
 
 # Lanes per env (a -D size that divides 32) and threads per block (a
 # multiple of 32) of the control-step and substeps kernels: the fastest
 # pair of the sweep of ``chip_smoke.py --variants`` on the H100 (PERF.md).
 CONTROL_STEP_GROUP = 16
 CONTROL_STEP_THREADS = 128
-# The plane sampler runs one thread per env: one warp per block spreads a
-# few thousand envs over as many SMs as there are warps.
-SAMPLER_THREADS_PER_BLOCK = 32
+# Lanes per env (one per ground geom of the quadruped) and threads per
+# block of the plane sampler: the fastest of the sweep of ``chip_smoke.py``
+# on the H100 (PERF.md).
+PLANE_SAMPLER_GROUP = 8
+PLANE_SAMPLER_THREADS = 64
 # Without fused multiply-adds the kernels round every product and sum on
 # their own, as the plain versions do, which keeps the two within the
 # stated tolerances across the contact switch (phi > 0).
@@ -225,10 +231,14 @@ class ControlStepPlan:
             3 * self.n_terrain_planes if self.heightgrid is not None else 0
         )
         self.n_geoms = len(model.geom_body) + len(model.pair_geom_a)
-        # The control-step and substeps kernels' launch: lanes per env and
-        # threads per block (set before the first CUDA call to try others).
+        # The kernels' launches: lanes per env and threads per block of the
+        # control-step and substeps kernels, and of the plane sampler (set
+        # before the first CUDA call to try others).
         self.group_size = CONTROL_STEP_GROUP
         self.threads_per_block = CONTROL_STEP_THREADS
+        self.sampler_group = PLANE_SAMPLER_GROUP
+        self.sampler_threads = PLANE_SAMPLER_THREADS
+        self._sampler_launches: dict = {}
 
     # -- shapes ------------------------------------------------------------
 
@@ -352,8 +362,16 @@ class ControlStepPlan:
             "CS_G": self.group_size,
         }
 
+    @property
+    def sampler_sizes(self) -> dict[str, int]:
+        """The plane sampler's ``-D`` defines: the model sizes and its own
+        lanes per env (the control step's do not enter its library)."""
+        sizes = {k: v for k, v in self.sizes.items() if k != "CS_G"}
+        return dict(sizes, PS_G=self.sampler_group)
+
     def _spec(self, name: str) -> tuple[str, tuple[str, ...]]:
-        return name, cuda_build.define_flags(self.sizes) + KERNEL_FLAGS
+        sizes = self.sampler_sizes if name == "plane_sampler" else self.sizes
+        return name, cuda_build.define_flags(sizes) + KERNEL_FLAGS
 
     @property
     def kernel_spec(self) -> tuple[str, tuple[str, ...]]:
@@ -366,8 +384,14 @@ class ControlStepPlan:
         """Every library this plan's kernels come from."""
         specs = [self.kernel_spec]
         if self.heightgrid is not None:
-            specs.append(self._spec("plane_sampler"))
+            specs.append(self.sampler_spec)
         return specs
+
+    @property
+    def sampler_spec(self) -> tuple[str, tuple[str, ...]]:
+        """What ``cuda_build.build`` takes to build this plan's plane
+        sampler."""
+        return self._spec("plane_sampler")
 
     @functools.cached_property
     def _params(self) -> ctypes.Structure:
@@ -382,7 +406,10 @@ class ControlStepPlan:
         size_fn.argtypes = [ctypes.c_void_p]
         size_fn.restype = ctypes.c_int
         size = size_fn(built_for)
-        want = [self.sizes[k] for k in SIZE_NAMES]
+        if name == "plane_sampler":
+            want = [self.sampler_sizes[k] for k in SAMPLER_SIZE_NAMES]
+        else:
+            want = [self.sizes[k] for k in SIZE_NAMES]
         if size != ctypes.sizeof(self._params) or list(built_for) != want:
             raise RuntimeError(
                 f"{name} library was built for sizes {list(built_for)} "
@@ -418,14 +445,48 @@ class ControlStepPlan:
         return int(self._step_entry_points["control_step_smem_bytes"](self.threads_per_block))
 
     @functools.cached_property
-    def _sampler_entry_point(self):
-        fn = self._library("plane_sampler").plane_sampler_forward
+    def _sampler_entry_points(self) -> dict:
+        lib = self._library("plane_sampler")
+        fn = lib.plane_sampler_forward
         fn.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float] * 4
             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
-        return fn
+        smem = lib.plane_sampler_smem_bytes
+        smem.argtypes = [ctypes.c_int]
+        smem.restype = ctypes.c_longlong
+        return {"forward": fn, "smem_bytes": smem}
+
+    def sampler_shared_memory_bytes(self) -> int:
+        """Dynamic shared memory of one block of the plane sampler at this
+        plan's launch, from the library."""
+        return int(self._sampler_entry_points["smem_bytes"](self.sampler_threads))
+
+    def _sampler_launch(self, device: torch.device) -> tuple:
+        """The sampler's entry point and every argument of its launch that
+        does not change from call to call, built once per device: the table
+        and the struct, uploaded (padded with zeros to a multiple of 16
+        bytes, as the kernel copies it in 16-byte pieces) and kept alive
+        here, and the grid constants."""
+        launch = self._sampler_launches.get(device)
+        if launch is None:
+            grid = self.heightgrid
+            table = grid.table(device)
+            nx, ny = grid.shape
+            raw = bytes(self._params)
+            model = torch.frombuffer(bytearray(raw + bytes(-len(raw) % 16)),
+                                     dtype=torch.uint8).to(device)
+            launch = (
+                self._sampler_entry_points["forward"], (table, model),
+                ctypes.c_void_p(table.data_ptr()),
+                (ctypes.c_int(nx), ctypes.c_int(ny), ctypes.c_float(grid.x0),
+                 ctypes.c_float(grid.y0), ctypes.c_float(1.0 / grid.dx),
+                 ctypes.c_float(1.0 / grid.dy), ctypes.c_void_p(model.data_ptr()),
+                 ctypes.c_int(self.sampler_threads), ctypes.c_int(device.index)),
+            )
+            self._sampler_launches[device] = launch
+        return launch
 
     def _cuda_batch(self, qpos, B: int) -> torch.device:
         device = qpos.device
@@ -463,10 +524,11 @@ class ControlStepPlan:
 
     def sample_planes_cuda(self, qpos):
         """``[B, 3·n_geoms]`` tangent planes of the HeightGrid under the
-        ground geoms, by one launch of the plane-sampler kernel."""
+        ground geoms, by one launch of the plane-sampler kernel. ``qpos`` is
+        used in place when it is float32 and contiguous, else copied."""
         if self.heightgrid is None:
             raise ValueError("this plan has no HeightGrid terrain to sample")
-        model, grid = self.model, self.heightgrid
+        model = self.model
         if qpos.ndim != 2 or qpos.shape[1] != model.nq:
             raise ValueError(f"qpos must be [B, {model.nq}], got {tuple(qpos.shape)}")
         B = qpos.shape[0]
@@ -474,16 +536,11 @@ class ControlStepPlan:
         planes = torch.empty((B, 3 * len(model.geom_body)), dtype=torch.float32, device=device)
         if B == 0:
             return planes
-        qpos_in = qpos.detach().to(torch.float32).contiguous()
-        table = grid.table(device)
-        nx, ny = grid.shape
+        if qpos.dtype != torch.float32 or not qpos.is_contiguous():
+            qpos = qpos.to(torch.float32).contiguous()
+        forward, _, table, fixed = self._sampler_launch(device)
         stream = torch.cuda.current_stream(device)
-        err = self._sampler_entry_point(
-            qpos_in.data_ptr(), table.data_ptr(), planes.data_ptr(), B, nx, ny,
-            grid.x0, grid.y0, 1.0 / grid.dx, 1.0 / grid.dy,
-            ctypes.addressof(self._params), SAMPLER_THREADS_PER_BLOCK,
-            stream.device.index, stream.cuda_stream,
-        )
+        err = forward(qpos.data_ptr(), table, planes.data_ptr(), B, *fixed, stream.cuda_stream)
         if err != 0:
             raise RuntimeError(f"plane_sampler kernel launch failed: cudaError_t {err}")
         plane_sampler_cuda.launches += 1

@@ -6,7 +6,8 @@ at ``max_len``; truncation forces ``done`` (float32). Initial step
 counters are staggered, drawn in ``[0, max_len // 2)``, so episodes
 across the batch do not truncate in lockstep. ``step`` forwards the
 caller's generator to the wrapped env (envs that draw in ``step`` need
-it; the others ignore it).
+it; the others ignore it). Any other attribute comes from the wrapped
+env (``__getattr__``, as in the JAX wrapper).
 """
 
 from __future__ import annotations
@@ -58,3 +59,12 @@ class EpisodeWrapper:
     @property
     def action_size(self) -> int:
         return self.env.action_size
+
+    def __getattr__(self, name: str) -> Any:
+        # Anything else (render, the env's own settings, ...) comes from
+        # the wrapped env, so the wrapper stays transparent to its callers.
+        if name == "env":
+            # Reached only while 'env' is not yet in __dict__ (copy.deepcopy
+            # or unpickling of a bare instance): raise instead of recursing.
+            raise AttributeError(name)
+        return getattr(self.env, name)

@@ -9,6 +9,9 @@
 // `extern __shared__ T name[];` becomes a pointer to the block's shared
 // memory.
 //
+// It also defines CUDA_HOST_STUB, under which a kernel source leaves out
+// its inline-PTX helpers (cp.async) for the plain definitions here.
+//
 // A launch runs its blocks one after another; each block runs its threads
 // as std::threads over one shared-memory buffer, filled with NaN bytes so
 // that a read before any write shows in the results. __syncthreads() is a
@@ -39,8 +42,11 @@
 #define __noinline__
 #define __grid_constant__
 
+#define CUDA_HOST_STUB 1
+
 struct dim3 {
-  unsigned x = 1, y = 1, z = 1;
+  constexpr dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
+  unsigned x, y, z;
 };
 struct alignas(16) float4 {
   float x, y, z, w;
@@ -111,6 +117,15 @@ inline StubBlock stub_block;
 
 inline void* stub_shared_memory() { return stub_block.shared.data(); }
 
+// Rounded float32 arithmetic (the test compiles with -ffp-contract=off).
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+
+// cp.async and its wait: a plain copy, complete when it returns.
+inline void copy_async(void* smem, const void* gmem, int bytes) { std::memcpy(smem, gmem, bytes); }
+inline void copy_async_wait() {}
+
 inline void __syncthreads() { stub_block.block_barrier->wait(); }
 
 inline void __syncwarp(unsigned mask = 0xffffffffu) {
@@ -146,16 +161,17 @@ inline float __shfl_sync(unsigned mask, float value, int src, int width = 32) {
 }
 
 template <class Kernel, class... Args>
-void stub_launch(Kernel kernel, int blocks, int threads, size_t shared_bytes, cudaStream_t,
+void stub_launch(Kernel kernel, dim3 grid, int threads, size_t shared_bytes, cudaStream_t,
                  Args... args) {
-  if (blocks <= 0 || threads <= 0 || threads > 1024 ||
+  if (grid.x == 0 || grid.y == 0 || grid.z != 1 || threads <= 0 || threads > 1024 ||
       shared_bytes > static_cast<size_t>(kStubMaxSharedBytes)) {
     stub_last_error = cudaErrorInvalidValue;
     return;
   }
   blockDim.x = static_cast<unsigned>(threads);
-  gridDim.x = static_cast<unsigned>(blocks);
-  for (int b = 0; b < blocks; ++b) {
+  gridDim = grid;
+  for (unsigned by = 0; by < grid.y; ++by)
+  for (unsigned b = 0; b < grid.x; ++b) {
     stub_block.shared.assign(shared_bytes / sizeof(float4) + 1, float4{});
     std::memset(stub_block.shared.data(), 0xff, stub_block.shared.size() * sizeof(float4));
     stub_block.block_barrier = std::make_unique<StubBarrier>(threads);
@@ -165,12 +181,22 @@ void stub_launch(Kernel kernel, int blocks, int threads, size_t shared_bytes, cu
     pool.reserve(threads);
     for (int t = 0; t < threads; ++t)
       pool.emplace_back([=] {
-        blockIdx.x = static_cast<unsigned>(b);
+        blockIdx.x = b;
+        blockIdx.y = by;
         threadIdx.x = static_cast<unsigned>(t);
         kernel(args...);
       });
     for (auto& thread : pool) thread.join();
   }
+}
+template <class Kernel, class... Args>
+void stub_launch(Kernel kernel, int blocks, int threads, size_t shared_bytes, cudaStream_t stream,
+                 Args... args) {
+  if (blocks <= 0) {
+    stub_last_error = cudaErrorInvalidValue;
+    return;
+  }
+  stub_launch(kernel, dim3(static_cast<unsigned>(blocks)), threads, shared_bytes, stream, args...);
 }
 
 // File helpers of the test's host program.

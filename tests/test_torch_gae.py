@@ -129,3 +129,115 @@ def test_gae_cuda_rejects_cpu_tensors():
 def test_kernel_source_exists_and_builds_nothing_at_import():
     assert (gae_mod.cuda_build.CSRC_DIR / "gae.cu").is_file()
     assert gae_mod._gae_forward.cache_info().currsize == 0
+
+
+# -- every reward key at once: gae_per_key --------------------------------------
+
+KEY_NAMES = ("tracking", "penalty", "energy")
+# gae_per_key against JAX's gae_scan per key: both run the same float32
+# operations in the same order over T = 13 steps, but XLA on the CPU may
+# contract a product and a sum into one fused multiply-add, which moves
+# the last bit of a step; 1e-6 (relative and absolute, on advantages of
+# order 1-10) covers that over the recurrence and nothing more.
+PER_KEY_TOL = dict(rtol=1e-6, atol=1e-6)
+
+
+def per_key_case(n_keys, seed, T=13, B=7):
+    """numpy inputs of ``n_keys`` reward keys: dicts of rewards, values
+    and last values, and per-key flags (``done`` differs per key)."""
+    rng = np.random.RandomState(seed)
+    keys = KEY_NAMES[:n_keys]
+    rewards = {k: rng.randn(T, B).astype(np.float32) for k in keys}
+    values = {k: rng.randn(T, B).astype(np.float32) for k in keys}
+    last = {k: rng.randn(B).astype(np.float32) for k in keys}
+    done = {k: rng.rand(T, B) < 0.15 for k in keys}
+    truncated = {k: done[k] & (rng.rand(T, B) < 0.5) for k in keys}
+    return rewards, values, last, done, truncated
+
+
+def to_torch(tree, dtype=None):
+    out = {k: torch.from_numpy(v) for k, v in tree.items()}
+    return out if dtype is None else {k: v.to(dtype) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("flag_dtype", [torch.bool, torch.float32], ids=["bool", "float"])
+@pytest.mark.parametrize("flags", ["shared", "per_key"])
+@pytest.mark.parametrize("n_keys", [1, 2, 3])
+def test_gae_per_key_matches_jax_scan_per_key(n_keys, flags, flag_dtype):
+    rewards, values, last, done, truncated = per_key_case(n_keys, seed=n_keys)
+    if flags == "shared":
+        first = KEY_NAMES[0]
+        done = {k: done[first] for k in done}
+        truncated = {k: truncated[first] for k in truncated}
+        done_in, trunc_in = (torch.from_numpy(x[first]).to(flag_dtype) for x in (done, truncated))
+    else:
+        done_in, trunc_in = to_torch(done, flag_dtype), to_torch(truncated, flag_dtype)
+    lam, gamma = 0.95, 0.99
+    before = gae_cuda.launches
+    got = gae_mod.gae_per_key(to_torch(rewards), to_torch(values), to_torch(last), done_in,
+                              trunc_in, lam, gamma)
+    assert gae_cuda.launches == before  # the plain version for CPU tensors
+    assert set(got) == set(rewards)
+    for k in rewards:
+        want = np.asarray(jax_gae_scan(*(jnp.asarray(x[k]) for x in
+                                         (rewards, values, last, done, truncated)), lam, gamma))
+        np.testing.assert_allclose(got[k].numpy(), want, **PER_KEY_TOL)
+
+
+def test_gae_per_key_on_the_cpu_is_gae_scan_per_key_to_the_bit():
+    """Keys are matched by name (a flag dict in another key order), a
+    single tensor is one key, and the result carries no gradient."""
+    rewards, values, last, done, truncated = (to_torch(x) for x in per_key_case(2, seed=4))
+    values = {k: v.requires_grad_(True) for k, v in values.items()}
+    done_reordered = {k: done[k] for k in reversed(list(done))}
+    got = gae_mod.gae_per_key(rewards, values, last, done_reordered, truncated, 0.9, 0.97)
+    for k in rewards:
+        want = gae_scan(rewards[k], values[k], last[k], done[k], truncated[k], 0.9, 0.97)
+        assert torch.equal(got[k], want) and not got[k].requires_grad
+    single = gae_mod.gae_per_key(rewards["tracking"], values["tracking"], last["tracking"],
+                                 done["tracking"], truncated["tracking"], 0.9, 0.97)
+    assert torch.equal(single, got["tracking"])
+    with pytest.raises(KeyError):
+        gae_mod.gae_per_key(rewards, values, {"tracking": last["tracking"]}, done, truncated,
+                            0.9, 0.97)
+
+
+def test_ppo_loss_bits_unchanged_by_the_switch_to_gae_per_key(monkeypatch):
+    """ppo_loss on the CPU on a two-key rollout (the physics network, dict
+    rewards, combined advantages): loss, metrics and gradients through
+    gae_per_key are the bits of the per-key calls it replaced."""
+    from nnx_ppo_tpu_torch.algorithms import ppo as ppo_module
+    from nnx_ppo_tpu_torch.algorithms import LoggingLevel
+    from nnx_ppo_tpu_torch.core.struct import tree_map
+    from test_torch_networks import jax_physics_net, port_physics_net
+    from test_torch_ppo import LOSS_KW, _physics_rollout, port_transition
+
+    jax_net = jax_physics_net(seed=1)
+    rollout = port_transition(_physics_rollout(jax_net, 6, 10, seed=5))
+    assert set(rollout.rewards) == {"tracking", "penalty"}
+    assert rollout.done.dtype == torch.bool and rollout.done.any()
+    kw = dict(LOSS_KW, combine_advantages=True, logging_level=LoggingLevel.LOSSES)
+
+    def loss_and_grads():
+        net = port_physics_net(jax_net)
+        loss, metrics = ppo_module.ppo_loss(net, net.initialize_state(10), rollout, **kw)
+        loss.backward()
+        return loss, metrics, [p.grad for p in net.parameters()]
+
+    after = loss_and_grads()
+
+    def per_key_calls(rewards, values, last_values, done, truncated, lambda_, gamma):
+        # The code before the switch: the shared flags broadcast to every
+        # key, then one gae call per key.
+        done = tree_map(lambda _: done, rewards)
+        truncated = tree_map(lambda _: truncated, rewards)
+        return tree_map(lambda r, v, v_last, d, tr: gae(r, v.detach(), v_last, d, tr,
+                                                        lambda_=lambda_, gamma=gamma),
+                        rewards, values, last_values, done, truncated)
+
+    monkeypatch.setattr(ppo_module, "gae_per_key", per_key_calls)
+    before = loss_and_grads()
+    assert torch.equal(after[0], before[0])
+    for key in ("tracking", "penalty"):
+        assert torch.equal(after[1]["losses/critic"][key], before[1]["losses/critic"][key])
+    assert all(torch.equal(a, b) for a, b in zip(after[2], before[2]))

@@ -12,7 +12,9 @@ import torch
 from nnx_ppo_tpu_torch.algorithms import PPOConfig, make_optimizer, new_training_state, ppo_step
 from nnx_ppo_tpu_torch.envs import CartpoleBalance
 from nnx_ppo_tpu_torch.networks import make_mlp_actor_critic
-from nnx_ppo_tpu_torch.ops.gae import gae, gae_cuda, gae_scan
+from nnx_ppo_tpu_torch.ops import cuda_build
+from nnx_ppo_tpu_torch.ops import gae as gae_module
+from nnx_ppo_tpu_torch.ops.gae import gae, gae_cuda, gae_per_key, gae_scan
 from nnx_ppo_tpu_torch.envs import ArmPush, ArmReacher, QuadrupedJoystick
 from nnx_ppo_tpu_torch.envs.pusher import SHOULDER_HEIGHT as PUSHER_SHOULDER_HEIGHT
 from nnx_ppo_tpu_torch.physics.cuda_scene_step import (
@@ -70,12 +72,91 @@ def _inputs(T, B, seed, device):
 @pytest.mark.parametrize("shape", [(30, 256), (30, 1024), (7, 1000), (1, 1)])
 def test_gae_kernel_matches_plain_version(cuda, shape):
     """Both round every product and sum separately in the same order:
-    float32, rtol = atol = 1e-6."""
+    float32, equal to the bit."""
     args = _inputs(*shape, seed=11, device=cuda)
     before = gae_cuda.launches
     got = gae(*args, 0.95, 0.99)
     assert gae_cuda.launches == before + 1
-    torch.testing.assert_close(got, gae_scan(*args, 0.95, 0.99), rtol=1e-6, atol=1e-6)
+    assert torch.equal(got, gae_scan(*args, 0.95, 0.99))
+
+
+# (T, B, keys, per-key done, flag dtype, tile rows): the paths' minibatch
+# shapes, a batch that ends inside a block with three keys, float flags,
+# and rows staged in tiles.
+GAE_PER_KEY_CASES = {
+    "flagship_30x256": (30, 256, 1, False, torch.bool, 0),
+    "quadruped_20x512_two_keys": (20, 512, 2, False, torch.bool, 0),
+    "ragged_7x33_three_keys_per_key_done": (7, 33, 3, True, torch.bool, 0),
+    "ragged_20x1000_two_keys_float_flags": (20, 1000, 2, True, torch.float32, 0),
+    "30x256_rows_in_tiles_of_7": (30, 256, 2, True, torch.bool, 7),
+}
+
+
+def _per_key_inputs(T, B, n_keys, per_key_done, flag_dtype, device):
+    keys = [f"k{i}" for i in range(n_keys)]
+    inputs = {k: _inputs(T, B, seed=i, device=device) for i, k in enumerate(keys)}
+    rewards, values, last = ({k: inputs[k][j] for k in keys} for j in range(3))
+    done = {k: inputs[k][3].to(flag_dtype) for k in keys}
+    truncated = {k: inputs[k][4].to(flag_dtype) for k in keys}
+    if not per_key_done:
+        done, truncated = done[keys[0]], truncated[keys[0]]
+    return rewards, values, last, done, truncated
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(GAE_PER_KEY_CASES))
+def test_gae_per_key_is_one_launch_equal_to_gae_scan_per_key(cuda, case):
+    T, B, n_keys, per_key_done, flag_dtype, tile_rows = GAE_PER_KEY_CASES[case]
+    rewards, values, last, done, truncated = _per_key_inputs(
+        T, B, n_keys, per_key_done, flag_dtype, cuda)
+    before = gae_cuda.launches
+    if tile_rows:
+        keys = list(rewards)
+        flags = [done if torch.is_tensor(done) else done[k] for k in keys]
+        truncs = [truncated if torch.is_tensor(truncated) else truncated[k] for k in keys]
+        outs = gae_module._launch(
+            [(rewards[k], values[k], last[k], d, tr) for k, d, tr in zip(keys, flags, truncs)],
+            0.95, 0.99, tile_rows=tile_rows)
+        got = dict(zip(keys, outs))
+    else:
+        got = gae_per_key(rewards, values, last, done, truncated, 0.95, 0.99)
+    assert gae_cuda.launches == before + 1
+    for k in rewards:
+        d = done if torch.is_tensor(done) else done[k]
+        tr = truncated if torch.is_tensor(truncated) else truncated[k]
+        want = gae_scan(rewards[k], values[k], last[k], d, tr, 0.95, 0.99)
+        assert torch.equal(got[k], want), f"{k}: max abs error {(got[k] - want).abs().max().item():.3g}"
+
+
+@pytest.mark.gpu
+def test_gae_per_key_reads_column_slices_in_place(cuda):
+    """A column slice of wider [T, B] tensors (the contiguous minibatches)
+    goes to the kernel at its row stride, with no copy, and gives the bits
+    of the contiguous copy."""
+    wide = _inputs(20, 2048, seed=3, device=cuda)
+    cols = slice(512, 1024)
+    sliced = [wide[0][:, cols], wide[1][:, cols], wide[2][cols], wide[3][:, cols], wide[4][:, cols]]
+    assert not sliced[0].is_contiguous()
+    got = gae_per_key({"a": sliced[0]}, {"a": sliced[1]}, {"a": sliced[2]}, sliced[3], sliced[4],
+                      0.95, 0.99)["a"]
+    assert torch.equal(got, gae_scan(*(x.contiguous() for x in sliced), 0.95, 0.99))
+
+
+@pytest.mark.gpu
+def test_gae_per_key_refuses_more_than_eight_keys_and_mixed_flag_dtypes(cuda):
+    rewards, values, last, done, truncated = _per_key_inputs(5, 64, 9, True, torch.bool, cuda)
+    with pytest.raises(ValueError, match="1 to 8 reward keys"):
+        gae_per_key(rewards, values, last, done, truncated, 0.95, 0.99)
+    eight = [k for k in list(rewards)[:8]]
+    sub = [{k: x[k] for k in eight} for x in (rewards, values, last, done, truncated)]
+    got = gae_per_key(*sub, 0.95, 0.99)
+    assert set(got) == set(eight)
+    sub[3]["k1"] = sub[3]["k1"].to(torch.float32)
+    with pytest.raises(TypeError):
+        gae_per_key(*sub, 0.95, 0.99)
+    sub[3]["k1"] = sub[3]["k1"].to(torch.int32)
+    with pytest.raises(TypeError):
+        gae_per_key(*sub, 0.95, 0.99)
 
 
 @pytest.mark.gpu
@@ -87,19 +168,45 @@ def test_gae_kernel_rejects_wrong_dtype_and_shape(cuda):
         gae_cuda(args[0], args[1][:4], *args[2:], 0.95, 0.99)
 
 
-@pytest.mark.gpu
-def test_ppo_step_launches_the_gae_kernel_once_per_minibatch(cuda):
-    env = EpisodeWrapper(CartpoleBalance(), max_len=12)
-    config = PPOConfig(n_envs=256, rollout_length=8)
-    optimizer = make_optimizer(config.learning_rate)
-    ts = new_training_state(
-        env, make_mlp_actor_critic(5, 1, [16, 16], [32], 0), 256, seed=0,
-        optimizer=optimizer, device=cuda,
+def _two_key_quadruped_leg():
+    """A quadruped leg with two reward keys ('tracking', 'penalty') and a
+    two-headed critic, at a small width."""
+    from nnx_ppo_tpu_torch.networks import (
+        Concat, Dense, NormalTanhSampler, Parallel, PPOAdapter, Sequential, make_mlp,
     )
+
+    env = EpisodeWrapper(QuadrupedJoystick(reuse_mass_matrix=True, n_substeps=2), max_len=50)
+    g = torch.Generator().manual_seed(0)
+    enc = Concat.create(proprio=Dense.create(env.observation_size["proprio"], 32, g, torch.relu),
+                        command=Dense.create(3, 8, g, torch.relu))
+    actor = Sequential.create([Dense.create(40, 2 * env.action_size, g),
+                               NormalTanhSampler.create(entropy_weight=1e-3)])
+    critic = Parallel.create(tracking=make_mlp([40, 16, 1], g, activation_last_layer=False),
+                             penalty=make_mlp([40, 16, 1], g, activation_last_layer=False))
+    return env, Sequential.create([enc, PPOAdapter.create(action=actor, value=critic)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("env_kind", ["cartpole", "quadruped_two_reward_keys"])
+def test_ppo_step_launches_the_gae_kernel_once_per_minibatch(cuda, env_kind):
+    """One launch per minibatch update for ALL reward keys."""
+    if env_kind == "cartpole":
+        env = EpisodeWrapper(CartpoleBalance(), max_len=12)
+        networks = make_mlp_actor_critic(5, 1, [16, 16], [32], 0)
+        config = PPOConfig(n_envs=256, rollout_length=8)
+    else:
+        env, networks = _two_key_quadruped_leg()
+        config = PPOConfig(n_envs=256, rollout_length=8, combine_advantages=True)
+    optimizer = make_optimizer(config.learning_rate)
+    ts = new_training_state(env, networks, 256, seed=0, optimizer=optimizer, device=cuda)
     before = gae_cuda.launches
     ts, metrics = ppo_step(env, ts, config, optimizer)
     assert gae_cuda.launches - before == config.n_epochs * config.n_minibatches
     assert torch.isfinite(metrics["losses/actor/mean"])
+    if env_kind != "cartpole":
+        assert set(ts.env_states.reward) == {"tracking", "penalty"}
+        for key in ("tracking", "penalty"):
+            assert torch.isfinite(metrics[f"losses/critic/{key}/mean"])
 
 
 # The three control-step configurations that chip_smoke.py checks, and
@@ -202,25 +309,49 @@ ROUGH = dict(seed=2, amplitude=0.03, wavelength=1.5)
 SAMPLER_CASES = {"2048_on_256": (2048, 256, 12.0), "ragged_1000_partly_outside_32": (1000, 32, 3.0)}
 
 
+SAMPLER_CASES["ragged_33_on_256"] = (33, 256, 12.0)
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("group", [4, 8, 16])
 @pytest.mark.parametrize("case", list(SAMPLER_CASES))
-def test_plane_sampler_kernel_matches_plain_version(cuda, case):
+def test_plane_sampler_kernel_matches_plain_version(cuda, case, group):
     """The kernel repeats the plain version's float32 operations in its
-    order (reciprocal spacings, x then y, no fused multiply-adds): equal
-    to the bit."""
+    order (the kinematics level by level, each body on one lane;
+    reciprocal spacings, x then y, no fused multiply-adds): equal to the
+    bit at every number of lanes per env."""
     B, n, extent = SAMPLER_CASES[case]
     model = make_quadruped()
     grid = HeightGrid.sample(rough_terrain(**ROUGH), extent=extent, n=n)
     qpos = torch.tensor(standing_states(model, default_qpos(model), B, seed=5)["qpos"], device=cuda)
+    plan = ControlStepPlan(model, 60.0, 0.002, 10, terrain=grid)
+    plan.sampler_group = group
+    assert plan.sampler_sizes["PS_G"] == group and "CS_G" not in plan.sampler_sizes
     before = plane_sampler_cuda.launches
-    got = plane_sampler_cuda(model, grid, qpos)
+    got = plan.sample_planes_cuda(qpos)
     assert plane_sampler_cuda.launches == before + 1
     want = plane_sampler_plain(model, grid, qpos)
     assert got.shape == (B, 24) and torch.isfinite(got).all()
     outside = (qpos[:, 0].abs() > extent) | (qpos[:, 1].abs() > extent)
-    assert bool(outside.any()) == (extent < 5.0)
+    assert bool(outside.any()) == (extent < 5.0 and B > 100)
     assert (want[:, 1::3].abs() > 1e-3).any()  # real slopes under the feet
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert torch.equal(got, want)
+    if group == 8 and B == 2048:
+        # The functional form takes the shipped launch.
+        assert torch.equal(plane_sampler_cuda(model, grid, qpos), want)
+
+
+@pytest.mark.gpu
+def test_plane_sampler_and_gae_kernels_keep_no_stack_and_no_spills(cuda):
+    model = make_quadruped()
+    plan = ControlStepPlan(model, 60.0, 0.002, 10,
+                           terrain=HeightGrid.sample(rough_terrain(**ROUGH), extent=12.0, n=256))
+    plan.sample_planes_cuda(torch.zeros(1, model.nq, device=cuda))
+    gae_per_key(*_per_key_inputs(3, 16, 1, False, torch.bool, cuda), 0.95, 0.99)
+    for spec, kernel in ((plan.sampler_spec, "plane_sampler_kernel"), (("gae", ()), "gae_kernel")):
+        info = cuda_build.ptxas_info(spec[0], spec[1], kernel)
+        assert info["stack_bytes"] <= 64 and info["spill_store_bytes"] == 0, (kernel, info)
+        assert info["spill_load_bytes"] == 0, (kernel, info)
 
 
 @pytest.mark.gpu
@@ -234,6 +365,12 @@ def test_heightgrid_runner_launches_sampler_then_control_step(cuda):
     before = (plane_sampler_cuda.launches, control_step_cuda.launches)
     got = run(*args)
     assert (plane_sampler_cuda.launches, control_step_cuda.launches) == (before[0] + 1, before[1] + 1)
+    # One sampler launch per control step, each on the step's own qpos.
+    state = got
+    for n in range(2, 4):
+        state = run(state[0], state[1], args[2])
+        assert (plane_sampler_cuda.launches - before[0], control_step_cuda.launches - before[1]) == (n, n)
+    assert torch.isfinite(state[0]).all()
     want = run.plain(*args)
     assert (want[2] > 0).any() and (want[2] == 0).any()
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=2e-4)

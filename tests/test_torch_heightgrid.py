@@ -295,7 +295,14 @@ def test_heightgrid_plan_packs_plane_lanes_and_names_both_libraries():
     assert ctypes.sizeof(p) <= 4096
     names = [name for name, _ in plan.kernel_specs]
     assert names == ["control_step", "plane_sampler"]
-    assert all(flags == plan.kernel_spec[1] for _, flags in plan.kernel_specs)
+    control, sampler = (flags for _, flags in plan.kernel_specs)
+    assert control == plan.kernel_spec[1] and sampler == plan.sampler_spec[1]
+    # The same model sizes and build flags; each library its own lanes per
+    # env, so building the sampler leaves the control step's library as it is.
+    assert ([f for f in control if not f.startswith("-DCS_G=")]
+            == [f for f in sampler if not f.startswith("-DPS_G=")])
+    assert f"-DCS_G={plan.group_size}" in control and f"-DPS_G={plan.sampler_group}" in sampler
+    assert not any(f.startswith("-DCS_G=") for f in sampler)
     assert plan.sizes["CS_NW"] == 0 and "-fmad=false" in plan.kernel_spec[1]
     flat = ControlStepPlan(make_quadruped(), KP, DT, 10)
     assert [name for name, _ in flat.kernel_specs] == ["control_step"]

@@ -8,16 +8,22 @@ wrenches in the plain versions' order, and the trees' dof ranges. The first
 tests check that these cover every body, geom, pair and dof once, in an
 order that keeps every sum of the plain versions in its order.
 
-The host rehearsal compiles ``csrc/control_step.cu`` and
-``csrc/scene_step.cu`` with g++ against ``tests/cuda_host_stub.h``, a stub
-of the CUDA runtime that runs each block's threads as ``std::thread``s with
-barriers for ``__syncwarp`` and ``__syncthreads`` and one shared-memory
-buffer per block, and holds the kernels at 4 lanes per env, with an env
-group past the batch, to their plain versions at the tolerances of
-``tests/test_torch_gpu.py`` (glibc's ``sinf``, ``cosf`` and ``sqrtf`` differ
-from PyTorch's CPU kernels in the last bit). Every compile and run has a
-time limit, so that a lane that misses a barrier fails the test instead of
-hanging it. It skips without g++.
+The host rehearsal compiles ``csrc/control_step.cu``,
+``csrc/scene_step.cu``, ``csrc/gae.cu`` and ``csrc/plane_sampler.cu`` with
+g++ against ``tests/cuda_host_stub.h``, a stub of the CUDA runtime that
+runs each block's threads as ``std::thread``s with barriers for
+``__syncwarp`` and ``__syncthreads``, one shared-memory buffer per block
+and a plain copy for ``cp.async``, and holds the kernels to their plain
+versions: the physics kernels at 4 lanes per env, with an env group past
+the batch, at the tolerances of ``tests/test_torch_gpu.py`` (glibc's
+``sinf``, ``cosf`` and ``sqrtf`` differ from PyTorch's CPU kernels in the
+last bit); the plane sampler at 4 and 8 lanes per env with a ragged last
+block, on the data-terrain table and on a small one that some envs stand
+outside of; GAE at ``[7, 33]`` and ``[7, 64]`` with up to three keys in one
+launch, bool and float flags, a column slice of a wider tensor and rows
+staged in tiles, to the bit. Every compile and run has a time limit, so
+that a lane that misses a barrier fails the test instead of hanging it.
+It skips without g++.
 
     python -m pytest tests/test_torch_kernel_schedule.py -q
 """
@@ -39,7 +45,9 @@ from nnx_ppo_tpu_torch.physics.cuda_scene_step import SceneStepPlan, pack_scene_
 from nnx_ppo_tpu_torch.physics.cuda_step import ControlStepPlan, pack_factor, pack_params
 from nnx_ppo_tpu_torch.physics.engine import mass_matrix_factor
 from nnx_ppo_tpu_torch.physics.models.arm import make_arm
+from nnx_ppo_tpu_torch.ops.gae import gae_scan
 from nnx_ppo_tpu_torch.physics.models.quadruped import default_qpos, make_quadruped
+from nnx_ppo_tpu_torch.physics.terrain import HeightGrid, rough_terrain
 from nnx_ppo_tpu_torch.physics.testing import (
     general_tree,
     general_tree_states,
@@ -215,6 +223,81 @@ def scene_plan() -> SceneStepPlan:
     return plan
 
 
+GAE_MAIN = r"""
+#include "cuda_runtime.h"
+#include "kernel.cu"
+
+#include <string>
+
+// dir n_keys T B ld done_is_bool truncation_is_bool columns tile_rows gamma
+// lambda: reads {rewards,values,last,done,truncation}<k>.bin (the [T, B]
+// inputs at row stride ld), writes out<k>.bin.
+int main(int argc, char** argv) {
+  if (argc != 12) return 2;
+  const std::string dir = argv[1];
+  const int n = std::atoi(argv[2]), T = std::atoi(argv[3]), B = std::atoi(argv[4]);
+  const long long ld = std::atoll(argv[5]);
+  const float gamma = static_cast<float>(std::strtod(argv[10], nullptr));
+  const float lambda = static_cast<float>(std::strtod(argv[11], nullptr));
+  const char* names[] = {"rewards", "values", "last", "done", "truncation"};
+  std::vector<std::vector<char>> in;
+  for (int k = 0; k < n; ++k)
+    for (const char* name : names)
+      in.push_back(stub_read((dir + "/" + name + std::to_string(k) + ".bin").c_str()));
+  std::vector<std::vector<float>> out(n, std::vector<float>(static_cast<size_t>(T) * B));
+  std::vector<long long> words;
+  for (int k = 0; k < n; ++k) {
+    for (int j = 0; j < 5; ++j) words.push_back(reinterpret_cast<long long>(in[5 * k + j].data()));
+    words.push_back(reinterpret_cast<long long>(out[k].data()));
+    for (int j = 0; j < 4; ++j) words.push_back(ld);
+  }
+  const int err = gae_forward(words.data(), n, T, B, gamma, lambda, std::atoi(argv[6]),
+                              std::atoi(argv[7]), std::atoi(argv[8]), std::atoi(argv[9]), 0, nullptr);
+  for (int k = 0; k < n; ++k)
+    stub_write((dir + "/out" + std::to_string(k) + ".bin").c_str(), out[k].data(), out[k].size() * 4);
+  return err;
+}
+"""
+SAMPLER_MAIN = r"""
+#include "cuda_runtime.h"
+#include "kernel.cu"
+
+#include <string>
+
+// dir B threads nx ny x0 y0 inv_dx inv_dy: reads params.bin, qpos.bin and
+// table.bin, writes planes.bin.
+int main(int argc, char** argv) {
+  if (argc != 10) return 2;
+  const std::string dir = argv[1];
+  const int B = std::atoi(argv[2]), threads = std::atoi(argv[3]);
+  float consts[4];
+  for (int k = 0; k < 4; ++k) consts[k] = static_cast<float>(std::strtod(argv[6 + k], nullptr));
+  const std::vector<char> params = stub_read((dir + "/params.bin").c_str());
+  const std::vector<char> qpos = stub_read((dir + "/qpos.bin").c_str());
+  const std::vector<char> table = stub_read((dir + "/table.bin").c_str());
+  std::vector<float> planes(static_cast<size_t>(B) * 3 * CS_NG);
+  const int err = plane_sampler_forward(
+      reinterpret_cast<const float*>(qpos.data()), reinterpret_cast<const float*>(table.data()),
+      planes.data(), B, std::atoi(argv[4]), std::atoi(argv[5]), consts[0], consts[1], consts[2],
+      consts[3], reinterpret_cast<const Params*>(params.data()), threads, 0, nullptr);
+  stub_write((dir + "/planes.bin").c_str(), planes.data(), planes.size() * 4);
+  return err;
+}
+"""
+# (lanes per env, threads per block) of the sampler's rehearsal: 16 envs a
+# block, so that 33 envs end one env into the third block.
+SAMPLER_LAUNCHES = {4: 64, 8: 128}
+SAMPLER_B = 33
+
+
+def sampler_plan(group: int, n: int, extent: float) -> ControlStepPlan:
+    grid = HeightGrid.sample(rough_terrain(seed=2, amplitude=0.03, wavelength=1.5),
+                             extent=extent, n=n)
+    plan = ControlStepPlan(make_quadruped(), 60.0, 0.002, 10, terrain=grid)
+    plan.sampler_group, plan.sampler_threads = group, SAMPLER_LAUNCHES[group]
+    return plan
+
+
 @pytest.fixture(scope="module")
 def host_kernels(tmp_path_factory):
     """Both kernels compiled for the host, in parallel: name -> (binary,
@@ -222,17 +305,25 @@ def host_kernels(tmp_path_factory):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not installed: no host rehearsal of the CUDA kernels")
+    # name -> (source, flags, host program).
     specs = {
-        "control_step": control_plans()["held"].kernel_spec[1],
-        "scene_step": scene_plan().kernel_spec[1],
+        "control_step": ("control_step", control_plans()["held"].kernel_spec[1],
+                         HOST_MAIN % {"call": CALLS["control_step"]}),
+        "scene_step": ("scene_step", scene_plan().kernel_spec[1],
+                       HOST_MAIN % {"call": CALLS["scene_step"]}),
+        "gae": ("gae", (), GAE_MAIN),
     }
+    for group in SAMPLER_LAUNCHES:
+        specs[f"plane_sampler_G{group}"] = ("plane_sampler",
+                                            sampler_plan(group, 32, 3.0).sampler_spec[1],
+                                            SAMPLER_MAIN)
     assert control_plans()["substeps"].kernel_spec == control_plans()["held"].kernel_spec
     procs = {}
-    for name, flags in specs.items():
+    for name, (source, flags, main) in specs.items():
         build = tmp_path_factory.mktemp(name)
         shutil.copy(STUB, build / "cuda_runtime.h")
-        (build / "kernel.cu").write_text(host_source(name))
-        (build / "main.cpp").write_text(HOST_MAIN % {"call": CALLS[name]})
+        (build / "kernel.cu").write_text(host_source(source))
+        (build / "main.cpp").write_text(main)
         defines = [f for f in flags if f.startswith("-D")]
         cmd = [gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-pthread", "-w",
                f"-I{build}", f"-I{CSRC_DIR}", *defines, "-o", str(build / "kernel"),
@@ -337,3 +428,107 @@ def test_scene_step_kernel_on_the_host_matches_plain_version(host_kernels):
     torch.testing.assert_close(got[0], want[0], rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(got[1], want[1], rtol=5e-4, atol=5e-4)
     torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=1e-4)
+
+
+# -- GAE and the plane sampler on the host ----------------------------------------
+
+
+def run_gae_host(host_kernels, label, keys, T, B, ld, flag_dtypes, tile_rows, lam, gamma):
+    """The host-built GAE kernel on ``keys`` (per key: rewards, values,
+    last value, done, truncation as numpy, the [T, B] ones at row stride
+    ``ld``) in one launch; returns the advantages per key."""
+    binary, build = host_kernels["gae"]
+    run_dir = build / label
+    run_dir.mkdir(exist_ok=True)
+    names = ("rewards", "values", "last", "done", "truncation")
+    for k, key in enumerate(keys):
+        for name, x in zip(names, key):
+            dtype = np.float32 if name not in ("done", "truncation") else (
+                np.bool_ if flag_dtypes[names.index(name) - 3] == torch.bool else np.float32)
+            np.ascontiguousarray(x, dtype).tofile(run_dir / f"{name}{k}.bin")
+    bools = [int(d == torch.bool) for d in flag_dtypes]
+    done = subprocess.run(
+        [str(binary), str(run_dir), str(len(keys)), str(T), str(B), str(ld), *map(str, bools),
+         "32", str(tile_rows), float(gamma).hex(), float(lam).hex()],
+        capture_output=True, text=True, timeout=RUN_SECONDS,
+    )
+    assert done.returncode == 0, f"gae {label}: exit {done.returncode}\n{done.stderr}"
+    return [torch.from_numpy(np.fromfile(run_dir / f"out{k}.bin", np.float32).reshape(T, B))
+            for k in range(len(keys))]
+
+
+# name -> (T, B, row stride, keys, shared done, (done dtype, truncation dtype), tile rows).
+# [7, 33] ends one column into its second block (4- and 1-byte copies); [7,
+# 64] stages 16-byte copies; the slice reads 40 columns of rows 48 wide;
+# tile_rows 3 stages the 7 rows as 3 + 3 + 1.
+GAE_HOST_CASES = {
+    "7x33_three_keys_bool": (7, 33, 33, 3, False, (torch.bool, torch.bool), 0),
+    "7x33_three_keys_float_done_bool_trunc": (7, 33, 33, 3, False, (torch.float32, torch.bool), 0),
+    "7x64_two_keys_shared_done": (7, 64, 64, 2, True, (torch.bool, torch.bool), 0),
+    "7x40_column_slice_of_48": (7, 40, 48, 1, False, (torch.float32, torch.float32), 0),
+    "7x33_rows_in_tiles_of_3": (7, 33, 33, 2, False, (torch.bool, torch.float32), 3),
+}
+
+
+@pytest.mark.parametrize("case", list(GAE_HOST_CASES))
+def test_gae_kernel_on_the_host_matches_plain_version_to_the_bit(host_kernels, case):
+    """Every key's output equals gae_scan's bits: the kernel runs the plain
+    version's float32 operations, each rounded on its own, in its order."""
+    T, B, ld, n_keys, shared, flag_dtypes, tile_rows = GAE_HOST_CASES[case]
+    rng = np.random.RandomState(len(case))
+    lam, gamma = 0.95, 0.99
+    keys, wants = [], []
+    shared_flags = None
+    for _ in range(n_keys):
+        done = rng.rand(T, ld) < 0.15
+        truncated = done & (rng.rand(T, ld) < 0.5)
+        if shared:
+            shared_flags = shared_flags or (done, truncated)
+            done, truncated = shared_flags
+        wide = [rng.randn(T, ld).astype(np.float32), rng.randn(T, ld).astype(np.float32)]
+        last = rng.randn(B).astype(np.float32)
+        keys.append((wide[0], wide[1], last, done, truncated))
+        cols = [torch.from_numpy(np.ascontiguousarray(x[:, :B])) for x in (*wide, done, truncated)]
+        wants.append(gae_scan(cols[0], cols[1], torch.from_numpy(last),
+                              cols[2].to(flag_dtypes[0]), cols[3].to(flag_dtypes[1]), lam, gamma))
+    assert any(bool(k[4][:, :B].any()) for k in keys)  # some truncations
+    got = run_gae_host(host_kernels, case, keys, T, B, ld, flag_dtypes, tile_rows, lam, gamma)
+    for g, w in zip(got, wants):
+        assert torch.equal(g, w), f"max abs error {(g - w).abs().max().item():.3g}"
+
+
+@pytest.mark.parametrize("table", ["256x256", "32x32_some_outside"])
+@pytest.mark.parametrize("group", list(SAMPLER_LAUNCHES))
+def test_plane_sampler_kernel_on_the_host_matches_plain_version(host_kernels, group, table):
+    """33 envs, 16 a block (a ragged last block): every plane within 1e-5
+    of the plain version (glibc's sinf and cosf in the kinematics against
+    PyTorch's, last bits; heights and slopes are below 1)."""
+    torch.set_num_threads(1)
+    n, extent = (256, 12.0) if table == "256x256" else (32, 3.0)
+    plan = sampler_plan(group, n, extent)
+    model, grid = plan.model, plan.heightgrid
+    qpos = standing_states(model, default_qpos(model), SAMPLER_B, seed=5,
+                           terrain=rough_terrain(seed=2, amplitude=0.03, wavelength=1.5))["qpos"]
+    qpos = qpos.astype(np.float32)
+    want = plan.sample_planes_plain(torch.from_numpy(qpos))
+    assert (want[:, 1::3].abs() > 1e-3).any()
+    outside = (np.abs(qpos[:, :2]) > extent).any(axis=1)
+    assert outside.any() == (extent < 5.0)
+    binary, build = host_kernels[f"plane_sampler_G{group}"]
+    run_dir = build / table
+    run_dir.mkdir(exist_ok=True)
+    params = bytes(pack_params(plan))  # padded to 16 bytes, as the wrapper uploads it
+    (run_dir / "params.bin").write_bytes(params + bytes(-len(params) % 16))
+    qpos.tofile(run_dir / "qpos.bin")
+    np.asarray(grid.data, np.float32).tofile(run_dir / "table.bin")
+    nx, ny = grid.shape
+    consts = [float(grid.x0), float(grid.y0), 1.0 / grid.dx, 1.0 / grid.dy]
+    done = subprocess.run(
+        [str(binary), str(run_dir), str(SAMPLER_B), str(SAMPLER_LAUNCHES[group]), str(nx),
+         str(ny), *(c.hex() for c in consts)],
+        capture_output=True, text=True, timeout=RUN_SECONDS,
+    )
+    assert done.returncode == 0, f"plane_sampler: exit {done.returncode}\n{done.stderr}"
+    got = torch.from_numpy(np.fromfile(run_dir / "planes.bin", np.float32).reshape(SAMPLER_B, 24))
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
