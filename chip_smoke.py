@@ -8,14 +8,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. device: the card's name and power limit, from nvidia-smi;
 2. build: every hand-written kernel of the training paths (GAE, the
-   physics control step with its substeps entry point, the plane
-   sampler, the scene control step at the pusher's and the reacher's
-   sizes), compiled with nvcc from the sources in
-   nnx_ppo_tpu_torch/csrc/, all at once;
+   physics control step with its substeps entry point at the quadruped's
+   and at the humanoid's sizes, the plane sampler, the scene control step
+   at the pusher's and the reacher's sizes), compiled with nvcc from the
+   sources in nnx_ppo_tpu_torch/csrc/, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the training paths' shapes and at ragged ones (a batch that ends inside
    a warp; for the scene kernel also a two-tree scene with every joint
-   type; for GAE every reward key of a minibatch in one launch), printing
+   type; for GAE every reward key of a minibatch in one launch; for the
+   control step also the humanoid, held at 8192 envs, exact with
+   self-collision and joint limits at 2048, and both ragged), printing
    whether each output is equal to the bit (GAE and the plane sampler
    must be), then timed with CUDA events and torch.profiler against the
    plain version, GAE and the sampler also in a CUDA graph; GAE's columns
@@ -38,12 +40,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    128x2, critic 256x2, obs normalization: the pusher (ArmPush with a
    200-step time limit: arm, free ball and their cross contact, 16
    substeps in one launch of the scene kernel) and the reacher
-   (ArmReacher, 150-step limit, the arm alone, 4 substeps);
-5. reference: for the flagship, the physics leg and the pusher the PPO
+   (ArmReacher, 150-step limit, the arm alone, 4 substeps); the humanoid
+   (HumanoidJoystick, held factor, 8192 envs, T=20, the physics leg's net)
+   and the full humanoid (self-collision pairs and joint limits, the
+   factor rebuilt at every substep, 2048 envs), one control-step launch per
+   env step at the humanoid's sizes; and two analytic paths with no
+   physics kernel: locomotion (JoystickLocomotion, 4096 envs, the physics
+   leg's net) and heavy physics (NLinkSwingup with 5 links, 8192 envs, MLP
+   256x2);
+5. reference: for the flagship, the physics leg, the pusher, both
+   humanoid paths and both analytic paths the PPO
    loss and its gradients on the card against the same computation on
    the CPU (plain versions) for one minibatch, and against the card's
    own with one GAE launch per reward key (the same bits), and for each
-   quadruped and manipulation path one env step on the card (kernels)
+   quadruped, humanoid and manipulation path one env step on the card (kernels)
    against the CPU (plain versions) from the same state, action and
    draws.
 
@@ -98,6 +108,10 @@ XLAFACTOR_STEPS_CHECKED = 1
 XLAFACTOR_STEPS_TIMED = 3
 MANIPULATION_STEPS_CHECKED = 2
 MANIPULATION_STEPS_TIMED = 5
+HUMANOID_STEPS_CHECKED = 2
+HUMANOID_STEPS_TIMED = 3
+ANALYTIC_STEPS_CHECKED = 2
+ANALYTIC_STEPS_TIMED = 3
 
 
 def check(ok: bool, what: str) -> None:
@@ -113,10 +127,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, n: int, torch) -> float:
+def time_ms(fn, n: int, torch, warmup: int = 3) -> float:
     """Mean milliseconds per call of ``fn`` over ``n`` back-to-back calls,
-    between two CUDA events, after a warm-up."""
-    for _ in range(3):
+    between two CUDA events, after ``warmup`` calls."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -324,9 +338,13 @@ def gae_kernel_phase(torch) -> dict:
         max_err = max(max_err, err)
         check(bool(torch.equal(got, want)), f"gae [{T}, {B}] equals gae_scan to the bit")
         print(f"gae [{T}, {B}]: max_abs_err {err:.3g}; torch.equal True")
-    # Every key in one launch, bool flags: the paths' minibatches and a
-    # ragged batch with three keys and per-key flags.
-    for T, B, n_keys, per_key_flags in ((30, 256, 1, False), (20, 512, 2, False), (7, 33, 3, True)):
+    # Every key in one launch, bool flags: the paths' minibatches (the
+    # flagship's, the quadruped's, the humanoid paths' [20, 2048] x 2 at
+    # 8192 envs, heavy physics' [20, 2048] x 1, locomotion's [20, 1024] x
+    # 2) and a ragged batch with three keys and per-key flags.
+    for T, B, n_keys, per_key_flags in ((30, 256, 1, False), (20, 512, 2, False),
+                                        (20, 2048, 2, False), (20, 2048, 1, False),
+                                        (20, 1024, 2, False), (7, 33, 3, True)):
         inputs = gae_path_inputs(T, B, n_keys, torch, per_key_flags)
         before = gae_cuda.launches
         got = gae_per_key(*inputs, lam, gamma)
@@ -413,14 +431,29 @@ DR_RANGES = dict(
 ROUGH = dict(seed=2, amplitude=0.03, wavelength=1.5)
 
 # The control-step configurations checked against the plain version:
-# name -> (batch, exact, full feature set). 33 and 1001 end inside a warp
-# at every group size from 2 to 16 lanes per env.
+# name -> (model, batch, exact, full feature set). The quadruped's full set
+# is rough terrain, the DR lanes and the push; the humanoid's is self-
+# collision and joint limits, and its cases are the held factor at
+# humanoid_8192_pallas's 8192 envs and the exact factor with both features
+# at humanoid_2048_full's 2048. 33 and 1001 end inside a warp at every
+# group size from 2 to 16 lanes per env.
 CONTROL_STEP_CASES = {
-    "held, full features, B=2048": (2048, False, True),
-    "exact, full features, B=2048": (2048, True, True),
-    "held, flat ground, no extras, B=1000": (1000, False, False),
-    "held, full features, B=33": (33, False, True),
-    "exact, full features, B=1001": (1001, True, True),
+    "held, full features, B=2048": ("quadruped", 2048, False, True),
+    "exact, full features, B=2048": ("quadruped", 2048, True, True),
+    "held, flat ground, no extras, B=1000": ("quadruped", 1000, False, False),
+    "held, full features, B=33": ("quadruped", 33, False, True),
+    "exact, full features, B=1001": ("quadruped", 1001, True, True),
+    "humanoid held, B=8192": ("humanoid", 8192, False, False),
+    "humanoid exact, self-collision and joint limits, B=2048": ("humanoid", 2048, True, True),
+    "humanoid held, B=33": ("humanoid", 33, False, False),
+    "humanoid exact, self-collision and joint limits, B=1001": ("humanoid", 1001, True, True),
+}
+# The cases timed beside their bound: the physics leg's shape and the two
+# humanoid paths' (key in the kernels line -> case).
+CONTROL_STEP_TIMED = {
+    "quadruped": "held, full features, B=2048",
+    "humanoid_held_8192": "humanoid held, B=8192",
+    "humanoid_exact_full_2048": "humanoid exact, self-collision and joint limits, B=2048",
 }
 # The (lanes per env, threads per block) variants of --variants.
 CONTROL_STEP_GROUPS, SCENE_STEP_GROUPS = (2, 4, 8, 16), (1, 2, 4, 8)
@@ -430,26 +463,36 @@ MAX_BLOCK_SMEM_BYTES = 232448
 
 
 def control_step_case(name: str, torch):
-    """(plan, args on the card) of one control-step configuration: the
-    quadruped at kp=60, 10 substeps of 2 ms, states near the standing
-    pose with some feet in contact."""
+    """(plan, args on the card) of one control-step configuration, 10
+    substeps of 2 ms: the quadruped at kp=60 from states near the standing
+    pose with some feet in contact; the humanoid at kp=350 from states near
+    the standing pose with some feet on the ground and, in every other env,
+    the two feet's spheres pressed together
+    (``physics/testing.py::humanoid_states``)."""
     from nnx_ppo_tpu_torch.physics.cuda_step import ControlStepPlan
+    from nnx_ppo_tpu_torch.physics.models import make_humanoid
     from nnx_ppo_tpu_torch.physics.models.quadruped import default_qpos, make_quadruped
     from nnx_ppo_tpu_torch.physics.terrain import rough_terrain
-    from nnx_ppo_tpu_torch.physics.testing import standing_states
+    from nnx_ppo_tpu_torch.physics.testing import humanoid_states, standing_states
 
-    B, exact, full = CONTROL_STEP_CASES[name]
-    model = make_quadruped()
-    terrain = rough_terrain(**ROUGH) if full else None
-    plan = ControlStepPlan(
-        model, 60.0, 0.002, 10, exact, terrain=terrain,
-        dr_fields=tuple(DR_RANGES) if full else (), has_push=full,
-    )
-    arrays = standing_states(
-        model, default_qpos(model), B, seed=3, terrain=terrain,
-        n_extra_dr=4 if full else 0, has_push=full,
-    )
-    keys = ("qpos", "qvel", "target") + (("extra",) if full else ())
+    model_name, B, exact, full = CONTROL_STEP_CASES[name]
+    keys = ("qpos", "qvel", "target")
+    if model_name == "humanoid":
+        model = make_humanoid(self_collision=full, joint_limits=full)
+        plan = ControlStepPlan(model, 350.0, 0.002, 10, exact)
+        arrays = humanoid_states(model, B, seed=3)
+    else:
+        model = make_quadruped()
+        terrain = rough_terrain(**ROUGH) if full else None
+        plan = ControlStepPlan(
+            model, 60.0, 0.002, 10, exact, terrain=terrain,
+            dr_fields=tuple(DR_RANGES) if full else (), has_push=full,
+        )
+        arrays = standing_states(
+            model, default_qpos(model), B, seed=3, terrain=terrain,
+            n_extra_dr=4 if full else 0, has_push=full,
+        )
+        keys += ("extra",) if full else ()
     return plan, [torch.tensor(arrays[k], device="cuda") for k in keys]
 
 
@@ -469,12 +512,21 @@ def control_step_errors(plan, args, torch) -> tuple[dict, dict]:
     """Kernel against plain version on the card, at the stated tolerance:
     float32 on both; ten substeps; qpos 2e-4, qvel 2e-3, normals rtol
     5e-3 / atol 5e-2 (the contact switch phi > 0 and the 6000 N/m contact
-    stiffness amplify rounding). Also whether each output is equal to the
-    bit (the kernel repeats the plain version's operations in its order)."""
+    stiffness amplify rounding). The humanoid is held to the same numbers:
+    its PD gain (350 against 60) and contact stiffness (12,000 N/m) are
+    stiffer, but what a gap of rounding alone does to it was measured on
+    the host (the kernel built by g++ with glibc's sinf, cosf and sqrtf
+    against PyTorch's, tests/test_torch_kernel_schedule.py): qvel 2.2e-5,
+    normals 4.3e-4 after ten substeps, 90 and 100 times inside. Also
+    whether each output is equal to the bit (the kernel repeats the plain
+    version's operations in its order)."""
     got = plan.cuda(*args)
     want = plan.plain(*args)
     torch.cuda.synchronize()
     check(bool((want[2] > 0).any() and (want[2] == 0).any()), "some feet touch, some do not")
+    n_ground = len(plan.model.geom_body)
+    if plan.n_geoms > n_ground:
+        check(bool((want[2][:, n_ground:] > 0).any()), "the sphere pairs touch in some envs")
     for x in got:
         check(bool(torch.isfinite(x).all()), "kernel output is finite")
     errs = {k: (g - w).abs().max().item() for k, g, w in zip(OUTPUTS, got, want)}
@@ -570,12 +622,39 @@ def count_plain_operations(plain_fn, args, torch) -> float:
     return counted["ops"] / 8
 
 
+def control_step_row(plan, args, torch) -> dict:
+    """One timed shape of the control step: the kernel timed three ways
+    (:func:`kernel_times`), the plain version's time (one call, after
+    count_plain_operations' warm-up on 8 envs: the exact plain version
+    rebuilds the factor in every substep), the bytes and counted operations
+    per env, the bound, the launch and ptxas's row."""
+    model, B = plan.model, args[0].shape[0]
+    times = kernel_times(lambda: plan.cuda(*args), "control_step_kernel", torch,
+                         n_wrapper=50, n_profile=20, n_graph=20)
+    bytes_per_env = 4 * (model.nq + model.nv + model.nj + plan.n_extra
+                         + model.nq + model.nv + plan.n_geoms)
+    ops_per_env = count_plain_operations(plan.plain, args, torch)
+    bound, bound_by = bound_ms(bytes_per_env * B, ops_per_env * B)
+    plain_ms = time_ms(lambda: plan.plain(*args), 1, torch, warmup=0)
+    return dict(times, shape=[B, model.nq], plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bound_by, ops_per_env=ops_per_env, bytes_per_env=bytes_per_env,
+                design=launch_design(plan),
+                ptxas=ptxas_row(plan.kernel_spec, "control_step_kernel",
+                                plan.shared_memory_bytes()))
+
+
 def control_step_kernel_phase(torch, variants: bool) -> dict:
+    """Every case of :data:`CONTROL_STEP_CASES` against the plain version,
+    then the shapes of :data:`CONTROL_STEP_TIMED` timed (wrapper by CUDA
+    events, device time by the profiler and in a CUDA graph) beside their
+    bound, the plain version, ptxas's row and the shared memory per block
+    (the humanoid: 11 bodies, nv = 16, one row of the forward solve per
+    lane at 16 lanes per env; 6 ground geoms, 0 or 4 pairs)."""
     from nnx_ppo_tpu_torch.ops import cuda_build
     from nnx_ppo_tpu_torch.physics import cuda_step
 
     max_err = 0.0
-    cases = {}
+    cases, checked = {}, {}
     for name in CONTROL_STEP_CASES:
         plan, args = control_step_case(name, torch)
         before = cuda_step.control_step_cuda.launches
@@ -583,45 +662,39 @@ def control_step_kernel_phase(torch, variants: bool) -> dict:
         check(cuda_step.control_step_cuda.launches == before + 1, "the wrapper counted its launch")
         max_err = max(max_err, errs["qpos"], errs["qvel"])
         cases[name] = (plan, args)
+        checked[name] = {"errors": errs, "equal": equal}
         print(f"control_step {name}: max_abs_err qpos {errs['qpos']:.3g} (atol 2e-4) "
               f"qvel {errs['qvel']:.3g} (atol 2e-3) normals {errs['normals']:.3g} "
               f"(rtol 5e-3, atol 5e-2); {describe_equal(equal)}")
-
-    # The physics leg's shape: 2048 envs, all feature lanes, held factor.
-    plan, args = cases["held, full features, B=2048"]
-    model = plan.model
-    ms = time_ms(lambda: plan.cuda(*args), 50, torch)
-    kernel_device_ms = device_ms_per_call(lambda: plan.cuda(*args), 20, "control_step_kernel", torch)
-    plain_ms = time_ms(lambda: plan.plain(*args), 2, torch)
+    rows = {}
+    for label, name in CONTROL_STEP_TIMED.items():
+        rows[label] = row = control_step_row(*cases[name], torch)
+        print(f"control_step {name}: wrapper {1e3 * row['wrapper_ms']:.2f} us, kernel "
+              f"{1e3 * row['kernel_device_ms']:.2f} us (profiler), {1e3 * row['graph_ms']:.2f} us "
+              f"(CUDA graph); plain {row['plain_ms']:.2f} ms; {row['bytes_per_env']} bytes and "
+              f"{row['ops_per_env']:.0f} float operations per env, bound "
+              f"{1e3 * row['bound_ms']:.3f} us ({row['bound_by']}); {row['design']}; ptxas "
+              f"{row['ptxas']}")
+    # The exact mode at the physics leg's shape.
     exact_plan, exact_args = cases["exact, full features, B=2048"]
     exact_ms = time_ms(lambda: exact_plan.cuda(*exact_args), 20, torch)
-    B = args[0].shape[0]
-    bytes_per_env = 4 * (model.nq + model.nv + model.nj + plan.n_extra
-                         + model.nq + model.nv + plan.n_geoms)
-    ops_per_env = count_plain_operations(plan.plain, args, torch)
-    bound, bound_by = bound_ms(bytes_per_env * B, ops_per_env * B)
-    print(f"control_step: {bytes_per_env} bytes and {ops_per_env:.0f} float operations per env "
-          f"and control step; exact-mode kernel {exact_ms:.4f} ms")
-    result = {
-        "name": "control_step",
-        "route": "cuda",
-        "source": "nnx_ppo_tpu_torch/csrc/control_step.cu",
-        "replaces": "nnx_ppo_tpu/physics/pallas_step.py:330",
-        "launches": None,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound,
-        "bound_by": bound_by,
-        "library_ms": None,  # no single PyTorch call computes a control step
-        "shape": [B, model.nq],
-        "kernel_device_ms": kernel_device_ms,
-        "exact_ms": exact_ms,
-        "ops_per_env": ops_per_env,
-        "bytes_per_env": bytes_per_env,
-        "design": launch_design(plan),
-        "ptxas": ptxas_row(plan.kernel_spec, "control_step_kernel", plan.shared_memory_bytes()),
-    }
+    print(f"control_step exact, full features, B=2048: {exact_ms:.4f} ms (CUDA events)")
+    quadruped = rows.pop("quadruped")
+    result = dict(
+        quadruped,
+        name="control_step",
+        route="cuda",
+        source="nnx_ppo_tpu_torch/csrc/control_step.cu",
+        replaces="nnx_ppo_tpu/physics/pallas_step.py:330",
+        launches=None,
+        max_abs_err=max_err,
+        ms=quadruped["wrapper_ms"],
+        library_ms=None,  # no single PyTorch call computes a control step
+        exact_ms=exact_ms,
+        cases=checked,
+        at_humanoid=rows,
+    )
+    plan, args = cases[CONTROL_STEP_TIMED["quadruped"]]
     if variants:
         # The same source with fused multiply-adds left on (nvcc's
         # default), beside the shipped build, inside this one run.
@@ -1284,6 +1357,56 @@ def reacher_leg(torch):
     return manipulation_leg(torch, ArmReacher(), 150)
 
 
+def humanoid_leg(torch):
+    """humanoid_8192_pallas (benchmarks/suite.py:570): the humanoid on
+    flat ground, held factor, no randomization, terrain or push, 8192
+    envs, T=20, the physics leg's net (proprio 36), combined advantages;
+    one control-step launch per env step at the humanoid's sizes."""
+    from nnx_ppo_tpu_torch.envs import HumanoidJoystick
+
+    env, networks, config, optimizer = quadruped_leg(
+        torch, HumanoidJoystick(reuse_mass_matrix=True))
+    return env, networks, dataclasses.replace(config, n_envs=8192), optimizer
+
+
+def humanoid_full_leg(torch):
+    """humanoid_2048_full (benchmarks/suite.py:458): the humanoid with the
+    foot self-collision pairs and joint limits, the factor rebuilt at every
+    substep (exact), 2048 envs, T=20."""
+    from nnx_ppo_tpu_torch.envs import HumanoidJoystick
+
+    return quadruped_leg(torch, HumanoidJoystick(self_collision=True, joint_limits=True))
+
+
+def locomotion_leg(torch):
+    """locomotion_4096 (benchmarks/suite.py:132): the analytic joystick
+    task (dict obs, dict reward), 500-step limit, the Concat encoder
+    (proprio 128, command 32), actor 128, two critic heads, 4096 envs,
+    T=20, combined advantages; no physics kernel."""
+    from nnx_ppo_tpu_torch.envs import JoystickLocomotion
+
+    env, networks, config, optimizer = quadruped_leg(torch, JoystickLocomotion())
+    return env, networks, dataclasses.replace(config, n_envs=4096), optimizer
+
+
+def heavy_physics_leg(torch):
+    """heavy_physics_8192 (benchmarks/suite.py:158): NLinkSwingup with 5
+    links (a 5 x 5 mass matrix and its Cholesky solve per env and
+    substep, 4 substeps), 500-step limit, MLP actor 256x2, critic 256x2,
+    8192 envs, T=20; no physics kernel."""
+    from nnx_ppo_tpu_torch.algorithms import PPOConfig, make_optimizer
+    from nnx_ppo_tpu_torch.envs import NLinkSwingup
+    from nnx_ppo_tpu_torch.networks import make_mlp_actor_critic
+    from nnx_ppo_tpu_torch.wrappers import EpisodeWrapper
+
+    env = EpisodeWrapper(NLinkSwingup(n_links=5), max_len=500)
+    networks = make_mlp_actor_critic(
+        env.observation_size, env.action_size, [256, 256], [256, 256], 0, entropy_weight=1e-3,
+    )
+    config = PPOConfig(n_envs=8192, rollout_length=20)
+    return env, networks, config, make_optimizer(config.learning_rate)
+
+
 def check_finite(history: dict, torch) -> None:
     for name, v in history.items():
         check(bool(torch.isfinite(torch.as_tensor(v)).all()), f"{name} is finite")
@@ -1414,7 +1537,8 @@ def physics_path_phase(torch, kernels: list, profile_dir: str | None, label: str
     check_finite(history, torch)
     obs = ts.env_states.obs
     if isinstance(obs, dict):
-        check(obs["proprio"].shape == (config.n_envs, 42), "proprio obs shape")
+        check(obs["proprio"].shape == (config.n_envs, env.observation_size["proprio"]),
+              "proprio obs shape")
         critic_key = "losses/critic/tracking/mean"
     else:
         check(obs.shape == (config.n_envs, env.observation_size), "obs shape")
@@ -1464,11 +1588,18 @@ def physics_path_phase(torch, kernels: list, profile_dir: str | None, label: str
     return result
 
 
-def loss_reference_phase(torch, label: str, env, config, ts) -> float:
+def loss_reference_phase(torch, label: str, env, config, ts, scaled_grad_atol: bool = False
+                         ) -> float:
     """Loss and gradients on the card (one GAE launch for all reward keys)
     against the CPU (plain GAE) for one full-width minibatch of a fresh
     rollout, and against the card's loss with one GAE launch per key (the
-    calls that gae_per_key replaced): the same bits."""
+    calls that gae_per_key replaced): the same bits. Gradients: rtol 1e-3,
+    atol 1e-5; with ``scaled_grad_atol`` the atol is 1e-5 times the
+    tensor's largest entry where that exceeds 1: float32 sums over T *
+    width samples in another order differ by a share of the summands'
+    size, not of the result's, so an entry near 0 in a tensor of entries
+    above 1 misses a fixed 1e-5 (the full humanoid's actor head: 1.45e-5
+    on an entry of 2e-5)."""
     from nnx_ppo_tpu_torch.algorithms import ppo as ppo_module
     from nnx_ppo_tpu_torch.algorithms import ppo_loss
     from nnx_ppo_tpu_torch.algorithms.ppo import ReplayMinibatch
@@ -1504,15 +1635,55 @@ def loss_reference_phase(torch, label: str, env, config, ts) -> float:
         net_cpu, tree_map(lambda x: x[:width].cpu(), ts.network_states), view_cpu, **kw
     )
     loss_cpu.backward()
+    want_grads = [p.grad for p in net_cpu.parameters()]
+
+    def grad_share(got_grads) -> float:
+        """The largest |got - want| / (atol + rtol |want|) over every
+        gradient entry: above 1 the check below fails."""
+        share = 0.0
+        for got, want in zip(got_grads, want_grads):
+            atol = 1e-5 * max(1.0, want.abs().max().item()) if scaled_grad_atol else 1e-5
+            share = max(share, ((got.cpu() - want).abs() / (atol + 1e-3 * want.abs())).max().item())
+        return share
+
     # float32 on both; sums over T * width samples in another order.
     torch.testing.assert_close(loss_gpu.cpu(), loss_cpu, rtol=1e-4, atol=1e-5)
-    max_rel = 0.0
+    max_rel = max_grad = 0.0
     for p_gpu, p_cpu in zip(net_gpu.parameters(), net_cpu.parameters()):
-        torch.testing.assert_close(p_gpu.grad.cpu(), p_cpu.grad, rtol=1e-3, atol=1e-5)
-        scale = p_cpu.grad.abs().max().clamp(min=1e-12)
-        max_rel = max(max_rel, ((p_gpu.grad.cpu() - p_cpu.grad).abs().max() / scale).item())
+        largest = p_cpu.grad.abs().max().item()
+        atol = 1e-5 * max(1.0, largest) if scaled_grad_atol else 1e-5
+        torch.testing.assert_close(p_gpu.grad.cpu(), p_cpu.grad, rtol=1e-3, atol=atol)
+        scale = max(largest, 1e-12)
+        max_rel = max(max_rel, (p_gpu.grad.cpu() - p_cpu.grad).abs().max().item() / scale)
+        max_grad = max(max_grad, largest)
     grads = [p.grad for p in net_gpu.parameters()]
+    share = grad_share(grads)
     net_gpu.zero_grad(set_to_none=True)
+
+    # What a wrong GAE reads against the same limits: the CPU loss again,
+    # with one of the width columns of every key's advantages taken from
+    # its neighbour (a kernel that indexed one column wrongly).
+    shipped = ppo_module.gae_per_key
+
+    def one_column_wrong(*args, **kwargs):
+        def wrong(a):
+            a = a.clone()
+            a[:, 0] = a[:, 1]
+            return a
+        return tree_map(wrong, shipped(*args, **kwargs))
+
+    net_wrong = copy.deepcopy(net_cpu)
+    net_wrong.zero_grad(set_to_none=True)
+    try:
+        ppo_module.gae_per_key = one_column_wrong
+        loss_wrong, _ = ppo_loss(
+            net_wrong, tree_map(lambda x: x[:width].cpu(), ts.network_states), view_cpu, **kw
+        )
+        loss_wrong.backward()
+    finally:
+        ppo_module.gae_per_key = shipped
+    wrong_loss_share = abs(loss_wrong.item() - loss_cpu.item()) / (1e-5 + 1e-4 * abs(loss_cpu.item()))
+    wrong_grad_share = grad_share([p.grad for p in net_wrong.parameters()])
 
     def one_launch_per_key(rewards, values, last_values, done, truncated, lambda_, gamma):
         done = tree_map(lambda _: done, rewards) if torch.is_tensor(done) else done
@@ -1521,7 +1692,6 @@ def loss_reference_phase(torch, label: str, env, config, ts) -> float:
                         rewards, values, last_values, done, truncated)
 
     n_keys = len(view.rewards) if isinstance(view.rewards, dict) else 1
-    shipped = ppo_module.gae_per_key
     before = gae_cuda.launches
     try:
         ppo_module.gae_per_key = one_launch_per_key
@@ -1536,18 +1706,23 @@ def loss_reference_phase(torch, label: str, env, config, ts) -> float:
     check(same, f"{label}: the loss with one GAE launch equals the per-key launches' to the bit")
     net_gpu.zero_grad(set_to_none=True)
     print(f"reference {label}: loss cuda {loss_gpu.item():.6f} cpu {loss_cpu.item():.6f}; "
-          f"max grad diff / max |grad| {max_rel:.3g}; with one GAE launch per key ({n_keys}) "
-          "loss and gradients torch.equal True")
+          f"max grad diff / max |grad| {max_rel:.3g}, largest |grad| {max_grad:.3g}; with one GAE "
+          f"launch per key ({n_keys}) loss and gradients torch.equal True; share of the limit: "
+          f"loss {abs(loss_gpu.item() - loss_cpu.item()) / (1e-5 + 1e-4 * abs(loss_cpu.item())):.3g}"
+          f", gradients {share:.3g}; one GAE column of {width} wrong on the CPU would read loss "
+          f"{wrong_loss_share:.3g}, gradients {wrong_grad_share:.3g}")
     return abs(loss_gpu.item() - loss_cpu.item())
 
 
-def env_step_reference_phase(torch, label: str, env, kernels: list, per_env_step: dict) -> None:
-    """One step of a quadruped path's env on the card (its kernels)
-    against the CPU (plain versions): same state, action and draws.
+def env_step_reference_phase(torch, label: str, env, kernels: list, per_env_step: dict,
+                             reward_atol: float = 1e-4) -> None:
+    """One step of a legged path's env on the card (its kernels) against
+    the CPU (plain versions): same state, action and draws.
     ``per_env_step`` maps each kernel wrapper's name to its launches per
     env step. float32; one control step of ten substeps: qpos 2e-4, qvel
-    2e-3; obs 2e-3 (it holds qvel); rewards 1e-4; contact force rtol 5e-3
-    / atol 5e-2."""
+    2e-3; obs 2e-3 (it holds qvel); rewards ``reward_atol`` (1e-4 for the
+    quadruped, 5e-4 for the humanoid); contact force rtol 5e-3 / atol
+    5e-2."""
     from nnx_ppo_tpu_torch.core.struct import tree_map
 
     legged, B = env.env, 128
@@ -1571,6 +1746,18 @@ def env_step_reference_phase(torch, label: str, env, kernels: list, per_env_step
     )
     check({k.__name__: k.launches for k in kernels} == after_card,
           f"{label}: env.step on the CPU ran the plain versions")
+    # What a wrong step reads against the same limits, on the paths of the
+    # control-step kernel: the CPU step again with one substep fewer (a
+    # kernel that dropped its last substep).
+    wrong = None
+    if legged._control_runner is not None:
+        wrong_env = copy.copy(legged)
+        wrong_env._control_runner = copy.copy(legged._control_runner)
+        wrong_env._control_runner.n_substeps -= 1
+        wrong = wrong_env._step_from(
+            to_cpu(state), action.cpu(), None if push is None else to_cpu(push),
+            to_cpu(resample), None,
+        )
     torch.cuda.synchronize()
     got, want = to_cpu(on_card), on_cpu
     check(bool((want.metrics["contact_force"] > 0).any()), "feet are in contact")
@@ -1579,16 +1766,20 @@ def env_step_reference_phase(torch, label: str, env, kernels: list, per_env_step
     for key in want.obs:
         torch.testing.assert_close(got.obs[key], want.obs[key], rtol=0, atol=2e-3)
     for key in want.reward:
-        torch.testing.assert_close(got.reward[key], want.reward[key], rtol=0, atol=1e-4)
+        torch.testing.assert_close(got.reward[key], want.reward[key], rtol=0, atol=reward_atol)
     torch.testing.assert_close(got.done, want.done, rtol=0, atol=0)
     torch.testing.assert_close(
         got.metrics["contact_force"], want.metrics["contact_force"], rtol=5e-3, atol=5e-2
     )
-    print(
-        f"reference env.step {label}: max_abs_err qpos "
-        f"{(got.data['qpos'] - want.data['qpos']).abs().max().item():.3g} qvel "
-        f"{(got.data['qvel'] - want.data['qvel']).abs().max().item():.3g} over {B} envs"
-    )
+    def errors(state) -> str:
+        reward = max((state.reward[k] - want.reward[k]).abs().max().item() for k in want.reward)
+        return (f"qpos {(state.data['qpos'] - want.data['qpos']).abs().max().item():.3g} (atol "
+                f"2e-4) qvel {(state.data['qvel'] - want.data['qvel']).abs().max().item():.3g} "
+                f"(atol 2e-3) reward {reward:.3g} (atol {reward_atol:g})")
+
+    print(f"reference env.step {label}: max_abs_err {errors(got)} over {B} envs" + (
+        "" if wrong is None else f"; a step of {legged.n_substeps - 1} substeps on the CPU "
+        f"would read {errors(wrong)}"))
 
 
 def manipulation_env_step_reference_phase(torch, label: str, env, scene_wrapper) -> None:
@@ -1763,6 +1954,10 @@ def main() -> int:
         "xlafactor": dict(none, gae_cuda=16, substeps_cuda=20),
         "pusher": dict(none, gae_cuda=16, scene_step_cuda=20),
         "reacher": dict(none, gae_cuda=16, scene_step_cuda=20),
+        "humanoid": dict(none, gae_cuda=16, control_step_cuda=20),
+        "humanoid_full": dict(none, gae_cuda=16, control_step_cuda=20),
+        "locomotion": dict(none, gae_cuda=16),
+        "heavy_physics": dict(none, gae_cuda=16),
     }
     physics_wrappers = wrappers[1:4]
 
@@ -1796,10 +1991,36 @@ def main() -> int:
     pusher_path = manipulation_paths["pusher"]
     loss_reference_phase(torch, "pusher", pusher_path["env"], pusher_path["config"],
                          pusher_path["state"])
+    humanoid_paths = {
+        label: physics_path_phase(
+            torch, wrappers, args.profile, label, leg, HUMANOID_STEPS_CHECKED,
+            HUMANOID_STEPS_TIMED, per_step[label],
+        )
+        for label, leg in (("humanoid", humanoid_leg), ("humanoid_full", humanoid_full_leg))
+    }
+    analytic_paths = {
+        label: physics_path_phase(
+            torch, wrappers, args.profile, label, leg, ANALYTIC_STEPS_CHECKED,
+            ANALYTIC_STEPS_TIMED, per_step[label],
+        )
+        for label, leg in (("locomotion", locomotion_leg), ("heavy_physics", heavy_physics_leg))
+    }
+    for label, path in {**humanoid_paths, **analytic_paths}.items():
+        loss_reference_phase(torch, label, path["env"], path["config"], path["state"],
+                             scaled_grad_atol=True)
     # After every path has been driven and its counts read: these steps
     # launch kernels too and must not count as the main paths'.
     for label, path in quadruped_paths.items():
         env_step_reference_phase(torch, label, path["env"], physics_wrappers, per_env_step(label))
+    for label, path in humanoid_paths.items():
+        # The humanoid's stiffer PD (350) and contacts (12,000 N/m) spread
+        # card-against-CPU rounding further than the quadruped's, whose
+        # 1e-4 stays as it was: on the H100 the held path read 1.78e-4
+        # and the exact one 1.49e-5 (fixed seeds; the same in two runs),
+        # and the limit is 5e-4, 2.8 times the larger. A step of one
+        # substep fewer, printed beside it, shows what a wrong step reads.
+        env_step_reference_phase(torch, label, path["env"], physics_wrappers, per_env_step(label),
+                                 reward_atol=5e-4)
     for label, path in manipulation_paths.items():
         manipulation_env_step_reference_phase(torch, label, path["env"], scene_step_cuda)
     if args.learn:
@@ -1810,7 +2031,7 @@ def main() -> int:
     # Launches on the main paths only (the comparisons above do not
     # count: every count was set to 0 just before each path).
     by_path = {"flagship": flagship_path["launches"]}
-    training_paths = {**quadruped_paths, **manipulation_paths}
+    training_paths = {**quadruped_paths, **manipulation_paths, **humanoid_paths, **analytic_paths}
     by_path.update({label: path["launches"] for label, path in training_paths.items()})
     kernel_rows = {
         "gae_cuda": gae_kernel, "control_step_cuda": control_kernel,
@@ -1834,10 +2055,13 @@ def main() -> int:
     )
     timed = {"physics": PHYSICS_STEPS_TIMED, "heightgrid": HEIGHTGRID_STEPS_TIMED,
              "xlafactor": XLAFACTOR_STEPS_TIMED, "pusher": MANIPULATION_STEPS_TIMED,
-             "reacher": MANIPULATION_STEPS_TIMED}
+             "reacher": MANIPULATION_STEPS_TIMED, "humanoid": HUMANOID_STEPS_TIMED,
+             "humanoid_full": HUMANOID_STEPS_TIMED, "locomotion": ANALYTIC_STEPS_TIMED,
+             "heavy_physics": ANALYTIC_STEPS_TIMED}
     for label, path in training_paths.items():
         counts = ", ".join(f"{name} {n}" for name, n in by_path[label].items())
-        critic = "critic loss (tracking)" if label in quadruped_paths else "critic loss"
+        dict_reward = isinstance(path["state"].env_states.reward, dict)
+        critic = "critic loss (tracking)" if dict_reward else "critic loss"
         print(
             f"{label}: {path['n_steps']} ppo_steps, launches: {counts}; actor loss "
             f"{path['actor_loss']:.5f}, {critic} {path['critic_loss']:.5f}"

@@ -16,12 +16,20 @@ from nnx_ppo_tpu_torch.algorithms.ppo import (
     ppo_update,
     train_ppo,
 )
-from nnx_ppo_tpu_torch.algorithms.types import LoggingLevel, TrainingState, Transition
+from nnx_ppo_tpu_torch.algorithms.types import (
+    EnvState,
+    LoggingLevel,
+    RLEnv,
+    TrainingState,
+    Transition,
+)
 
 __all__ = [
+    "EnvState",
     "EvalConfig",
     "LoggingLevel",
     "PPOConfig",
+    "RLEnv",
     "TrainConfig",
     "TrainResult",
     "TrainingState",

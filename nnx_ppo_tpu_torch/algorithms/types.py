@@ -1,15 +1,60 @@
 """Runtime types for PPO. Port of ``nnx_ppo_tpu/algorithms/types.py``
-(``TrainingState`` :48, ``Transition`` :68, ``LoggingLevel`` :120)."""
+(``EnvState`` :16, ``RLEnv`` :37, ``TrainingState`` :48, ``Transition``
+:68, ``LoggingLevel`` :120)."""
 
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Any
+from typing import Any, Optional, Protocol, runtime_checkable
 
 import torch
 
 from nnx_ppo_tpu_torch.networks.types import PPONetworkOutput
+
+
+@runtime_checkable
+class EnvState(Protocol):
+    """Minimal environment state interface, batched: every leaf has a
+    leading env axis ``[B]``. Satisfied by
+    :class:`nnx_ppo_tpu_torch.envs.types.State`."""
+
+    @property
+    def obs(self) -> Any: ...
+    @property
+    def done(self) -> torch.Tensor: ...  # bool or float depending on env
+    @property
+    def reward(self) -> Any: ...
+    @property
+    def info(self) -> dict[str, Any]: ...
+    @property
+    def metrics(self) -> dict[str, Any]: ...
+
+
+@runtime_checkable
+class RLEnv(Protocol):
+    """A batched environment: ``reset`` makes ``batch_size`` envs at once
+    and ``step`` steps them all.
+
+    The JAX protocol is one unbatched env (``reset(rng)``, ``step(state,
+    action)``) that the library vmaps; PyTorch has no vmap for Python
+    control flow and runs eagerly, so here the env holds ``[B, ...]``
+    tensors itself. JAX carries a PRNG key per env in the state; here
+    every draw comes from the caller's ``torch.Generator`` (on the
+    tensors' device), which ``step`` takes too: envs that draw in
+    ``step`` (command resampling, pushes, sensor noise) need it, the
+    others ignore it.
+    """
+
+    @property
+    def observation_size(self) -> Any: ...
+    @property
+    def action_size(self) -> Any: ...
+
+    def reset(self, batch_size: int, generator: torch.Generator) -> EnvState: ...
+    def step(
+        self, state: Any, action: Any, generator: Optional[torch.Generator] = None
+    ) -> EnvState: ...
 
 
 @dataclasses.dataclass

@@ -1,4 +1,5 @@
-"""Device selection for the port's entry points.
+"""Device selection for the port's entry points, and the envs' constants
+on the device.
 
 No JAX counterpart: the JAX package takes its device from the backend.
 Here every entry point takes ``device=`` (default ``"cuda"``), and asking
@@ -21,3 +22,16 @@ def resolve_device(device: str | torch.device) -> torch.device:
             "present; pass device='cpu' to run on the CPU"
         )
     return device
+
+
+class DeviceConstants:
+    """Mixin of the batched envs: ``self._on(device, name)`` is the constant
+    tensor ``self.<name>`` on ``device``, copied there once (a copy per
+    step would stall the stream)."""
+
+    def _on(self, device: torch.device, name: str) -> torch.Tensor:
+        cache = self.__dict__.setdefault("_device_constants", {})
+        key = (str(device), name)
+        if key not in cache:
+            cache[key] = getattr(self, name).to(device)
+        return cache[key]

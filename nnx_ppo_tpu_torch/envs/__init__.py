@@ -1,8 +1,12 @@
-"""Environments (port of ``nnx_ppo_tpu/envs``: the flagship cart-pole,
-the legged joystick envs and the manipulation envs)."""
+"""Environments (port of ``nnx_ppo_tpu/envs``: the analytic control and
+locomotion envs, the legged joystick envs on the rigid-body step and the
+manipulation envs; the MuJoCo and MJX backends are not ported)."""
 
-from nnx_ppo_tpu_torch.envs.classic import CartpoleBalance
+from nnx_ppo_tpu_torch.envs.chain import NLinkSwingup
+from nnx_ppo_tpu_torch.envs.classic import CartpoleBalance, CartpoleSwingup, Pendulum
+from nnx_ppo_tpu_torch.envs.humanoid import HumanoidJoystick
 from nnx_ppo_tpu_torch.envs.legged import LeggedJoystick, legged_from_mjcf
+from nnx_ppo_tpu_torch.envs.locomotion import JoystickLocomotion
 from nnx_ppo_tpu_torch.envs.pusher import ArmPush
 from nnx_ppo_tpu_torch.envs.quadruped import QuadrupedJoystick
 from nnx_ppo_tpu_torch.envs.reacher import ArmReacher
@@ -12,7 +16,12 @@ __all__ = [
     "ArmPush",
     "ArmReacher",
     "CartpoleBalance",
+    "CartpoleSwingup",
+    "HumanoidJoystick",
+    "JoystickLocomotion",
     "LeggedJoystick",
+    "NLinkSwingup",
+    "Pendulum",
     "QuadrupedJoystick",
     "State",
     "legged_from_mjcf",

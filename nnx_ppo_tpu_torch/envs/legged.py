@@ -39,6 +39,7 @@ from typing import Any, Optional, Union
 import numpy as np
 import torch
 
+from nnx_ppo_tpu_torch.core.device import DeviceConstants
 from nnx_ppo_tpu_torch.envs.types import State
 from nnx_ppo_tpu_torch.physics import soa
 from nnx_ppo_tpu_torch.physics.cuda_step import make_control_step_runner, make_substep_runner
@@ -56,7 +57,7 @@ def legged_from_mjcf(*args: Any, **kwargs: Any):
     )
 
 
-class LeggedJoystick:
+class LeggedJoystick(DeviceConstants):
     """Velocity-command tracking for a PD-actuated legged robot.
 
     Observation (dict of ``[B, ...]``)::
@@ -171,7 +172,6 @@ class LeggedJoystick:
         self.push_prob = push_prob
         self.push_force = push_force
 
-        self._device_constants: dict = {}
         self._dr_fields: tuple = () if randomize is None else tuple(randomize.fields)
         self._kernel_push = push_force > 0.0
         self._control_runner = self._substep_runner = None
@@ -260,14 +260,6 @@ class LeggedJoystick:
         return noise
 
     # -- helpers -------------------------------------------------------------
-
-    def _on(self, device: torch.device, name: str) -> torch.Tensor:
-        """The constant tensor ``self.<name>`` on ``device``, copied there
-        once (a copy per step would stall the stream)."""
-        key = (str(device), name)
-        if key not in self._device_constants:
-            self._device_constants[key] = getattr(self, name).to(device)
-        return self._device_constants[key]
 
     def _ground_height(self, xy: torch.Tensor) -> torch.Tensor:
         if self.terrain is None:

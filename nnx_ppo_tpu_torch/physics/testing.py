@@ -1,5 +1,6 @@
 """Inputs for checking the control steps: legged states near the standing
-pose, and arm (and ball) states of the manipulation scenes.
+pose (the humanoid's with its feet pressed together in some envs), and arm
+(and ball) states of the manipulation scenes.
 
 No JAX counterpart (the JAX tests build such states inline). Everything
 is numpy from a seed, so a check can hand the same arrays to the kernel,
@@ -70,6 +71,25 @@ def standing_states(
         parts.append(np.stack([on * np.cos(theta), on * np.sin(theta), np.zeros(B)], axis=1))
     if parts:
         out["extra"] = np.concatenate(parts, axis=1).astype(np.float32)
+    return out
+
+
+def humanoid_states(model: Model, batch_size: int, seed: int) -> dict[str, np.ndarray]:
+    """:func:`standing_states` of the humanoid (``models/humanoid.py``)
+    around its default pose, with, in every other env, both legs in the
+    same pitch pose and both hip rolls turned inward by 0.1 rad (the PD
+    targets by 0.15), so that the heel and toe spheres of the two feet
+    press together (the self-collision pairs), and in every fourth env
+    from the second a knee 0.15 rad past its lower stop (-0.05 rad)."""
+    from nnx_ppo_tpu_torch.physics.models.humanoid import default_qpos
+
+    out = standing_states(model, default_qpos(model), batch_size, seed)
+    qpos, target = out["qpos"], out["target"]
+    qpos[::2, 12:15] = qpos[::2, 8:11]  # right leg's pitch joints = the left's
+    target[::2, 5:8] = target[::2, 1:4]
+    qpos[::2, 7], qpos[::2, 11] = -0.1, 0.1  # hip rolls, toward each other
+    target[::2, 0], target[::2, 4] = -0.15, 0.15
+    qpos[1::4, 9] = -0.2  # the left knee past its stop
     return out
 
 

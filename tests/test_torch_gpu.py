@@ -15,7 +15,7 @@ from nnx_ppo_tpu_torch.networks import make_mlp_actor_critic
 from nnx_ppo_tpu_torch.ops import cuda_build
 from nnx_ppo_tpu_torch.ops import gae as gae_module
 from nnx_ppo_tpu_torch.ops.gae import gae, gae_cuda, gae_per_key, gae_scan
-from nnx_ppo_tpu_torch.envs import ArmPush, ArmReacher, QuadrupedJoystick
+from nnx_ppo_tpu_torch.envs import ArmPush, ArmReacher, HumanoidJoystick, QuadrupedJoystick
 from nnx_ppo_tpu_torch.envs.pusher import SHOULDER_HEIGHT as PUSHER_SHOULDER_HEIGHT
 from nnx_ppo_tpu_torch.physics.cuda_scene_step import (
     make_scene_control_step_runner,
@@ -33,11 +33,13 @@ from nnx_ppo_tpu_torch.physics.cuda_step import (
     substeps_plain,
 )
 from nnx_ppo_tpu_torch.physics.engine import mass_matrix_factor
+from nnx_ppo_tpu_torch.physics.models.humanoid import make_humanoid
 from nnx_ppo_tpu_torch.physics.models.quadruped import default_qpos, make_quadruped
 from nnx_ppo_tpu_torch.physics.terrain import HeightGrid, rough_terrain
 from nnx_ppo_tpu_torch.physics.testing import (
     general_tree,
     general_tree_states,
+    humanoid_states,
     manipulation_states,
     slider_tree,
     slider_tree_states,
@@ -298,6 +300,57 @@ def test_control_step_kernel_rejects_wrong_shapes(cuda):
         plan(*args, torch.zeros(1000, 7, device=cuda))
     with pytest.raises(ValueError):
         plan.cuda(*(x.cpu() for x in args))
+
+
+# The humanoid's control-step cases that chip_smoke.py checks: (batch, exact,
+# self-collision and joint limits). 11 bodies, nv = 16: one row of the
+# forward solve per lane at the shipped 16 lanes per env.
+HUMANOID_CASES = {
+    "held_8192": (8192, False, False),
+    "exact_full_2048": (2048, True, True),
+    "held_ragged_33": (33, False, False),
+    "exact_full_ragged_1001": (1001, True, True),
+}
+
+
+def humanoid_case(name, device):
+    B, exact, full = HUMANOID_CASES[name]
+    model = make_humanoid(self_collision=full, joint_limits=full)
+    plan = ControlStepPlan(model, 350.0, 0.002, 10, exact)
+    arrays = humanoid_states(model, B, seed=3)
+    return plan, [torch.tensor(arrays[k], device=device) for k in ("qpos", "qvel", "target")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(HUMANOID_CASES))
+def test_control_step_kernel_at_the_humanoids_sizes_matches_plain_version(cuda, case):
+    """The humanoid at kp=350 and 12,000 N/m contacts: equal to the bit, as
+    the quadruped's cases (the same lane-by-lane operations in the plain
+    order; the tolerances stated otherwise would be the quadruped's)."""
+    plan, args = humanoid_case(case, cuda)
+    before = control_step_cuda.launches
+    got = plan(*args)
+    assert control_step_cuda.launches == before + 1
+    want = plan.plain(*args)
+    assert (want[2][:, :6] > 0).any() and (want[2][:, :6] == 0).any()
+    if want[2].shape[1] > 6:
+        assert (want[2][:, 6:] > 0).any()  # the feet's spheres touch
+    assert_equal_to_the_bit(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exact", [False, True], ids=["held", "exact_full"])
+def test_humanoid_env_steps_on_the_card_through_the_control_step(cuda, exact):
+    env = HumanoidJoystick(reuse_mass_matrix=not exact, self_collision=exact, joint_limits=exact)
+    generator = torch.Generator(device=cuda).manual_seed(0)
+    state = env.reset(256, generator)
+    before = control_step_cuda.launches
+    for _ in range(3):
+        state = env.step(state, torch.zeros(256, 10, device=cuda), generator)
+    assert control_step_cuda.launches == before + 3
+    assert state.obs["proprio"].shape == (256, 36) and state.obs["proprio"].is_cuda
+    assert torch.isfinite(state.obs["proprio"]).all()
+    assert (state.metrics["contact_force"] > 0).any()
 
 
 # -- the plane sampler and the substeps kernel ---------------------------------

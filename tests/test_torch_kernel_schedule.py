@@ -15,7 +15,10 @@ runs each block's threads as ``std::thread``s with barriers for
 ``__syncwarp`` and ``__syncthreads``, one shared-memory buffer per block
 and a plain copy for ``cp.async``, and holds the kernels to their plain
 versions: the physics kernels at 4 lanes per env, with an env group past
-the batch, at the tolerances of ``tests/test_torch_gpu.py`` (glibc's
+the batch, and the control step also at the humanoid's sizes and 16 lanes
+per env (``nv = 16``: one row of the forward solve per lane, the branch
+the quadruped's ``nv = 18`` never takes), at the tolerances of
+``tests/test_torch_gpu.py`` (glibc's
 ``sinf``, ``cosf`` and ``sqrtf`` differ from PyTorch's CPU kernels in the
 last bit); the plane sampler at 4 and 8 lanes per env with a ragged last
 block, on the data-terrain table and on a small one that some envs stand
@@ -45,12 +48,14 @@ from nnx_ppo_tpu_torch.physics.cuda_scene_step import SceneStepPlan, pack_scene_
 from nnx_ppo_tpu_torch.physics.cuda_step import ControlStepPlan, pack_factor, pack_params
 from nnx_ppo_tpu_torch.physics.engine import mass_matrix_factor
 from nnx_ppo_tpu_torch.physics.models.arm import make_arm
+from nnx_ppo_tpu_torch.physics.models.humanoid import make_humanoid
 from nnx_ppo_tpu_torch.ops.gae import gae_scan
 from nnx_ppo_tpu_torch.physics.models.quadruped import default_qpos, make_quadruped
 from nnx_ppo_tpu_torch.physics.terrain import HeightGrid, rough_terrain
 from nnx_ppo_tpu_torch.physics.testing import (
     general_tree,
     general_tree_states,
+    humanoid_states,
     slider_tree,
     slider_tree_states,
     standing_states,
@@ -115,6 +120,45 @@ def test_quadruped_schedule_covers_every_body_geom_and_pair_once():
     check_schedule(p, list(model.parent), gb, [gb[g] for g in model.pair_geom_a],
                    [gb[g] for g in model.pair_geom_b], children=True)
     assert _ints(p.child_list, 4) == [10, 7, 4, 1]  # the trunk's legs, last first
+
+
+def test_humanoid_schedule_covers_every_body_geom_pair_and_dof_once():
+    """Leaves at two depths (the arms at 1, the feet at 4): levels of
+    widths 1, 4, 2, 2, 2; the four foot-foot pairs join bodies of two
+    subtrees of the trunk; each dof's row owned by one lane, at the
+    shipped 16 lanes per env."""
+    model = make_humanoid(self_collision=True, joint_limits=True)
+    plan = ControlStepPlan(model, 350.0, 0.002, 10, True)
+    p = pack_params(plan)
+    assert p.n_levels == 5 and _ints(p.level_start, 6) == [0, 1, 5, 7, 9, 11]
+    assert _ints(p.level_body, 11) == [0, 1, 5, 9, 10, 2, 6, 3, 7, 4, 8]
+    gb = list(model.geom_body)
+    check_schedule(p, list(model.parent), gb, [gb[g] for g in model.pair_geom_a],
+                   [gb[g] for g in model.pair_geom_b], children=True)
+    assert _ints(p.child_list, 4) == [10, 9, 5, 1]  # the trunk's arms and legs, last first
+    # Ground slots 0-5, then 2 x 4 pair slots on the two feet (bodies 4, 8).
+    starts = _ints(p.contact_start, 12)
+    assert [starts[i + 1] - starts[i] for i in range(11)] == [2, 0, 0, 0, 6, 0, 0, 0, 6, 0, 0]
+    # The rows as the kernel sizes and shares them out (rigid_body.cuh,
+    # control_step.cu): CS_NV = 6 + CS_NJ, the base's rows 0-5 and row
+    # 5 + i of body i's hinge; the forward solve gives lane l the rows
+    # l + q * CS_G for q < kRows; the factor, below column j, the rows
+    # first_owned_row(j + 1, l), then every CS_G-th.
+    sizes = plan.sizes
+    nv, G = 6 + (sizes["CS_NB"] - 1), sizes["CS_G"]
+    assert nv == model.nv == 16
+    assert sorted(list(range(6)) + [5 + i for i in range(1, sizes["CS_NB"])]) == list(range(nv))
+    k_rows = (nv + G - 1) // G
+    assert (G, k_rows) == (16, 1)  # one row per lane: the branch nv = 18 never takes
+    owned = [lane + q * G for lane in range(G) for q in range(k_rows) if lane + q * G < nv]
+    assert sorted(owned) == list(range(nv))
+
+    def first_owned_row(after: int, lane: int) -> int:
+        return after + ((lane - after % G) + G) % G
+
+    for j in range(nv - 1):
+        below = [i for lane in range(G) for i in range(first_owned_row(j + 1, lane), nv, G)]
+        assert sorted(below) == list(range(j + 1, nv))
 
 
 SCENES = {
@@ -217,6 +261,19 @@ def control_plans():
     return plans
 
 
+# The humanoid at its own sizes and the shipped 16 lanes per env, so that
+# nv = 16 gives one row per lane in the forward solve (kRows == 1); two envs
+# a block, three envs, so that the second block's second group runs past
+# the batch.
+HUMANOID_GROUP, HUMANOID_THREADS = 16, 32
+
+
+def humanoid_plans():
+    model = make_humanoid(self_collision=True, joint_limits=True)
+    return {mode: ControlStepPlan(model, 350.0, 0.002, 10, mode == "exact")
+            for mode in ("held", "exact")}
+
+
 def scene_plan() -> SceneStepPlan:
     plan = SceneStepPlan((general_tree(), slider_tree()), ((0, 0, 1, 0), (1, 1, 0, 2)), 0.002, 3)
     plan.group_size = GROUP
@@ -309,6 +366,8 @@ def host_kernels(tmp_path_factory):
     specs = {
         "control_step": ("control_step", control_plans()["held"].kernel_spec[1],
                          HOST_MAIN % {"call": CALLS["control_step"]}),
+        "control_step_humanoid": ("control_step", humanoid_plans()["held"].kernel_spec[1],
+                                  HOST_MAIN % {"call": CALLS["control_step"]}),
         "scene_step": ("scene_step", scene_plan().kernel_spec[1],
                        HOST_MAIN % {"call": CALLS["scene_step"]}),
         "gae": ("gae", (), GAE_MAIN),
@@ -318,6 +377,8 @@ def host_kernels(tmp_path_factory):
                                             sampler_plan(group, 32, 3.0).sampler_spec[1],
                                             SAMPLER_MAIN)
     assert control_plans()["substeps"].kernel_spec == control_plans()["held"].kernel_spec
+    assert humanoid_plans()["exact"].kernel_spec == humanoid_plans()["held"].kernel_spec
+    assert humanoid_plans()["held"].sizes["CS_G"] == HUMANOID_GROUP == make_humanoid().nv
     procs = {}
     for name, (source, flags, main) in specs.items():
         build = tmp_path_factory.mktemp(name)
@@ -342,7 +403,8 @@ def host_kernels(tmp_path_factory):
     return out
 
 
-def run_host(host_kernels, source: str, entry: str, params, inputs, widths) -> list[torch.Tensor]:
+def run_host(host_kernels, source: str, entry: str, params, inputs, widths, batch: int = B,
+             threads: int = THREADS) -> list[torch.Tensor]:
     binary, build = host_kernels[source]
     run_dir = build / entry
     run_dir.mkdir(exist_ok=True)
@@ -353,11 +415,11 @@ def run_host(host_kernels, source: str, entry: str, params, inputs, widths) -> l
         if k < len(inputs) and inputs[k] is not None:
             np.ascontiguousarray(inputs[k], np.float32).tofile(path)
     done = subprocess.run(
-        [str(binary), entry, str(run_dir), str(B), str(THREADS), *map(str, widths)],
+        [str(binary), entry, str(run_dir), str(batch), str(threads), *map(str, widths)],
         capture_output=True, text=True, timeout=RUN_SECONDS,
     )
     assert done.returncode == 0, f"{entry}: exit {done.returncode}\n{done.stderr}"
-    return [torch.from_numpy(np.fromfile(run_dir / f"out{k}.bin", np.float32).reshape(B, w))
+    return [torch.from_numpy(np.fromfile(run_dir / f"out{k}.bin", np.float32).reshape(batch, w))
             for k, w in enumerate(widths)]
 
 
@@ -395,6 +457,26 @@ def test_control_step_kernel_on_the_host_matches_plain_version(host_kernels, mod
     widths = (plan.model.nq, plan.model.nv, plan.n_geoms)
     got = run_host(host_kernels, "control_step", "control_step", pack_params(plan),
                    [arrays[k] for k in ("qpos", "qvel", "target", "extra")], widths)
+    assert_control_step_close(got, want)
+
+
+@pytest.mark.parametrize("mode", ["held", "exact"])
+def test_control_step_kernel_on_the_host_at_the_humanoids_sizes(host_kernels, mode):
+    """The humanoid with self-collision and joint limits, 16 lanes per env
+    (one row of the forward solve per lane), ten substeps: feet on the
+    ground, the feet's spheres pressed together, a knee past its stop;
+    qpos 2e-4, qvel 2e-3, normals rtol 5e-3 / atol 5e-2, the quadruped's
+    tolerances (glibc's sinf, cosf and sqrtf against PyTorch's)."""
+    torch.set_num_threads(1)
+    plan = humanoid_plans()[mode]
+    arrays = humanoid_states(plan.model, B, seed=3)
+    args = [torch.from_numpy(arrays[k]) for k in ("qpos", "qvel", "target")]
+    want = plan.plain(*args)
+    assert (want[2][:, :6] > 0).any() and (want[2][:, 6:] > 0).any()  # ground and a pair
+    widths = (plan.model.nq, plan.model.nv, plan.n_geoms)
+    got = run_host(host_kernels, "control_step_humanoid", f"humanoid_{mode}", pack_params(plan),
+                   [arrays[k] for k in ("qpos", "qvel", "target")], widths,
+                   threads=HUMANOID_THREADS)
     assert_control_step_close(got, want)
 
 
