@@ -47,7 +47,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    env step at the humanoid's sizes; and two analytic paths with no
    physics kernel: locomotion (JoystickLocomotion, 4096 envs, the physics
    leg's net) and heavy physics (NLinkSwingup with 5 links, 8192 envs, MLP
-   256x2);
+   256x2); and the networks paths, GAE only, on CartpoleBalance with a
+   500-step limit: gru_1024 (GRU(obs, 64) actor and critic, 1024 envs,
+   T=30, the fused replay with the GRUs' input projections hoisted),
+   gru_1024_unfused (the same with fused_replay=False: the whole-net step
+   scan), population_graph_1024 (sensor -> core(64, tanh) with a delay-1
+   self-loop -> motor, critic MLP 256, 1024 envs, T=30) and
+   mlp_wide_bf16_8192 (actor 1024x4, critic 2048x2, compute_dtype bf16,
+   8192 envs, T=20);
 5. reference: for the flagship, the physics leg, the pusher, both
    humanoid paths and both analytic paths the PPO
    loss and its gradients on the card against the same computation on
@@ -55,7 +62,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    own with one GAE launch per reward key (the same bits), and for each
    quadruped, humanoid and manipulation path one env step on the card (kernels)
    against the CPU (plain versions) from the same state, action and
-   draws.
+   draws; the same loss reference for the networks paths (the bf16 one at
+   its own stated limits, on 512 of its 2048 minibatch columns), for an
+   LSTM actor-critic and a Dense -> Delay(2) -> AR1 bottleneck -> sampler
+   actor (no timed steps), and the GRU path's fused replay against its
+   whole-net scan on the card.
 
 It prints a ``kernels`` JSON line (each kernel's design, and its
 registers, stack, spills and shared memory from ptxas and the launch), the
@@ -96,22 +107,37 @@ import time
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 FLAGSHIP_STEPS_CHECKED = 2
-FLAGSHIP_STEPS_TIMED = 5
+FLAGSHIP_STEPS_TIMED = 3
 PHYSICS_STEPS_CHECKED = 2
-PHYSICS_STEPS_TIMED = 5
-PHYSICS_STEPS_NOSHUFFLE = 3
+PHYSICS_STEPS_TIMED = 3
+PHYSICS_STEPS_NOSHUFFLE = 2
 HEIGHTGRID_STEPS_CHECKED = 2
-HEIGHTGRID_STEPS_TIMED = 5
+HEIGHTGRID_STEPS_TIMED = 3
 XLAFACTOR_STEPS_CHECKED = 1
 XLAFACTOR_STEPS_TIMED = 3
 MANIPULATION_STEPS_CHECKED = 2
-MANIPULATION_STEPS_TIMED = 5
+MANIPULATION_STEPS_TIMED = 3
 HUMANOID_STEPS_CHECKED = 2
 HUMANOID_STEPS_TIMED = 3
 ANALYTIC_STEPS_CHECKED = 2
 ANALYTIC_STEPS_TIMED = 3
+
+
+# Loss and gradients on the card against the CPU: float32 on both, sums
+# over T * width samples in another order. ``grad_of_max`` adds that
+# share of the tensor's largest entry to each entry's atol.
+LOSS_LIMITS = dict(loss_rtol=1e-4, loss_atol=1e-5, grad_rtol=1e-3, grad_atol=1e-5, grad_of_max=0.0)
+# bf16 compute (mlp_wide_bf16_8192): the loss agrees as closely as the
+# float32 paths' (H100: 1.0e-4 to 2.0e-4 of rtol 1e-3 in four runs) and
+# keeps their limits. The gradients are bf16 values, and each layer's
+# input gradient is rounded to bf16 too, so an entry, near 0 as well,
+# differs by a share of its tensor's scale: the H100 read at most 0.99% of
+# the tensor's largest entry (widths 2048 and 512, four runs: 0.64%,
+# 0.99%, 0.99%, 0.62%). The limit is two bf16 steps of that entry, 2^-6.
+BF16_LOSS_LIMITS = dict(LOSS_LIMITS, grad_rtol=0.0, grad_of_max=2.0**-6)
 
 
 def check(ok: bool, what: str) -> None:
@@ -1407,6 +1433,145 @@ def heavy_physics_leg(torch):
     return env, networks, config, make_optimizer(config.learning_rate)
 
 
+def gru_leg(torch, fused_replay: bool = True):
+    """cartpole_gru (benchmarks/suite.py:83-105): actor GRU(obs, 64) ->
+    Dense(64, 2A) -> NormalTanhSampler, critic GRU(obs, 64) -> Dense(64, 1),
+    no obs normalization; 500-step limit, 1024 envs, T=30, 4 x 4 minibatches.
+    The fused replay hoists each GRU's input projection; ``fused_replay=
+    False`` replays the whole net step by step."""
+    from nnx_ppo_tpu_torch.algorithms import PPOConfig, make_optimizer
+    from nnx_ppo_tpu_torch.envs import CartpoleBalance
+    from nnx_ppo_tpu_torch.networks import GRU, Dense, NormalTanhSampler, PPOAdapter, Sequential
+    from nnx_ppo_tpu_torch.wrappers import EpisodeWrapper
+
+    env = EpisodeWrapper(CartpoleBalance(), max_len=500)
+    obs, n_act = env.observation_size, env.action_size
+    g = torch.Generator().manual_seed(0)
+    actor = Sequential.create([
+        GRU.create(obs, 64, g), Dense.create(64, 2 * n_act, g),
+        NormalTanhSampler.create(entropy_weight=1e-3),
+    ])
+    critic = Sequential.create([GRU.create(obs, 64, g), Dense.create(64, 1, g)])
+    networks = PPOAdapter.create(action=actor, value=critic)
+    config = PPOConfig(n_envs=1024, rollout_length=30, fused_replay=fused_replay)
+    return env, networks, config, make_optimizer(config.learning_rate)
+
+
+def gru_unfused_leg(torch):
+    return gru_leg(torch, fused_replay=False)
+
+
+def lstm_leg(torch):
+    """The GRU path's net with LSTM cells (no suite row; for the loss
+    reference only)."""
+    from nnx_ppo_tpu_torch.networks import LSTM, Dense, NormalTanhSampler, PPOAdapter, Sequential
+
+    env, _, config, optimizer = gru_leg(torch)
+    obs, n_act = env.observation_size, env.action_size
+    g = torch.Generator().manual_seed(1)
+    actor = Sequential.create([
+        LSTM.create(obs, 64, g), Dense.create(64, 2 * n_act, g),
+        NormalTanhSampler.create(entropy_weight=1e-3),
+    ])
+    critic = Sequential.create([LSTM.create(obs, 64, g), Dense.create(64, 1, g)])
+    return env, PPOAdapter.create(action=actor, value=critic), config, optimizer
+
+
+def delay_ar1_leg(torch):
+    """An actor Dense(obs, 4A) -> Delay(k=2) -> AR1VariationalBottleneck(2A)
+    -> NormalTanhSampler, critic MLP 64; the GRU path's env and config
+    (for the loss reference only)."""
+    from nnx_ppo_tpu_torch.networks import (
+        AR1VariationalBottleneck, Delay, Dense, NormalTanhSampler, PPOAdapter, Sequential, make_mlp,
+    )
+
+    env, _, config, optimizer = gru_leg(torch)
+    obs, n_act = env.observation_size, env.action_size
+    g = torch.Generator().manual_seed(2)
+    actor = Sequential.create([
+        Dense.create(obs, 4 * n_act, g, torch.tanh),
+        Delay.create(torch.zeros(4 * n_act), k_steps=2),
+        AR1VariationalBottleneck.create(2 * n_act, kl_weight=1e-3, ar1_weight=1e-2),
+        NormalTanhSampler.create(entropy_weight=1e-3),
+    ])
+    critic = make_mlp([obs, 64, 1], g, activation_last_layer=False)
+    return env, PPOAdapter.create(action=actor, value=critic), config, optimizer
+
+
+def population_graph_leg(torch):
+    """population_graph (benchmarks/suite.py:320-349): sensor -> core(64,
+    tanh) with a delay-1 self-loop -> motor, as Filter / graph / Filter /
+    Flattener / NormalTanhSampler, critic MLP 256; 1024 envs, T=30."""
+    from nnx_ppo_tpu_torch.algorithms import PPOConfig, make_optimizer
+    from nnx_ppo_tpu_torch.envs import CartpoleBalance
+    from nnx_ppo_tpu_torch.networks import (
+        Filter, Flattener, NormalTanhSampler, PPOAdapter, Sequential, make_mlp,
+    )
+    from nnx_ppo_tpu_torch.networks.graph import PopulationGraph
+    from nnx_ppo_tpu_torch.wrappers import EpisodeWrapper
+
+    env = EpisodeWrapper(CartpoleBalance(), max_len=500)
+    b = PopulationGraph.builder(3)
+    b.add_input("sensor", env.observation_size, input_from="obs")
+    b.add_population("core", 64, activation=torch.tanh)
+    b.add_output("motor", 2 * env.action_size)
+    b.connect("sensor", "core")
+    b.connect("core", "core", delay=1)
+    b.connect("core", "motor")
+    actor = Sequential.create([
+        Filter.create({"obs": lambda x: x}), b.finalize(), Filter.create({"motor": "motor"}),
+        Flattener.create(), NormalTanhSampler.create(entropy_weight=1e-3),
+    ])
+    critic = make_mlp([env.observation_size, 256, 1], torch.Generator().manual_seed(4),
+                      activation_last_layer=False)
+    networks = PPOAdapter.create(action=actor, value=critic)
+    config = PPOConfig(n_envs=1024, rollout_length=30)
+    return env, networks, config, make_optimizer(config.learning_rate)
+
+
+def mlp_wide_bf16_leg(torch):
+    """mlp_wide_bf16_8192 (benchmarks/suite.py:69-80): make_mlp_actor_critic
+    with actor 1024 x 4, critic 2048 x 2, compute_dtype bf16 (the float32
+    product of bf16-rounded operands), obs normalization; 500-step limit,
+    8192 envs, T=20."""
+    from nnx_ppo_tpu_torch.algorithms import PPOConfig, make_optimizer
+    from nnx_ppo_tpu_torch.envs import CartpoleBalance
+    from nnx_ppo_tpu_torch.networks import make_mlp_actor_critic
+    from nnx_ppo_tpu_torch.wrappers import EpisodeWrapper
+
+    env = EpisodeWrapper(CartpoleBalance(), max_len=500)
+    networks = make_mlp_actor_critic(
+        env.observation_size, env.action_size, [1024] * 4, [2048] * 2, 0, entropy_weight=1e-3,
+        compute_dtype="bfloat16",
+    )
+    config = PPOConfig(n_envs=8192, rollout_length=20)
+    return env, networks, config, make_optimizer(config.learning_rate)
+
+
+# The networks paths: label -> (leg, checked steps, timed steps).
+NETWORK_PATHS = {
+    "gru_1024": (gru_leg, 1, 3),
+    "gru_1024_unfused": (gru_unfused_leg, 1, 1),
+    "population_graph_1024": (population_graph_leg, 1, 3),
+    "mlp_wide_bf16_8192": (mlp_wide_bf16_leg, 1, 3),
+}
+
+
+def dense_tflop_per_step(networks, config) -> float:
+    """TFLOP of the Dense matmuls in one ``ppo_step``: 2 * in * out per
+    sample and layer forward, over the rollout's T * B samples once, the
+    update's E epochs of T * B samples forward and backward (three
+    matmuls of that size: the forward, the input's gradient and the
+    kernel's), and the E * M bootstrap forwards of B / M samples."""
+    from nnx_ppo_tpu_torch.networks import Dense
+
+    per_sample = sum(2 * m.kernel.shape[0] * m.kernel.shape[1]
+                     for m in networks.modules() if isinstance(m, Dense))
+    samples = config.n_envs * config.rollout_length
+    passes = samples + 3 * config.n_epochs * samples + config.n_epochs * config.n_envs
+    return per_sample * passes / 1e12
+
+
 def check_finite(history: dict, torch) -> None:
     for name, v in history.items():
         check(bool(torch.isfinite(torch.as_tensor(v)).all()), f"{name} is finite")
@@ -1588,8 +1753,8 @@ def physics_path_phase(torch, kernels: list, profile_dir: str | None, label: str
     return result
 
 
-def loss_reference_phase(torch, label: str, env, config, ts, scaled_grad_atol: bool = False
-                         ) -> float:
+def loss_reference_phase(torch, label: str, env, config, ts, scaled_grad_atol: bool = False,
+                         limits: dict | None = None, width: int | None = None) -> float:
     """Loss and gradients on the card (one GAE launch for all reward keys)
     against the CPU (plain GAE) for one full-width minibatch of a fresh
     rollout, and against the card's loss with one GAE launch per key (the
@@ -1599,7 +1764,13 @@ def loss_reference_phase(torch, label: str, env, config, ts, scaled_grad_atol: b
     width samples in another order differ by a share of the summands'
     size, not of the result's, so an entry near 0 in a tensor of entries
     above 1 misses a fixed 1e-5 (the full humanoid's actor head: 1.45e-5
-    on an entry of 2e-5)."""
+    on an entry of 2e-5). ``limits`` replaces the default tolerances
+    (``LOSS_LIMITS``) for a path whose arithmetic differs more between the
+    devices (bf16 compute). The loss replays as ``config.fused_replay``
+    says. The errors are printed, each as its share of its limit, before
+    they are checked. ``width`` narrows the minibatch (default: the
+    path's, ``n_envs // n_minibatches``) where the CPU's half would take
+    long."""
     from nnx_ppo_tpu_torch.algorithms import ppo as ppo_module
     from nnx_ppo_tpu_torch.algorithms import ppo_loss
     from nnx_ppo_tpu_torch.algorithms.ppo import ReplayMinibatch
@@ -1612,7 +1783,8 @@ def loss_reference_phase(torch, label: str, env, config, ts, scaled_grad_atol: b
         _, _, rollout = unroll_env(
             env, ts.env_states, net_gpu, ts.network_states, config.rollout_length, ts.generator
         )
-    width = config.n_envs // config.n_minibatches
+    t0 = time.perf_counter()
+    width = width or config.n_envs // config.n_minibatches
     sel = torch.arange(width, device="cuda")
     view = ReplayMinibatch.from_rollout(rollout).gather(sel, lambda x, s: x[:, s], lambda x, s: x[s])
     kw = dict(
@@ -1623,7 +1795,9 @@ def loss_reference_phase(torch, label: str, env, config, ts, scaled_grad_atol: b
         gae_lambda=config.gae_lambda,
         critic_loss_weight=1.0,
         logging_level=config.logging_level,
+        fused_replay=config.fused_replay,
     )
+    lim = dict(LOSS_LIMITS, **(limits or {}))
     net_cpu = copy.deepcopy(net_gpu).cpu()
     view_cpu = tree_map(lambda x: x.cpu(), view)
     before = gae_cuda.launches
@@ -1639,25 +1813,36 @@ def loss_reference_phase(torch, label: str, env, config, ts, scaled_grad_atol: b
 
     def grad_share(got_grads) -> float:
         """The largest |got - want| / (atol + rtol |want|) over every
-        gradient entry: above 1 the check below fails."""
+        gradient entry: above 1 the check fails."""
         share = 0.0
         for got, want in zip(got_grads, want_grads):
-            atol = 1e-5 * max(1.0, want.abs().max().item()) if scaled_grad_atol else 1e-5
-            share = max(share, ((got.cpu() - want).abs() / (atol + 1e-3 * want.abs())).max().item())
+            largest = want.abs().max().item()
+            atol = (lim["grad_atol"] * (max(1.0, largest) if scaled_grad_atol else 1.0)
+                    + lim["grad_of_max"] * largest)
+            share = max(share, ((got.cpu() - want).abs()
+                                / (atol + lim["grad_rtol"] * want.abs())).max().item())
         return share
 
-    # float32 on both; sums over T * width samples in another order.
-    torch.testing.assert_close(loss_gpu.cpu(), loss_cpu, rtol=1e-4, atol=1e-5)
+    def loss_share(loss) -> float:
+        return abs(loss.item() - loss_cpu.item()) / (lim["loss_atol"]
+                                                     + lim["loss_rtol"] * abs(loss_cpu.item()))
+
     max_rel = max_grad = 0.0
     for p_gpu, p_cpu in zip(net_gpu.parameters(), net_cpu.parameters()):
         largest = p_cpu.grad.abs().max().item()
-        atol = 1e-5 * max(1.0, largest) if scaled_grad_atol else 1e-5
-        torch.testing.assert_close(p_gpu.grad.cpu(), p_cpu.grad, rtol=1e-3, atol=atol)
-        scale = max(largest, 1e-12)
-        max_rel = max(max_rel, (p_gpu.grad.cpu() - p_cpu.grad).abs().max().item() / scale)
+        max_rel = max(max_rel, (p_gpu.grad.cpu() - p_cpu.grad).abs().max().item() / max(largest, 1e-12))
         max_grad = max(max_grad, largest)
     grads = [p.grad for p in net_gpu.parameters()]
     share = grad_share(grads)
+    of_max = f" + {lim['grad_of_max']:g} x max |grad|" if lim["grad_of_max"] else ""
+    print(f"reference {label}: loss cuda {loss_gpu.item():.6f} cpu {loss_cpu.item():.6f}, "
+          f"|diff| {abs(loss_gpu.item() - loss_cpu.item()):.3g}; max grad diff / max |grad| "
+          f"{max_rel:.3g}; share of the limit (loss rtol {lim['loss_rtol']:g} atol "
+          f"{lim['loss_atol']:g}, gradients rtol {lim['grad_rtol']:g} atol {lim['grad_atol']:g}"
+          f"{' x max(1, max |grad|)' if scaled_grad_atol else ''}{of_max}): loss "
+          f"{loss_share(loss_gpu):.3g}, gradients {share:.3g}")
+    check(loss_share(loss_gpu) <= 1.0, f"{label}: the loss on the card is within its limit")
+    check(share <= 1.0, f"{label}: the gradients on the card are within their limit")
     net_gpu.zero_grad(set_to_none=True)
 
     # What a wrong GAE reads against the same limits: the CPU loss again,
@@ -1682,7 +1867,7 @@ def loss_reference_phase(torch, label: str, env, config, ts, scaled_grad_atol: b
         loss_wrong.backward()
     finally:
         ppo_module.gae_per_key = shipped
-    wrong_loss_share = abs(loss_wrong.item() - loss_cpu.item()) / (1e-5 + 1e-4 * abs(loss_cpu.item()))
+    wrong_loss_share = loss_share(loss_wrong)
     wrong_grad_share = grad_share([p.grad for p in net_wrong.parameters()])
 
     def one_launch_per_key(rewards, values, last_values, done, truncated, lambda_, gamma):
@@ -1705,13 +1890,55 @@ def loss_reference_phase(torch, label: str, env, config, ts, scaled_grad_atol: b
         torch.equal(p.grad, g) for p, g in zip(net_gpu.parameters(), grads))
     check(same, f"{label}: the loss with one GAE launch equals the per-key launches' to the bit")
     net_gpu.zero_grad(set_to_none=True)
-    print(f"reference {label}: loss cuda {loss_gpu.item():.6f} cpu {loss_cpu.item():.6f}; "
-          f"max grad diff / max |grad| {max_rel:.3g}, largest |grad| {max_grad:.3g}; with one GAE "
-          f"launch per key ({n_keys}) loss and gradients torch.equal True; share of the limit: "
-          f"loss {abs(loss_gpu.item() - loss_cpu.item()) / (1e-5 + 1e-4 * abs(loss_cpu.item())):.3g}"
-          f", gradients {share:.3g}; one GAE column of {width} wrong on the CPU would read loss "
-          f"{wrong_loss_share:.3g}, gradients {wrong_grad_share:.3g}")
+    print(f"reference {label}: largest |grad| {max_grad:.3g}; with one GAE launch per key "
+          f"({n_keys}) loss and gradients torch.equal True; one GAE column of {width} wrong on "
+          f"the CPU would read, as a share of the limit, loss {wrong_loss_share:.3g}, gradients "
+          f"{wrong_grad_share:.3g} ({time.perf_counter() - t0:.1f} s)")
     return abs(loss_gpu.item() - loss_cpu.item())
+
+
+def replay_modes_phase(torch, label: str, env, config, ts) -> None:
+    """The loss and gradients of one full-width minibatch of a fresh
+    rollout on the card, with the fused replay (the recurrent cells'
+    hoisted input projections) against the whole-net step scan
+    (``fused_replay=False``), at ``LOSS_LIMITS``: the same function, its
+    float32 sums associated differently."""
+    from nnx_ppo_tpu_torch.algorithms import ppo_loss
+    from nnx_ppo_tpu_torch.algorithms.ppo import ReplayMinibatch
+    from nnx_ppo_tpu_torch.algorithms.rollout import unroll_env
+    from nnx_ppo_tpu_torch.core.struct import tree_map
+
+    net = ts.networks
+    with torch.no_grad():
+        _, _, rollout = unroll_env(env, ts.env_states, net, ts.network_states,
+                                   config.rollout_length, ts.generator)
+    width = config.n_envs // config.n_minibatches
+    sel = torch.arange(width, device="cuda")
+    view = ReplayMinibatch.from_rollout(rollout).gather(sel, lambda x, s: x[:, s], lambda x, s: x[s])
+    results = {}
+    for fused in (True, False):
+        net.zero_grad(set_to_none=True)
+        loss, _ = ppo_loss(
+            net, tree_map(lambda x: x[:width], ts.network_states), view,
+            clip_range=config.clip_range, normalize_advantages=True,
+            combine_advantages=config.combine_advantages,
+            discounting_factor=config.discounting_factor, gae_lambda=config.gae_lambda,
+            critic_loss_weight=1.0, logging_level=config.logging_level, fused_replay=fused,
+        )
+        loss.backward()
+        results[fused] = (loss.detach(), [p.grad.clone() for p in net.parameters()])
+    net.zero_grad(set_to_none=True)
+    (loss_f, grads_f), (loss_s, grads_s) = results[True], results[False]
+    lim = LOSS_LIMITS
+    loss_share = (loss_f - loss_s).abs().item() / (lim["loss_atol"] + lim["loss_rtol"] * loss_s.abs().item())
+    grad_share = max(((a - b).abs() / (lim["grad_atol"] + lim["grad_rtol"] * b.abs())).max().item()
+                     for a, b in zip(grads_f, grads_s))
+    print(f"replay modes {label}: loss fused {loss_f.item():.6f} unfused {loss_s.item():.6f}; share "
+          f"of the limit (loss rtol {lim['loss_rtol']:g} atol {lim['loss_atol']:g}, gradients rtol "
+          f"{lim['grad_rtol']:g} atol {lim['grad_atol']:g}): loss {loss_share:.3g}, gradients "
+          f"{grad_share:.3g}")
+    check(loss_share <= 1.0 and grad_share <= 1.0,
+          f"{label}: fused and unfused replay agree within LOSS_LIMITS")
 
 
 def env_step_reference_phase(torch, label: str, env, kernels: list, per_env_step: dict,
@@ -1888,6 +2115,7 @@ def main() -> int:
         # Import nnx_ppo_tpu_torch from another checkout (--ab-kernels).
         sys.path.insert(0, os.path.abspath(args.package_root))
 
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1896,6 +2124,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from nnx_ppo_tpu_torch.algorithms import new_training_state
     from nnx_ppo_tpu_torch.ops import cuda_build
     from nnx_ppo_tpu_torch.ops.gae import gae_cuda
     from nnx_ppo_tpu_torch.physics.cuda_scene_step import scene_step_cuda
@@ -1933,11 +2162,14 @@ def main() -> int:
           "at once)")
 
     wrappers = [gae_cuda, control_step_cuda, plane_sampler_cuda, substeps_cuda, scene_step_cuda]
+    t_kernels = time.perf_counter()
     gae_kernel = gae_kernel_phase(torch)
     control_kernel = control_step_kernel_phase(torch, args.variants)
     sampler_kernel = plane_sampler_kernel_phase(torch)
     substeps_kernel = substeps_kernel_phase(torch, bool(args.profile))
     scene_kernel = scene_step_kernel_phase(torch, args.variants)
+    print(f"kernel phases: {time.perf_counter() - t_kernels:.1f} s")
+    t_paths = time.perf_counter()
 
     flagship_path = flagship_path_phase(torch, wrappers, args.profile)
     flagship_env, _, flagship_config, _ = flagship(torch)
@@ -1958,6 +2190,7 @@ def main() -> int:
         "humanoid_full": dict(none, gae_cuda=16, control_step_cuda=20),
         "locomotion": dict(none, gae_cuda=16),
         "heavy_physics": dict(none, gae_cuda=16),
+        **{label: dict(none, gae_cuda=16) for label in NETWORK_PATHS},
     }
     physics_wrappers = wrappers[1:4]
 
@@ -2008,6 +2241,36 @@ def main() -> int:
     for label, path in {**humanoid_paths, **analytic_paths}.items():
         loss_reference_phase(torch, label, path["env"], path["config"], path["state"],
                              scaled_grad_atol=True)
+    # The networks paths: recurrent (GRU, fused and unfused), the
+    # population graph, the widest MLP in bf16; GAE only.
+    network_paths = {
+        label: physics_path_phase(torch, wrappers, args.profile, label, leg, checked,
+                                  timed, per_step[label])
+        for label, (leg, checked, timed) in NETWORK_PATHS.items()
+    }
+    for label in ("gru_1024", "gru_1024_unfused", "population_graph_1024"):
+        path = network_paths[label]
+        loss_reference_phase(torch, label, path["env"], path["config"], path["state"])
+    gru_path = network_paths["gru_1024"]
+    replay_modes_phase(torch, "gru_1024", gru_path["env"], gru_path["config"], gru_path["state"])
+    wide = network_paths["mlp_wide_bf16_8192"]
+    tflop = dense_tflop_per_step(wide["state"].networks, wide["config"])
+    print(f"mlp_wide_bf16_8192: {tflop:.2f} TFLOP of Dense matmuls per ppo_step, "
+          f"{tflop / wide['step_ms'] * 1e3:.1f} TFLOP/s over the whole step; "
+          f"{tflop / FP32_FLOPS_PER_S * 1e15:.1f} ms at the float32 peak (the products are float32 "
+          f"GEMMs of bf16-rounded operands) and {tflop / BF16_FLOPS_PER_S * 1e15:.1f} ms at the bf16 "
+          f"tensor-core peak")
+    # 512 of the path's 2048 minibatch columns: the CPU's forward and
+    # backward of the wide net over 20 x 2048 rows, twice, would take a
+    # quarter of the run.
+    loss_reference_phase(torch, "mlp_wide_bf16_8192", wide["env"], wide["config"], wide["state"],
+                         limits=BF16_LOSS_LIMITS, width=512)
+    # The other modules, no timed steps: a fresh training state each.
+    for label, leg in (("lstm", lstm_leg), ("delay_ar1", delay_ar1_leg)):
+        env, networks, config, optimizer = leg(torch)
+        ts = new_training_state(env, networks, config.n_envs, seed=0, optimizer=optimizer,
+                                device="cuda")
+        loss_reference_phase(torch, label, env, config, ts)
     # After every path has been driven and its counts read: these steps
     # launch kernels too and must not count as the main paths'.
     for label, path in quadruped_paths.items():
@@ -2023,6 +2286,7 @@ def main() -> int:
                                  reward_atol=5e-4)
     for label, path in manipulation_paths.items():
         manipulation_env_step_reference_phase(torch, label, path["env"], scene_step_cuda)
+    print(f"paths and references: {time.perf_counter() - t_paths:.1f} s")
     if args.learn:
         learning_phase(torch, args.learn)
     if args.phases:
@@ -2031,7 +2295,8 @@ def main() -> int:
     # Launches on the main paths only (the comparisons above do not
     # count: every count was set to 0 just before each path).
     by_path = {"flagship": flagship_path["launches"]}
-    training_paths = {**quadruped_paths, **manipulation_paths, **humanoid_paths, **analytic_paths}
+    training_paths = {**quadruped_paths, **manipulation_paths, **humanoid_paths, **analytic_paths,
+                      **network_paths}
     by_path.update({label: path["launches"] for label, path in training_paths.items()})
     kernel_rows = {
         "gae_cuda": gae_kernel, "control_step_cuda": control_kernel,
@@ -2057,7 +2322,8 @@ def main() -> int:
              "xlafactor": XLAFACTOR_STEPS_TIMED, "pusher": MANIPULATION_STEPS_TIMED,
              "reacher": MANIPULATION_STEPS_TIMED, "humanoid": HUMANOID_STEPS_TIMED,
              "humanoid_full": HUMANOID_STEPS_TIMED, "locomotion": ANALYTIC_STEPS_TIMED,
-             "heavy_physics": ANALYTIC_STEPS_TIMED}
+             "heavy_physics": ANALYTIC_STEPS_TIMED,
+             **{label: timed for label, (_, _, timed) in NETWORK_PATHS.items()}}
     for label, path in training_paths.items():
         counts = ", ".join(f"{name} {n}" for name, n in by_path[label].items())
         dict_reward = isinstance(path["state"].env_states.reward, dict)
@@ -2082,6 +2348,7 @@ def main() -> int:
         f"ms per call alone, 20 per step, is {factor_share:.3f} of the {xlafactor_path['step_ms']:.2f} "
         "ms step"
     )
+    print(f"run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernel_rows.values())}))
     print(f"card: {card}")
     name = torch.cuda.get_device_name(0)

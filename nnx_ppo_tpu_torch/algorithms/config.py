@@ -2,10 +2,11 @@
 (``PPOConfig``, ``EvalConfig``, ``VideoConfig``, ``TrainConfig``,
 ``TrainResult``) with the same fields and defaults.
 
-Of the replay options the port runs the time-major fused replay
-(``fused_replay=True``, ``rollout_layout`` "auto" or "time_major",
-``replay_store_dtype="float32"``) with shuffled or contiguous minibatches
-(``shuffle_minibatches``); ``ppo_step`` raises
+Of the replay options the port runs the time-major replay, fused
+(``fused_replay=True``) or as the whole-net step scan
+(``fused_replay=False``), with ``rollout_layout`` "auto" or "time_major"
+and ``replay_store_dtype="float32"``, and shuffled or contiguous
+minibatches (``shuffle_minibatches``); ``ppo_step`` raises
 ``NotImplementedError`` for the others. For a replay-time-static network
 the batch-major layout gives the same losses as the time-major one.
 """

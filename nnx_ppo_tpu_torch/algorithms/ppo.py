@@ -11,9 +11,12 @@ Kept from the JAX package:
 * the deferred commit: every minibatch loss replays from the
   **pre-rollout** carries, and the running statistics (the Normalizer's
   Welford fold) are folded in only after all E·M updates (:455-467);
-* the time-major fused replay: the network is replay-time-static, so
-  the loss replays each minibatch as one forward over its ``[T, b]``
-  leading dims;
+* the time-major replay, fused (``fused_replay=True``, the default:
+  ``networks.replay_sequence``, layer-wise over time, so static layers
+  run one forward over their ``[T, b]`` leading dims and recurrent ones
+  scan only their own core) or the whole-net step scan
+  (``fused_replay=False``, :func:`~nnx_ppo_tpu_torch.networks.types.scan_replay`:
+  forward, ``reset_state``, ``tree_where(done, ...)``, ``ppo.py:573-585``);
 * GAE (``ops/gae.py::gae_per_key``) under no gradient, once per
   minibatch for all reward keys: one CUDA kernel launch for CUDA
   tensors, the plain version per key on the CPU.
@@ -41,7 +44,7 @@ from nnx_ppo_tpu_torch.algorithms.metrics import compute_metrics, log_weight_sta
 from nnx_ppo_tpu_torch.algorithms.types import LoggingLevel, TrainingState, Transition
 from nnx_ppo_tpu_torch.core.device import resolve_device
 from nnx_ppo_tpu_torch.core.struct import tree_leaves, tree_map, tree_stack
-from nnx_ppo_tpu_torch.networks.types import StatefulModule
+from nnx_ppo_tpu_torch.networks.types import StatefulModule, scan_replay
 from nnx_ppo_tpu_torch.ops.gae import gae_per_key
 from nnx_ppo_tpu_torch.parallel.permutation import minibatch_plan
 
@@ -198,13 +201,10 @@ class ReplayMinibatch:
 
 
 def _check_supported(config: PPOConfig) -> None:
-    unported = {
-        "fused_replay": (config.fused_replay, True),
-        "replay_store_dtype": (config.replay_store_dtype, "float32"),
-    }
-    for name, (value, ported) in unported.items():
-        if value != ported:
-            raise NotImplementedError(f"PPOConfig.{name}={value!r} is not ported yet")
+    if config.replay_store_dtype != "float32":
+        raise NotImplementedError(
+            f"PPOConfig.replay_store_dtype={config.replay_store_dtype!r} is not ported yet"
+        )
     if config.rollout_layout not in ("auto", "time_major"):
         raise NotImplementedError(
             f"PPOConfig.rollout_layout={config.rollout_layout!r} is not ported yet"
@@ -253,6 +253,7 @@ def ppo_update(
             gae_lambda=config.gae_lambda,
             critic_loss_weight=config.critic_loss_weight,
             logging_level=config.logging_level,
+            fused_replay=config.fused_replay,
         )
         loss.backward()
         if LoggingLevel.GRAD_NORM in config.logging_level:
@@ -354,9 +355,13 @@ def ppo_loss(
     gae_lambda: float,
     critic_loss_weight: float,
     logging_level: LoggingLevel,
+    fused_replay: bool = True,
 ) -> tuple[torch.Tensor, dict[str, Any]]:
     """Clipped-surrogate PPO loss with replay: re-run the network over
-    the stored ``[T, B]`` sequence with its ``rollout_extras``; bootstrap
+    the stored ``[T, B]`` sequence with its ``rollout_extras`` (layer-wise
+    ``replay_sequence`` when ``fused_replay``, else the whole-net step
+    scan with per-env resets on ``done``; the JAX function defaults to
+    the scan, this one to the fused form that ``PPOConfig`` selects); bootstrap
     the T+1 value with no extras and no generator; per-reward-key GAE;
     optional team-summed advantages; advantage normalization with the
     population std; 0.5·MSE critic; module regularization losses.
@@ -367,7 +372,8 @@ def ppo_loss(
         rollout_data = ReplayMinibatch.from_rollout(rollout_data)
     view = rollout_data
 
-    network_output, reg_seq, final_net_state = networks.replay_sequence(
+    replay = networks.replay_sequence if fused_replay else functools.partial(scan_replay, networks)
+    network_output, reg_seq, final_net_state = replay(
         network_state, view.obs, view.done, view.rollout_extras
     )
     with torch.no_grad():

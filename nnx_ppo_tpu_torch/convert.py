@@ -2,10 +2,16 @@
 
 No JAX counterpart. The JAX package's modules are pytrees whose field
 names match the port's attribute names (``layers``, ``action``,
-``value``, ``components`` and the child names of ``Concat`` /
-``Parallel``, ``kernel``, ``bias``, ``mean``, ``M2``, ``counter``), and
-the Dense kernel keeps its ``[in, out]`` layout here, so weights load by
-name with no transpose. :func:`legged_state_data` turns the ``data`` of a
+``value``, ``components`` and the child names of the named containers,
+``kernel``, ``bias``, ``mean``, ``M2``, ``counter``; the recurrent
+cells' ``wi``, ``wh``, ``bias``, ``initial_h``, ``initial_c``; a
+population graph's ``transforms``, one per connection), and the kernels
+keep their ``[in, out]`` layout here, so weights load by name with no
+transpose. A pytree ``Normalizer``'s ``mean`` / ``M2`` trees load key by
+key into its ``StatTree`` buffers. A ``PopulationGraph`` loads only into
+a graph with the same populations (names, sizes, buffer lengths) and the
+same connections (source, destination, delay) in the same order.
+:func:`legged_state_data` turns the ``data`` of a
 vmapped JAX ``LeggedJoystick`` state into the port's batched one, and
 :func:`heightgrid_from_fields` the fields of a JAX ``HeightGrid`` into the
 port's, so that both run on the same table. This module takes numpy
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from nnx_ppo_tpu_torch.networks.graph import PopulationGraph
 from nnx_ppo_tpu_torch.physics.randomize import FIELDS as DR_FIELDS
 from nnx_ppo_tpu_torch.physics.randomize import DomainParams
 from nnx_ppo_tpu_torch.physics.terrain import HeightGrid
@@ -45,6 +52,8 @@ def load_jax_leaves(module: nn.Module, tree: Any) -> nn.Module:
     buffers of the same names, recursively; ``None`` leaves (such as the
     positions a params/stats partition leaves empty) are skipped.
     Returns ``module``."""
+    if isinstance(module, PopulationGraph):
+        _check_graph_structure(module, tree)
     tensors = list(module.named_parameters(recurse=False)) + list(
         module.named_buffers(recurse=False)
     )
@@ -72,6 +81,21 @@ def load_jax_leaves(module: nn.Module, tree: Any) -> nn.Module:
         else:
             load_jax_leaves(child, subtree)
     return module
+
+
+def _check_graph_structure(graph: PopulationGraph, tree: Any) -> None:
+    """Populations and connections of the JAX graph ``tree`` by name."""
+    specs = {
+        "populations": lambda p: (p.name, p.size, p.max_outgoing_delay),
+        "connections": lambda c: (c.src, c.dst, c.delay),
+    }
+    for field, spec in specs.items():
+        theirs = _child(tree, field)
+        if theirs is None:
+            continue
+        ours, theirs = [spec(x) for x in getattr(graph, field)], [spec(x) for x in theirs]
+        if ours != theirs:
+            raise ValueError(f"PopulationGraph.{field}: {ours} here, {theirs} in the tree")
 
 
 def to_torch(tree: Any, device: Optional[torch.device | str] = None) -> Any:

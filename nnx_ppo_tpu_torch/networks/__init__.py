@@ -1,8 +1,11 @@
-"""Network modules (port of ``nnx_ppo_tpu/networks``: feed-forward
-layers, containers, sampler, normalizer, PPO adapter, factories)."""
+"""Network modules. Port of ``nnx_ppo_tpu/networks``, with every public
+name of it: feed-forward, recurrent, delay and variational layers,
+containers and utilities, samplers, the normalizer, the PPO adapter and
+the factories. The population graph is in ``networks.graph``."""
 
 from nnx_ppo_tpu_torch.networks.adapter import PPOAdapter
-from nnx_ppo_tpu_torch.networks.containers import Concat, Parallel, Sequential
+from nnx_ppo_tpu_torch.networks.containers import Concat, Parallel, Sequential, Splitter
+from nnx_ppo_tpu_torch.networks.delay import Delay
 from nnx_ppo_tpu_torch.networks.factories import (
     make_mlp,
     make_mlp_actor_critic,
@@ -10,24 +13,46 @@ from nnx_ppo_tpu_torch.networks.factories import (
 )
 from nnx_ppo_tpu_torch.networks.feedforward import Dense
 from nnx_ppo_tpu_torch.networks.normalizer import Normalizer
-from nnx_ppo_tpu_torch.networks.sampling_layers import NormalTanhSampler
+from nnx_ppo_tpu_torch.networks.recurrent import GRU, LSTM
+from nnx_ppo_tpu_torch.networks.sampling_layers import ActionSampler, NormalTanhSampler
 from nnx_ppo_tpu_torch.networks.types import (
     ModuleOutput,
+    ModuleState,
     PPONetworkOutput,
     StatefulModule,
+    StatefulModuleOutput,
+)
+from nnx_ppo_tpu_torch.networks.utils import Filter, Flattener, Map, Merge, Scale
+from nnx_ppo_tpu_torch.networks.variational import (
+    AR1VariationalBottleneck,
+    VariationalBottleneck,
 )
 
 __all__ = [
+    "AR1VariationalBottleneck",
+    "ActionSampler",
     "Concat",
+    "Delay",
     "Dense",
+    "GRU",
+    "LSTM",
+    "VariationalBottleneck",
+    "Filter",
+    "Flattener",
+    "Map",
+    "Merge",
     "ModuleOutput",
-    "Normalizer",
+    "ModuleState",
     "NormalTanhSampler",
+    "Normalizer",
     "PPOAdapter",
-    "Parallel",
     "PPONetworkOutput",
+    "Parallel",
+    "Scale",
     "Sequential",
+    "Splitter",
     "StatefulModule",
+    "StatefulModuleOutput",
     "make_mlp",
     "make_mlp_actor_critic",
     "make_mlp_layers",

@@ -1,6 +1,6 @@
 """Containers. Port of ``nnx_ppo_tpu/networks/containers.py``:
-``Sequential`` (:40), ``_NamedContainer`` (:127), ``Concat`` (:186) and
-``Parallel`` (:221). ``Splitter`` (:247) is not ported yet.
+``Sequential`` (:40), ``_NamedContainer`` (:127), ``Concat`` (:186),
+``Parallel`` (:221) and ``Splitter`` (:247).
 
 ``Sequential``: carry and extras are per-layer tuples; metrics are keyed
 by integer layer index. The named containers: carry, extras and metrics
@@ -210,3 +210,33 @@ class Parallel(_NamedContainer):
         return self._replay_children_sequence(
             state, done_seq, extras_seq, lambda key: obs_seq
         )
+
+
+class Splitter(StatefulModule):
+    """Split a flat tensor into named last-axis slices (dict output), in
+    declaration order; features past the last slice are dropped."""
+
+    def __init__(self, sizes: dict[str, int]):
+        super().__init__()
+        if not sizes:
+            raise ValueError("Splitter requires at least one named slice")
+        for k, v in sizes.items():
+            if v <= 0:
+                raise ValueError(f"slice size for {k!r} must be positive, got {v}")
+        self.sizes = tuple(sizes.items())
+
+    @classmethod
+    def create(cls, **sizes: int) -> "Splitter":
+        return cls(sizes)
+
+    def forward(self, state, x, rollout_extras=None, generator=None) -> ModuleOutput:
+        outputs: dict[str, Any] = {}
+        offset = 0
+        for key, size in self.sizes:
+            outputs[key] = x[..., offset : offset + size]
+            offset += size
+        return ModuleOutput((), outputs, 0.0, {}, None)
+
+    @property
+    def replay_time_static(self) -> bool:
+        return True

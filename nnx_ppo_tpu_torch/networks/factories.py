@@ -3,8 +3,10 @@
 The JAX factories take one PRNG key; these take an integer ``seed`` and
 draw every layer's initial weights, in order, from one CPU
 ``torch.Generator`` seeded with it. Modules are built on the CPU; the
-training entry points move them to their device. ``compute_dtype`` (bf16
-matmuls) is not ported in this slice.
+training entry points move them to their device. ``compute_dtype``
+(``factories.py:85``, e.g. ``torch.bfloat16`` or ``"bfloat16"``) runs
+every Dense matmul on bf16-rounded operands with a float32 product
+(``feedforward.Dense``).
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ def make_mlp_layers(
     activation: Callable = torch.relu,
     activation_last_layer: bool = True,
     initializer_scale: float = 1.0,
+    compute_dtype: Union[None, str, torch.dtype] = None,
 ) -> list[Dense]:
     """Dense layers for an MLP; ``sizes`` includes input and output."""
     layers = []
@@ -49,7 +52,8 @@ def make_mlp_layers(
         act = activation if (not is_last or activation_last_layer) else None
         layers.append(
             Dense.create(
-                din, dout, generator, act, initializer_scale=initializer_scale
+                din, dout, generator, act, initializer_scale=initializer_scale,
+                compute_dtype=compute_dtype,
             )
         )
     return layers
@@ -61,10 +65,13 @@ def make_mlp(
     activation: Callable = torch.relu,
     activation_last_layer: bool = True,
     initializer_scale: float = 1.0,
+    compute_dtype: Union[None, str, torch.dtype] = None,
 ) -> Sequential:
     """An MLP as a Sequential of Dense layers."""
     return Sequential.create(
-        make_mlp_layers(sizes, generator, activation, activation_last_layer, initializer_scale)
+        make_mlp_layers(
+            sizes, generator, activation, activation_last_layer, initializer_scale, compute_dtype
+        )
     )
 
 
@@ -80,6 +87,7 @@ def make_mlp_actor_critic(
     entropy_weight: float = 1e-2,
     min_std: float = 1e-1,
     std_scale: float = 1.0,
+    compute_dtype: Union[None, str, torch.dtype] = None,
 ) -> StatefulModule:
     """Standard one-actor / one-critic PPO network::
 
@@ -94,6 +102,7 @@ def make_mlp_actor_critic(
     The actor's last layer outputs ``2 * action_size`` features
     (mean | raw std) with no activation; the critic outputs 1. Kernels
     use variance-scaling fan-in uniform init; biases start at zero.
+    ``compute_dtype`` applies to every Dense layer.
     """
     if isinstance(activation, str):
         activation = _ACTIVATIONS[activation]
@@ -104,6 +113,7 @@ def make_mlp_actor_critic(
         activation,
         activation_last_layer=False,
         initializer_scale=initializer_scale,
+        compute_dtype=compute_dtype,
     )
     critic = Sequential.create(
         make_mlp_layers(
@@ -112,6 +122,7 @@ def make_mlp_actor_critic(
             activation,
             activation_last_layer=False,
             initializer_scale=initializer_scale,
+            compute_dtype=compute_dtype,
         )
     )
     sampler = NormalTanhSampler.create(

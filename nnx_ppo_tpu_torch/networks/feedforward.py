@@ -3,12 +3,24 @@
 The kernel keeps the JAX layout ``[in, out]`` and the layer computes
 ``x @ kernel + bias`` (``feedforward.py:73``), so weights carry across
 from the JAX package without a transpose (``nnx_ppo_tpu_torch/convert.py``).
+
+``compute_dtype`` (``feedforward.py:68-78``; typically ``torch.bfloat16``
+or ``"bfloat16"``): JAX computes ``jnp.dot(x.astype(bf16),
+kernel.astype(bf16), preferred_element_type=f32)``, both operands rounded
+to bf16, the products accumulated in float32, a float32 output. A matmul
+of two bf16 tensors in PyTorch rounds its output to bf16 too, and this
+PyTorch's ``out_dtype=torch.float32`` form has no CPU kernel, so the
+layer computes the float32 product of the bf16-rounded operands: the
+same function (each product of two bf16 values is exact in float32) on
+the CPU and on the card. Its gradients pass through the same casts, so
+they are rounded to bf16 at the operands as JAX's are. Parameters stay
+float32.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import torch
 from torch import nn
@@ -26,6 +38,16 @@ def variance_scaling_uniform(
     return (2.0 * u - 1.0) * limit
 
 
+def as_dtype(dtype: Union[None, str, torch.dtype]) -> Optional[torch.dtype]:
+    """``torch.bfloat16`` for ``"bfloat16"`` (the JAX suite's spelling)."""
+    return getattr(torch, dtype) if isinstance(dtype, str) else dtype
+
+
+def rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` rounded to ``dtype`` and back to float32."""
+    return x.to(dtype).to(torch.float32)
+
+
 class Dense(StatefulModule):
     """Linear layer + optional activation. Stateless (empty carry)."""
 
@@ -34,11 +56,13 @@ class Dense(StatefulModule):
         kernel: torch.Tensor,
         bias: Optional[torch.Tensor],
         activation: Optional[Callable] = None,
+        compute_dtype: Union[None, str, torch.dtype] = None,
     ):
         super().__init__()
         self.kernel = nn.Parameter(kernel)
         self.bias = None if bias is None else nn.Parameter(bias)
         self.activation = activation
+        self.compute_dtype = as_dtype(compute_dtype)
 
     @classmethod
     def create(
@@ -50,15 +74,19 @@ class Dense(StatefulModule):
         *,
         use_bias: bool = True,
         initializer_scale: float = 1.0,
+        compute_dtype: Union[None, str, torch.dtype] = None,
     ) -> "Dense":
         kernel = variance_scaling_uniform(
             (in_features, out_features), initializer_scale, generator
         )
         bias = torch.zeros(out_features) if use_bias else None
-        return cls(kernel, bias, activation)
+        return cls(kernel, bias, activation, compute_dtype)
 
     def forward(self, state, x, rollout_extras=None, generator=None) -> ModuleOutput:
-        y = torch.matmul(x, self.kernel)
+        if self.compute_dtype is None:
+            y = torch.matmul(x, self.kernel)
+        else:
+            y = torch.matmul(rounded(x, self.compute_dtype), rounded(self.kernel, self.compute_dtype))
         if self.bias is not None:
             y = y + self.bias
         if self.activation is not None:

@@ -1,6 +1,8 @@
-"""Tanh-squashed Normal action sampler.
+"""Action samplers: the abstract ``ActionSampler`` and the tanh-squashed
+Normal sampler.
 
-Port of ``nnx_ppo_tpu/networks/sampling_layers.py:52-163``:
+Port of ``nnx_ppo_tpu/networks/sampling_layers.py`` (``ActionSampler``
+:44, ``NormalTanhSampler`` :52-163):
 
 * ``rollout_extras is None`` (ROLLOUT / INFERENCE): draw action and
   entropy noise from the caller's ``generator`` and snapshot
@@ -41,7 +43,19 @@ def _tanh_log_det_jacobian(z: torch.Tensor) -> torch.Tensor:
     return 2.0 * (_LOG_2 - z - softplus(-2.0 * z))
 
 
-class NormalTanhSampler(StatefulModule):
+class ActionSampler(StatefulModule):
+    """Base class for samplers: consume distribution parameters, emit a
+    ``{"action", "log_likelihood"}`` dict plus replay extras.
+
+    ``deterministic`` (the JAX field) is the module's eval mode here:
+    ``module.eval()`` makes a sampler emit the distribution's mean."""
+
+    @property
+    def deterministic(self) -> bool:
+        return not self.training
+
+
+class NormalTanhSampler(ActionSampler):
     """Input ``[..., 2 * action_dim]`` (mean | raw std); output
     ``{"action", "log_likelihood"}``; the entropy bonus enters as a
     negative regularization loss."""
@@ -83,7 +97,7 @@ class NormalTanhSampler(StatefulModule):
                 entropy_noise = torch.randn(
                     mean.shape, generator=generator, device=mean.device, dtype=mean.dtype
                 )
-            sampled = mean if not self.training else mean + std * noise
+            sampled = mean if self.deterministic else mean + std * noise
             raw_action = sampled.detach()
         else:
             raw_action = rollout_extras["raw_action"]

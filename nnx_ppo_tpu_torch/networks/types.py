@@ -7,7 +7,8 @@ Port of ``nnx_ppo_tpu/networks/types.py``. Two kinds of state, as there:
    are folded in once per train step by :meth:`update_statistics`,
    which here updates the buffers in place and returns the module.
 2. *carry state*: an explicit per-env tree threaded by the algorithm and
-   reset at episode boundaries (empty for every module of this slice).
+   reset at episode boundaries (RNN hiddens, delay buffers, the AR1
+   bottleneck's last latent, a population graph's ring buffers).
 
 ``rollout_extras`` is the ROLLOUT -> LOSS_REPLAY channel: ``None`` means
 ROLLOUT/INFERENCE (sample fresh, emit the snapshot); anything else means
@@ -35,6 +36,8 @@ from typing import Any, Optional
 import torch
 from torch import nn
 
+from nnx_ppo_tpu_torch.core.struct import tree_map, tree_stack, tree_where
+
 ModuleState = Any  # (), dict, tuple, ... of per-env tensors
 
 
@@ -58,6 +61,10 @@ class ModuleOutput:
     regularization_loss: Any
     metrics: dict
     rollout_extras: Any = None
+
+
+# Alias for API parity with the JAX name.
+StatefulModuleOutput = ModuleOutput
 
 
 class StatefulModule(nn.Module):
@@ -106,20 +113,55 @@ class StatefulModule(nn.Module):
         obs_seq: Any,
         done_seq: torch.Tensor,
         extras_seq: Any,
-    ) -> tuple[Any, Any, ModuleState]:
-        """Replay over a whole ``[T, B, ...]`` stored sequence.
+    ) -> tuple[Any, torch.Tensor, ModuleState]:
+        """Replay over a whole ``[T, B, ...]`` stored sequence
+        (``nnx_ppo_tpu/networks/types.py:120-180``).
 
-        Returns ``(output_seq, reg_seq, final_state)``. A
-        replay-time-static module runs ONE forward over the ``[T, B]``
-        leading dims; its carry is constant, so ``final_state`` is the
-        carry it was given. The sequential replay of recurrent modules
-        waits for the later slice that ports them.
+        Returns ``(output_seq, reg_seq, final_state)``; the carry is
+        reset per env where ``done_seq[t]``, after step t, as in the
+        rollout (``rollout.single_transition``). A replay-time-static
+        module runs ONE forward over the ``[T, B]`` leading dims; its
+        carry is constant, so ``final_state`` is the carry it was given,
+        and its ``reg_seq`` is what that forward gives: a float, or a
+        tensor that broadcasts against ``[T, B]`` (JAX broadcasts it to
+        ``[T, B]``; on the card that would be a copy and an add per
+        layer and minibatch, and every reader takes a mean or a
+        broadcasting sum). Any other module runs the step-wise time scan
+        (:func:`scan_replay`), whose ``reg_seq`` is ``[T, B]``. Recurrent
+        modules and containers override this with faster forms of the
+        same function.
         """
-        del done_seq
-        if not self.replay_time_static:
-            raise NotImplementedError(
-                f"{type(self).__name__} is not replay-time-static; the "
-                "sequential replay has not been ported yet"
-            )
-        out = self(state, obs_seq, extras_seq)
-        return out.output, out.regularization_loss, state
+        if self.replay_time_static:
+            out = self(state, obs_seq, extras_seq)
+            return out.output, out.regularization_loss, state
+        return scan_replay(self, state, obs_seq, done_seq, extras_seq)
+
+
+def _normalize_reg(reg: Any, T: int, B: int, device: torch.device) -> torch.Tensor:
+    """Broadcast a regularization loss (a float, or a tensor that
+    broadcasts against ``[T, B]``) to ``[T, B]`` (``types.py:222-227``);
+    the scan uses it per step, with ``T = 1``."""
+    return torch.broadcast_to(torch.as_tensor(reg, dtype=torch.float32, device=device), (T, B))
+
+
+def scan_replay(
+    module: StatefulModule,
+    state: ModuleState,
+    obs_seq: Any,
+    done_seq: torch.Tensor,
+    extras_seq: Any,
+) -> tuple[Any, torch.Tensor, ModuleState]:
+    """The step-wise time scan (``types.py:168-180``, and the whole-net
+    scan of ``nnx_ppo_tpu/algorithms/ppo.py:573-585``): step t runs the
+    forward on ``obs_seq[t]`` with ``extras_seq[t]``; then the carry is
+    ``reset_state`` where ``done_seq[t]``. Returns ``(output_seq,
+    reg_seq [T, B], final_state)``."""
+    T, B = done_seq.shape
+    outputs, regs = [], []
+    for t in range(T):
+        extras_t = tree_map(lambda x: x[t], extras_seq)
+        out = module(state, tree_map(lambda x: x[t], obs_seq), extras_t)
+        outputs.append(out.output)
+        regs.append(_normalize_reg(out.regularization_loss, 1, B, done_seq.device)[0])
+        state = tree_where(done_seq[t], module.reset_state(out.next_state), out.next_state)
+    return tree_stack(outputs), torch.stack(regs), state

@@ -7,8 +7,8 @@ Both nets declare themselves replay-time-static: their carry is empty,
 so a replay's output depends only on (params, input, stored extras). The
 JAX nets keep the default (False) and replay by a scan over time, which
 gives the same result for an empty carry; the port replays every
-minibatch as one forward over its ``[T, B]`` leading dims (its time-scan
-replay is not ported yet), so their zero log-likelihoods and
+minibatch as one forward over its ``[T, B]`` leading dims (one forward
+where the scan would run T), so their zero log-likelihoods and
 regularization take the obs's batch dims instead of one batch size.
 """
 

@@ -584,3 +584,62 @@ def test_manipulation_envs_step_on_the_card_through_the_scene_kernel(cuda, cls):
     assert scene_step_cuda.launches == before + 3
     assert state.obs.is_cuda and torch.isfinite(state.obs).all()
     assert state.obs.shape == (256, env.observation_size)
+
+
+@pytest.mark.gpu
+def test_bf16_dense_on_the_card_matches_the_cpu(cuda):
+    """compute_dtype bf16: the float32 product of bf16-rounded operands on
+    the card against the CPU. The products are exact on both, so the
+    output differs by float32 sum order only: rtol 1e-5 / atol 1e-5 (an
+    [in=256] sum of terms near 1). Gradients are rounded to bf16 at the
+    operands, where a sum in another order can round to the next bf16
+    value, one step (2^-8 to 2^-7 = 7.8e-3 of the value): rtol 8e-3 /
+    atol 1e-5."""
+    from nnx_ppo_tpu_torch.networks import Dense
+
+    dense = Dense.create(256, 128, torch.Generator().manual_seed(0), torch.relu,
+                         compute_dtype=torch.bfloat16)
+    x = torch.randn(512, 256, generator=torch.Generator().manual_seed(1))
+    w = torch.randn(512, 128, generator=torch.Generator().manual_seed(2))
+    grads = {}
+    for device in ("cpu", "cuda"):
+        layer = Dense(dense.kernel.detach().clone(), dense.bias.detach().clone(), torch.relu,
+                      torch.bfloat16).to(device)
+        xx = x.detach().to(device).requires_grad_(True)
+        out = layer((), xx).output
+        (out * w.to(device)).sum().backward()
+        grads[device] = (out.detach().cpu(), layer.kernel.grad.cpu(), xx.grad.cpu())
+    torch.testing.assert_close(grads["cuda"][0], grads["cpu"][0], rtol=1e-5, atol=1e-5)
+    for got, want in zip(grads["cuda"][1:], grads["cpu"][1:]):
+        torch.testing.assert_close(got, want, rtol=8e-3, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_recurrent_replay_on_the_card_matches_the_cpu(cuda, cell):
+    """The hoisted GRU / LSTM replay with resets, trainable initial
+    state, on the card against the CPU: outputs rtol 1e-5 / atol 1e-5,
+    gradients rtol 1e-4 / atol 1e-5 (float32, matmuls reduced in another
+    order; TF32 off)."""
+    from nnx_ppo_tpu_torch.networks import GRU, LSTM
+
+    cls = {"gru": GRU, "lstm": LSTM}[cell]
+    module = cls.create(5, 64, torch.Generator().manual_seed(0), trainable_initial_state=True)
+    with torch.no_grad():
+        for p in module.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=torch.Generator().manual_seed(3)))
+    g = torch.Generator().manual_seed(4)
+    T, B = 30, 256
+    obs = torch.randn(T, B, 5, generator=g)
+    done = torch.rand(T, B, generator=g) < 0.05
+    results = {}
+    for device in ("cpu", "cuda"):
+        m = cls(*[p.detach().clone() for p in module.parameters()]).to(device)
+        state = m.initialize_state(B)
+        out, _, final = m.replay_sequence(state, obs.to(device), done.to(device), None)
+        h = final[0] if cell == "lstm" else final
+        (out.square().sum() + h.sum()).backward()
+        results[device] = (out.detach().cpu(), [p.grad.cpu() for p in m.parameters()])
+    torch.testing.assert_close(results["cuda"][0], results["cpu"][0], rtol=1e-5, atol=1e-5)
+    for got, want in zip(results["cuda"][1], results["cpu"][1]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
