@@ -54,7 +54,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    scan), population_graph_1024 (sensor -> core(64, tanh) with a delay-1
    self-loop -> motor, critic MLP 256, 1024 envs, T=30) and
    mlp_wide_bf16_8192 (actor 1024x4, critic 2048x2, compute_dtype bf16,
-   8192 envs, T=20);
+   8192 envs, T=20); and on the flat quadruped (held factor, no
+   randomization or pushes, the physics leg's net, 2048 envs, T=20):
+   quadruped_2048_pallas_bf16store (replay_store_dtype="bfloat16") and,
+   through new_distillation_state and distillation_multi_step,
+   distill_quadruped_2048 and distill_quadruped_2048_noshuffle (the
+   teacher in eval mode, the student its copy with jittered parameters;
+   20 control steps a step, no GAE). Every path prints the replay layout
+   its config resolves to ("auto": batch-major for a fully
+   replay-time-static network, as the JAX package resolves it);
 5. reference: for the flagship, the physics leg, the pusher, both
    humanoid paths and both analytic paths the PPO
    loss and its gradients on the card against the same computation on
@@ -66,7 +74,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    its own stated limits, on 512 of its 2048 minibatch columns), for an
    LSTM actor-critic and a Dense -> Delay(2) -> AR1 bottleneck -> sampler
    actor (no timed steps), and the GRU path's fused replay against its
-   whole-net scan on the card.
+   whole-net scan on the card; the batch-major loss against the
+   time-major one on the card (flagship, physics leg); the bf16 store
+   against the float32 one on a bf16-compute net (torch.equal); the
+   distillation loss on the card against the CPU; and GAE's batch-major
+   launch (the [B, T] keys of a batch-major minibatch read in place) to
+   the bit with gae_scan on the transposed views at [512, 20] x 2, [256,
+   30] and a ragged 33 envs, with the profiler's count of the kernels
+   around it.
 
 It prints a ``kernels`` JSON line (each kernel's design, and its
 registers, stack, spills and shared memory from ptxas and the launch), the
@@ -291,6 +306,11 @@ def gae_inputs(T: int, B: int, seed: int, device, torch, flag_dtype=None):
 # One minibatch of GAE on each path: (T, B, reward keys). The flags come
 # as the rollout stores them, bool, one tensor shared by the keys.
 GAE_PATH_SHAPES = {"flagship": (30, 256, 1), "quadruped": (20, 512, 2)}
+# The batch-major minibatches (every static path since "auto" resolves as
+# JAX's does), read in place: the quadruped paths' [b=512, T=20] x 2 keys,
+# the flagship's [256, 30], and a ragged b=33 (last block one env).
+GAE_BATCH_MAJOR_SHAPES = {"quadruped": (20, 512, 2), "flagship": (30, 256, 1),
+                          "ragged": (20, 33, 2)}
 # Columns (threads) per block of the GAE kernel that the run compares.
 GAE_COLUMN_VARIANTS = (16, 32, 64, 128)
 
@@ -316,6 +336,56 @@ def gae_keys(inputs: tuple) -> dict:
     if not isinstance(inputs[0], dict):
         return {"key0": inputs}
     return {k: tuple(x[k] if isinstance(x, dict) else x for x in inputs) for k in inputs[0]}
+
+
+def batch_major_inputs(inputs: tuple) -> tuple:
+    """:func:`gae_path_inputs`' tuple with every [T, B] tensor as a
+    contiguous [B, T] one: the keys of a batch-major minibatch."""
+    def bt(x):
+        return x.T.contiguous() if x.ndim == 2 else x
+
+    return tuple({k: bt(v) for k, v in x.items()} if isinstance(x, dict) else bt(x)
+                 for x in inputs)
+
+
+def gae_call_batch_major(inputs: tuple, lam: float, gamma: float):
+    """One batch-major minibatch's GAE as ppo_loss runs it: the [B, T]
+    keys read in place by one launch."""
+    from nnx_ppo_tpu_torch.ops.gae import gae_per_key
+
+    return lambda: gae_per_key(*inputs, lam, gamma, batch_major=True)
+
+
+def gae_call_swapped(inputs: tuple, lam: float, gamma: float):
+    """The same GAE as JAX's batch-major loss computes it
+    (nnx_ppo_tpu/algorithms/ppo.py:599-619): each key swapped to [T, B],
+    the time-major kernel, the advantages swapped back to [B, T]. Measured
+    here beside the in-place launch; the port does not use it."""
+    from nnx_ppo_tpu_torch.ops.gae import gae_per_key
+
+    rewards, values, last, done, truncation = inputs
+    tm = [{k: v.T for k, v in x.items()} if isinstance(x, dict) else x.T
+          for x in (rewards, values)]
+    return lambda: {k: a.T.contiguous() for k, a in gae_per_key(
+        tm[0], tm[1], last, done.T, truncation.T, lam, gamma).items()}
+
+
+def device_kernels_per_call(fn, torch, n: int = 20) -> dict:
+    """Every device kernel torch.profiler sees over ``n`` calls of ``fn``
+    (after a warm-up call): name -> launches per call. The profiler can
+    drop records (see :func:`profile_calls`), so a count may read low,
+    never high."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.count / n for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation}
 
 
 def gae_call(inputs: tuple, lam: float, gamma: float):
@@ -384,6 +454,38 @@ def gae_kernel_phase(torch) -> dict:
         print(f"gae_per_key [{T}, {B}] x {n_keys} keys, bool flags"
               f"{' per key' if per_key_flags else ' shared'}: one launch, every key torch.equal True")
 
+    # Batch-major keys [B, T], read in place: equal to the bit to gae_scan
+    # on the transposed views; the profiler sees the one launch and no
+    # copy before it (JAX's swap to [T, B] and back would add copies).
+    batch_major = {}
+    for label, (T, B, n_keys) in GAE_BATCH_MAJOR_SHAPES.items():
+        inputs = batch_major_inputs(gae_path_inputs(T, B, n_keys, torch))
+        before = gae_cuda.launches
+        got = gae_per_key(*inputs, lam, gamma, batch_major=True)
+        check(gae_cuda.launches == before + 1, f"batch-major gae [{B}, {T}] x {n_keys}: one launch")
+        got = got if isinstance(got, dict) else {"key0": got}
+        for k, (r, v, last, d, tr) in gae_keys(inputs).items():
+            want = gae_scan(r.T, v.T, last, d.T, tr.T, lam, gamma).T
+            max_err = max(max_err, (got[k] - want).abs().max().item())
+            check(got[k].shape == (B, T) and bool(torch.equal(got[k], want)),
+                  f"batch-major gae [{B}, {T}] {k} equals gae_scan on the transposed views to the bit")
+        seen = device_kernels_per_call(gae_call_batch_major(inputs, lam, gamma), torch)
+        check(all("gae_kernel" in k for k in seen) and 0.5 <= sum(seen.values()) <= 1,
+              f"batch-major gae [{B}, {T}]: the profiler sees the GAE launch and no other kernel "
+              f"(no copy before it): {seen}")
+        row = {"shape_b_t_keys": [B, T, n_keys], "device_kernels_in_place": seen}
+        if n_keys > 1 or label == "flagship":
+            swapped = device_kernels_per_call(gae_call_swapped(
+                inputs if n_keys > 1 else ({"key0": inputs[0]}, {"key0": inputs[1]},
+                                           {"key0": inputs[2]}, inputs[3], inputs[4]),
+                lam, gamma), torch)
+            row["device_kernels_swapped"] = sum(swapped.values())
+        batch_major[label] = row
+        print(f"gae batch-major [{B}, {T}] x {n_keys} key(s): one launch, every key torch.equal True "
+              f"with gae_scan on the transposed views; device kernels per call in place "
+              f"{sum(seen.values()):g} ({', '.join(seen)}); swapped to [T, B] and back as JAX's "
+              f"loss does: {row.get('device_kernels_swapped')}")
+
     # Columns per block: each variant equal to the bit, then timed in a
     # CUDA graph at both path shapes, in one order and then the reverse.
     shipped_columns = gae_module.GAE_COLUMNS
@@ -424,6 +526,27 @@ def gae_kernel_phase(torch) -> dict:
               f"{1e3 * times['graph_ms']:.3f} us (CUDA graph), "
               f"{times['device_kernels_per_call']:.1f} device kernels per call, bound "
               f"{1e3 * times['bound_ms']:.4f} us ({times['bound_by']})")
+    for label, (T, B, n_keys) in GAE_BATCH_MAJOR_SHAPES.items():
+        if label == "ragged":
+            continue
+        inputs = batch_major_inputs(gae_path_inputs(T, B, n_keys, torch))
+        times = kernel_times(gae_call_batch_major(inputs, lam, gamma), "gae_kernel", torch)
+        times["swapped_graph_ms"] = graph_device_ms(gae_call_swapped(
+            inputs if n_keys > 1 else ({"key0": inputs[0]}, {"key0": inputs[1]},
+                                       {"key0": inputs[2]}, inputs[3], inputs[4]), lam, gamma),
+            100, torch)
+        keys = [(r.T, v.T, last, d.T, tr.T) for r, v, last, d, tr in gae_keys(inputs).values()]
+        times["plain_ms"] = time_ms(lambda: [gae_scan(*key, lam, gamma).T for key in keys], 20,
+                                    torch)
+        times["bound_ms"], times["bound_by"] = gae_bound_ms(T, B, n_keys)
+        batch_major[label].update(times)
+        print(f"gae batch-major [{B}, {T}] x {n_keys} key(s) in one launch: wrapper "
+              f"{1e3 * times['wrapper_ms']:.2f} us, kernel {1e3 * times['kernel_device_ms']:.3f} us "
+              f"(profiler), {1e3 * times['graph_ms']:.3f} us (CUDA graph; swapped to [T, B] and "
+              f"back {1e3 * times['swapped_graph_ms']:.3f} us), "
+              f"{times['device_kernels_per_call']:.1f} device kernels per call, bound "
+              f"{1e3 * times['bound_ms']:.4f} us ({times['bound_by']}), plain version "
+              f"{times['plain_ms']:.3f} ms")
     flagship_shape, quadruped_shape = timed["flagship"], timed["quadruped"]
     floor = floor_kernel_times(torch)
     return {
@@ -444,9 +567,14 @@ def gae_kernel_phase(torch) -> dict:
         "at_20x512x2": quadruped_shape,
         "floor_kernel": floor,
         "columns_graph_ms": {str(c): v for c, v in columns_ms.items()},
+        "layouts": ["time_major [T, B] (the recurrent paths' minibatches)",
+                    "batch_major [B, T], read in place (every static path's minibatches)"],
+        "batch_major": batch_major,
         "design": (f"one launch for every reward key (blockIdx.y), {shipped_columns} columns per "
-                   "block, [T, columns] tiles staged by cp.async before the recurrence, flags read "
-                   "as bool or float32"),
+                   "block, [T, columns] tiles (batch-major: [columns, T], one span of "
+                   "columns x T elements) staged by cp.async before the recurrence, flags read "
+                   "as bool or float32; batch-major advantages written back through shared "
+                   "memory as [B, T] rows"),
         "ptxas": ptxas_row(("gae", ()), "gae_kernelIhh"),
     }
 
@@ -467,6 +595,7 @@ CONTROL_STEP_CASES = {
     "held, full features, B=2048": ("quadruped", 2048, False, True),
     "exact, full features, B=2048": ("quadruped", 2048, True, True),
     "held, flat ground, no extras, B=1000": ("quadruped", 1000, False, False),
+    "held, flat ground, no extras, B=2048": ("quadruped", 2048, False, False),
     "held, full features, B=33": ("quadruped", 33, False, True),
     "exact, full features, B=1001": ("quadruped", 1001, True, True),
     "humanoid held, B=8192": ("humanoid", 8192, False, False),
@@ -474,10 +603,12 @@ CONTROL_STEP_CASES = {
     "humanoid held, B=33": ("humanoid", 33, False, False),
     "humanoid exact, self-collision and joint limits, B=1001": ("humanoid", 1001, True, True),
 }
-# The cases timed beside their bound: the physics leg's shape and the two
+# The cases timed beside their bound: the physics leg's shape, the flat
+# quadruped's of the bf16-store and distillation paths, and the two
 # humanoid paths' (key in the kernels line -> case).
 CONTROL_STEP_TIMED = {
     "quadruped": "held, full features, B=2048",
+    "quadruped_flat_2048": "held, flat ground, no extras, B=2048",
     "humanoid_held_8192": "humanoid held, B=8192",
     "humanoid_exact_full_2048": "humanoid exact, self-collision and joint limits, B=2048",
 }
@@ -718,7 +849,7 @@ def control_step_kernel_phase(torch, variants: bool) -> dict:
         library_ms=None,  # no single PyTorch call computes a control step
         exact_ms=exact_ms,
         cases=checked,
-        at_humanoid=rows,
+        at_other_shapes=rows,
     )
     plan, args = cases[CONTROL_STEP_TIMED["quadruped"]]
     if variants:
@@ -1557,6 +1688,65 @@ NETWORK_PATHS = {
 }
 
 
+def bf16store_leg(torch):
+    """quadruped_2048_pallas_bf16store (benchmarks/suite.py:548-551): the
+    quadruped on flat ground (held factor, no randomization, no pushes),
+    the physics leg's net (no Normalizer) and config with
+    replay_store_dtype="bfloat16": the replay view keeps its float obs
+    leaves in bf16, transposed to batch-major ("auto") in the same copy."""
+    from nnx_ppo_tpu_torch.envs import QuadrupedJoystick
+
+    env, networks, config, optimizer = quadruped_leg(
+        torch, QuadrupedJoystick(reuse_mass_matrix=True))
+    return env, networks, dataclasses.replace(config, replay_store_dtype="bfloat16"), optimizer
+
+
+def distill_leg(torch, shuffle: bool = True):
+    """distill_quadruped_2048 and _noshuffle (benchmarks/suite.py:708-743):
+    the bf16-store path's env and net as the teacher, in eval mode; the
+    student the same net with each float32 parameter shifted by 0.01 *
+    sign(sin(arange(size))) in its [in, out] order (the JAX layout the
+    port keeps); DistillationConfig(n_envs=2048, rollout_length=20) with
+    its defaults (lr 1e-4, 4 x 4 minibatches), shuffled or contiguous."""
+    from nnx_ppo_tpu_torch.algorithms import DistillationConfig, make_optimizer
+    from nnx_ppo_tpu_torch.envs import QuadrupedJoystick
+
+    env, teacher, _, _ = quadruped_leg(torch, QuadrupedJoystick(reuse_mass_matrix=True))
+    student = copy.deepcopy(teacher)
+    with torch.no_grad():
+        for p in student.parameters():
+            shift = torch.sign(torch.sin(torch.arange(p.numel(), dtype=torch.float32)))
+            p.add_(0.01 * shift.reshape(p.shape))
+    config = DistillationConfig(n_envs=2048, rollout_length=20, shuffle_minibatches=shuffle)
+    return env, teacher.eval(), student, config, make_optimizer(config.learning_rate)
+
+
+# label -> (shuffled minibatches, checked steps, timed steps).
+DISTILL_PATHS = {
+    "distill_quadruped_2048": (True, 2, 3),
+    "distill_quadruped_2048_noshuffle": (False, 1, 2),
+}
+
+
+def on_device(tree, device):
+    """``tree`` with its tensors on ``device`` (a view's layout flag
+    passes through)."""
+    from nnx_ppo_tpu_torch.core.struct import tree_map
+
+    return tree_map(lambda x: x.to(device) if hasattr(x, "to") else x, tree)
+
+
+def first_envs(torch, view, width: int):
+    """The minibatch of ``view``'s first ``width`` envs, gathered by the
+    extractors that ``minibatch_plan`` gives for the view's layout."""
+    from nnx_ppo_tpu_torch.parallel.permutation import minibatch_plan
+
+    selectors, take_seq, take_batch = minibatch_plan(
+        width, 1, 1, selectors=torch.arange(width, device="cuda")[None],
+        batch_major=view.batch_major)
+    return view.gather(selectors[0], take_seq, take_batch)
+
+
 def dense_tflop_per_step(networks, config) -> float:
     """TFLOP of the Dense matmuls in one ``ppo_step``: 2 * in * out per
     sample and layer forward, over the rollout's T * B samples once, the
@@ -1577,17 +1767,16 @@ def check_finite(history: dict, torch) -> None:
         check(bool(torch.isfinite(torch.as_tensor(v)).all()), f"{name} is finite")
 
 
-def profile_step(torch, env, ts, config, optimizer, step_ms: float, profile_dir: str, label: str):
-    """One profiled ppo_step: kernels per step, device busy time, idle
-    share, and the share of each hand-written kernel."""
+def profile_step(torch, step, step_ms: float, profile_dir: str, label: str):
+    """One profiled training step (``step()``, a ppo_step or a
+    distillation_step, returns the next state): kernels per step, device
+    busy time, idle share, and the share of each hand-written kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from nnx_ppo_tpu_torch.algorithms import ppo_step
-
     os.makedirs(profile_dir, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        ts, _ = ppo_step(env, ts, config, optimizer)
+        ts = step()
         torch.cuda.synchronize()
     # Kernels only: user annotations (such as the optimizer's step
     # range) also carry a device time, as torch.profiler's table skips.
@@ -1621,13 +1810,25 @@ def profile_step(torch, env, ts, config, optimizer, step_ms: float, profile_dir:
     return ts
 
 
+def print_layout(label: str, config, networks) -> str:
+    """The replay layout ``config.rollout_layout`` resolves to for
+    ``networks`` (and the store dtype), printed; returns the layout."""
+    from nnx_ppo_tpu_torch.algorithms import resolve_batch_major
+
+    layout = "batch_major" if resolve_batch_major(config, networks) else "time_major"
+    print(f"{label}: rollout_layout {config.rollout_layout!r} resolves to {layout}, "
+          f"replay_store_dtype {config.replay_store_dtype}")
+    return layout
+
+
 def flagship_path_phase(torch, kernels: list, profile_dir: str | None) -> dict:
-    from nnx_ppo_tpu_torch.algorithms import new_training_state, ppo_multi_step
+    from nnx_ppo_tpu_torch.algorithms import new_training_state, ppo_multi_step, ppo_step
     from nnx_ppo_tpu_torch.ops.gae import gae_cuda
 
     env, networks, config, optimizer = flagship(torch)
     per_step = config.n_envs * config.rollout_length
     updates = config.n_epochs * config.n_minibatches
+    layout = print_layout("flagship", config, networks)
 
     for k in kernels:
         k.launches = 0
@@ -1659,8 +1860,10 @@ def flagship_path_phase(torch, kernels: list, profile_dir: str | None) -> dict:
 
     step_ms = timed_s / FLAGSHIP_STEPS_TIMED * 1e3
     if profile_dir:
-        ts = profile_step(torch, env, ts, config, optimizer, step_ms, profile_dir, "flagship")
+        ts = profile_step(torch, lambda: ppo_step(env, ts, config, optimizer)[0], step_ms,
+                          profile_dir, "flagship")
     return {
+        "layout": layout,
         "launches": launches,
         "first_call_s": first_s,
         "train_sps_first_call": FLAGSHIP_STEPS_CHECKED * per_step / first_s,
@@ -1679,10 +1882,11 @@ def physics_path_phase(torch, kernels: list, profile_dir: str | None, label: str
     checked and ``n_timed`` timed steps with shuffled minibatches, then
     ``n_noshuffle`` timed steps with contiguous ones. ``per_step`` maps
     each kernel wrapper's name to its launches per ``ppo_step``."""
-    from nnx_ppo_tpu_torch.algorithms import new_training_state, ppo_multi_step
+    from nnx_ppo_tpu_torch.algorithms import new_training_state, ppo_multi_step, ppo_step
 
     env, networks, config, optimizer = leg(torch)
     per_env_steps = config.n_envs * config.rollout_length
+    layout = print_layout(label, config, networks)
 
     def check_counts(n_steps: int) -> None:
         for k in kernels:
@@ -1737,8 +1941,10 @@ def physics_path_phase(torch, kernels: list, profile_dir: str | None, label: str
 
     step_ms = timed_s / n_timed * 1e3
     if profile_dir:
-        ts = profile_step(torch, env, ts, config, optimizer, step_ms, profile_dir, label)
+        ts = profile_step(torch, lambda: ppo_step(env, ts, config, optimizer)[0], step_ms,
+                          profile_dir, label)
     result.update({
+        "layout": layout,
         "launches": launches,
         "n_steps": n_steps,
         "first_call_s": first_s,
@@ -1753,8 +1959,256 @@ def physics_path_phase(torch, kernels: list, profile_dir: str | None, label: str
     return result
 
 
+def distill_path_phase(torch, kernels: list, profile_dir: str | None, label: str, shuffle: bool,
+                       n_checked: int, n_timed: int, per_step: dict) -> dict:
+    """A distillation path at full width through new_distillation_state
+    and distillation_multi_step, every kernel's count set to 0 just
+    before and read just after: ``n_checked`` checked, then ``n_timed``
+    timed steps. The teacher's parameters must come out unchanged to the
+    bit, and the student's moved."""
+    from nnx_ppo_tpu_torch.algorithms import (
+        distillation_multi_step, distillation_step, new_distillation_state,
+    )
+
+    env, teacher, student, config, optimizer = distill_leg(torch, shuffle)
+    teacher = teacher.to("cuda")
+    layout = print_layout(label, config, student)
+    per_env_steps = config.n_envs * config.rollout_length
+
+    def check_counts(n_steps: int) -> None:
+        for k in kernels:
+            check(k.launches == per_step[k.__name__] * n_steps,
+                  f"{label}: {k.__name__} launches {k.launches} after {n_steps} steps")
+
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = new_distillation_state(env, teacher, student, config.n_envs, seed=0,
+                                   optimizer=optimizer, device="cuda")
+    teacher_before = [p.detach().clone() for p in teacher.parameters()]
+    student_before = [p.detach().clone() for p in state.student.parameters()]
+    state, metrics = distillation_multi_step(env, teacher, state, config, optimizer, n_checked)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    check(state.steps_taken == n_checked * per_env_steps, f"steps_taken {state.steps_taken}")
+    check_counts(n_checked)
+    check_finite(metrics, torch)
+    nll_first = float(metrics["losses/distillation_nll/mean"])
+
+    t0 = time.perf_counter()
+    state, metrics = distillation_multi_step(env, teacher, state, config, optimizer, n_timed)
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    n_steps = n_checked + n_timed
+    check_counts(n_steps)
+    check_finite(metrics, torch)
+    launches = {k.__name__: k.launches for k in kernels}
+    check(state.steps_taken == n_steps * per_env_steps, f"steps_taken {state.steps_taken}")
+    check(all(torch.equal(a, p) for a, p in zip(teacher_before, teacher.parameters())),
+          f"{label}: the teacher's parameters are unchanged")
+    check(not all(torch.equal(a, p) for a, p in zip(student_before, state.student.parameters())),
+          f"{label}: the student's parameters moved")
+    step_ms = timed_s / n_timed * 1e3
+    if profile_dir:
+        state = profile_step(
+            torch, lambda: distillation_step(env, teacher, state, config, optimizer)[0], step_ms,
+            profile_dir, label)
+    return {
+        "layout": layout,
+        "launches": launches,
+        "n_steps": n_steps,
+        "first_call_s": first_s,
+        "step_ms": step_ms,
+        "sps": n_timed * per_env_steps / timed_s,
+        "state": state,
+        "env": env,
+        "config": config,
+        "teacher": teacher,
+        "nll": [nll_first, float(metrics["losses/distillation_nll/mean"])],
+    }
+
+
+def shares_of_limit(loss, grads, loss_want, grads_want, lim: dict) -> tuple[float, float]:
+    """(loss share, largest gradient share) of ``lim``'s tolerances: above
+    1 a check fails."""
+    loss_share = abs(loss - loss_want) / (lim["loss_atol"] + lim["loss_rtol"] * abs(loss_want))
+    grad_share = max((((g.cpu() - w.cpu()).abs())
+                      / (lim["grad_atol"] + lim["grad_rtol"] * w.cpu().abs())).max().item()
+                     for g, w in zip(grads, grads_want))
+    return loss_share, grad_share
+
+
+def layout_reference_phase(torch, label: str, env, config, ts) -> None:
+    """The PPO loss and gradients of one full-width minibatch of a fresh
+    rollout on the card, batch-major (GAE reads the minibatch's [b, T]
+    keys in place) against time-major, at ``LOSS_LIMITS``: the same
+    function, its float32 sums associated differently. Printed beside
+    what the batch-major loss reads with one GAE column wrong (env 0's
+    advantages taken from env 1)."""
+    from nnx_ppo_tpu_torch.algorithms import ppo as ppo_module
+    from nnx_ppo_tpu_torch.algorithms import ppo_loss
+    from nnx_ppo_tpu_torch.algorithms.ppo import ReplayMinibatch
+    from nnx_ppo_tpu_torch.algorithms.rollout import unroll_env
+    from nnx_ppo_tpu_torch.core.struct import tree_map
+
+    net = ts.networks
+    with torch.no_grad():
+        _, _, rollout = unroll_env(env, ts.env_states, net, ts.network_states,
+                                   config.rollout_length, ts.generator)
+    width = config.n_envs // config.n_minibatches
+    states = tree_map(lambda x: x[:width], ts.network_states)
+
+    def loss_and_grads(batch_major: bool):
+        view = first_envs(torch, ReplayMinibatch.from_rollout(rollout, batch_major), width)
+        net.zero_grad(set_to_none=True)
+        loss, _ = ppo_loss(
+            net, states, view, clip_range=config.clip_range, normalize_advantages=True,
+            combine_advantages=config.combine_advantages,
+            discounting_factor=config.discounting_factor, gae_lambda=config.gae_lambda,
+            critic_loss_weight=1.0, logging_level=config.logging_level,
+            fused_replay=config.fused_replay,
+        )
+        loss.backward()
+        return loss.item(), [p.grad.clone() for p in net.parameters()]
+
+    loss_tm, grads_tm = loss_and_grads(False)
+    loss_bm, grads_bm = loss_and_grads(True)
+    shipped = ppo_module.gae_per_key
+
+    def one_column_wrong(*args, **kwargs):
+        def wrong(a):
+            a = a.clone()
+            a[0] = a[1]
+            return a
+        return tree_map(wrong, shipped(*args, **kwargs))
+
+    try:
+        ppo_module.gae_per_key = one_column_wrong
+        loss_wrong, grads_wrong = loss_and_grads(True)
+    finally:
+        ppo_module.gae_per_key = shipped
+    net.zero_grad(set_to_none=True)
+    lim = LOSS_LIMITS
+    share = shares_of_limit(loss_bm, grads_bm, loss_tm, grads_tm, lim)
+    wrong = shares_of_limit(loss_wrong, grads_wrong, loss_tm, grads_tm, lim)
+    print(f"layout reference {label}: loss batch-major {loss_bm:.6f} time-major {loss_tm:.6f}; "
+          f"share of the limit (loss rtol {lim['loss_rtol']:g} atol {lim['loss_atol']:g}, "
+          f"gradients rtol {lim['grad_rtol']:g} atol {lim['grad_atol']:g}): loss {share[0]:.3g}, "
+          f"gradients {share[1]:.3g}; one GAE column of {width} wrong would read loss "
+          f"{wrong[0]:.3g}, gradients {wrong[1]:.3g}")
+    check(share[0] <= 1.0 and share[1] <= 1.0,
+          f"{label}: batch-major and time-major losses agree within LOSS_LIMITS")
+
+
+def bf16_store_equality_phase(torch) -> None:
+    """On a bf16-compute net without obs normalization (the flagship's env
+    and widths with compute_dtype bf16, 1024 envs, T=30), the bf16 replay
+    store is exact: the net rounds its obs to bf16 itself. The loss and
+    every gradient of one batch-major minibatch on the card with the bf16
+    store torch.equal the float32 store's."""
+    from nnx_ppo_tpu_torch.algorithms import LoggingLevel, ppo_loss
+    from nnx_ppo_tpu_torch.algorithms.ppo import ReplayMinibatch
+    from nnx_ppo_tpu_torch.algorithms.rollout import unroll_env
+    from nnx_ppo_tpu_torch.networks import make_mlp_actor_critic
+
+    env, _, config, _ = flagship(torch)
+    net = make_mlp_actor_critic(
+        env.observation_size, env.action_size, [64] * 4, [256] * 2, 0, normalize_obs=False,
+        entropy_weight=1e-3, compute_dtype=torch.bfloat16,
+    ).to("cuda")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    state = net.initialize_state(config.n_envs)
+    with torch.no_grad():
+        _, _, rollout = unroll_env(env, env.reset(config.n_envs, g), net, state,
+                                   config.rollout_length, g)
+    width = config.n_envs // config.n_minibatches
+    results = []
+    for store in (None, torch.bfloat16):
+        view = first_envs(torch, ReplayMinibatch.from_rollout(rollout, True, store), width)
+        net.zero_grad(set_to_none=True)
+        loss, _ = ppo_loss(net, net.initialize_state(width), view, clip_range=0.2,
+                           normalize_advantages=True,
+                           combine_advantages=False, discounting_factor=0.99, gae_lambda=0.95,
+                           critic_loss_weight=1.0, logging_level=LoggingLevel.NONE)
+        loss.backward()
+        results.append((loss.detach(), [p.grad.clone() for p in net.parameters()], view))
+    (loss_a, grads_a, _), (loss_b, grads_b, view_b) = results
+    check(view_b.obs.dtype == torch.bfloat16, "the bf16 store keeps the obs in bf16")
+    same = bool(torch.equal(loss_a, loss_b)) and all(torch.equal(a, b)
+                                                      for a, b in zip(grads_a, grads_b))
+    print(f"bf16 store on a bf16-compute net without normalization ([{width}, "
+          f"{config.rollout_length}] batch-major minibatch): loss {loss_a.item():.6f} and "
+          f"{len(grads_a)} gradients torch.equal to the float32 store's: {same}")
+    check(same, "the bf16 store is exact on a bf16-compute net without normalization")
+
+
+def distillation_reference_phase(torch, label: str, path: dict) -> None:
+    """distillation_loss and its gradients for one full-width minibatch of
+    a fresh dual rollout on the card (the student's layout) against the
+    CPU, at ``LOSS_LIMITS``; printed beside what the loss reads on the CPU
+    with one env's teacher extras taken from its neighbour (a rollout that
+    stored one env's target wrongly)."""
+    from nnx_ppo_tpu_torch.algorithms import LoggingLevel, distillation_loss
+    from nnx_ppo_tpu_torch.algorithms.distillation import (
+        DistillationMinibatch, distillation_unroll_env,
+    )
+    from nnx_ppo_tpu_torch.core.struct import tree_map
+
+    state, teacher, config, env = path["state"], path["teacher"], path["config"], path["env"]
+    student = state.student
+    with torch.no_grad():
+        _, _, _, rollout = distillation_unroll_env(
+            env, state.env_states, teacher, student, state.student_states, state.teacher_states,
+            config.rollout_length, state.generator)
+    width = config.n_envs // config.n_minibatches
+    batch_major = path["layout"] == "batch_major"
+    view = first_envs(torch, DistillationMinibatch.from_rollout(rollout, batch_major), width)
+    states = tree_map(lambda x: x[:width], state.student_states)
+
+    def loss_and_grads(net, view, states):
+        net.zero_grad(set_to_none=True)
+        loss, _ = distillation_loss(net, states, view, LoggingLevel.NONE,
+                                    fused_replay=config.fused_replay)
+        loss.backward()
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad.clone()
+                 for p in net.parameters()]
+        net.zero_grad(set_to_none=True)
+        return loss.item(), grads
+
+    t0 = time.perf_counter()
+    loss_gpu, grads_gpu = loss_and_grads(student, view, states)
+    net_cpu = copy.deepcopy(student).cpu()
+    view_cpu, states_cpu = on_device(view, "cpu"), on_device(states, "cpu")
+    loss_cpu, grads_cpu = loss_and_grads(net_cpu, view_cpu, states_cpu)
+
+    def one_env_wrong(x):
+        x = x.clone()
+        if batch_major:
+            x[0] = x[1]
+        else:
+            x[:, 0] = x[:, 1]
+        return x
+
+    view_wrong = dataclasses.replace(
+        view_cpu, teacher_rollout_extras=tree_map(one_env_wrong, view_cpu.teacher_rollout_extras))
+    loss_wrong, grads_wrong = loss_and_grads(net_cpu, view_wrong, states_cpu)
+    lim = LOSS_LIMITS
+    share = shares_of_limit(loss_gpu, grads_gpu, loss_cpu, grads_cpu, lim)
+    wrong = shares_of_limit(loss_wrong, grads_wrong, loss_cpu, grads_cpu, lim)
+    print(f"distillation reference {label} ({path['layout']} minibatch of {width}): loss cuda "
+          f"{loss_gpu:.6f} cpu {loss_cpu:.6f}; share of the limit (loss rtol {lim['loss_rtol']:g} "
+          f"atol {lim['loss_atol']:g}, gradients rtol {lim['grad_rtol']:g} atol "
+          f"{lim['grad_atol']:g}): loss {share[0]:.3g}, gradients {share[1]:.3g}; one env's teacher "
+          f"extras wrong on the CPU would read loss {wrong[0]:.3g}, gradients {wrong[1]:.3g} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    check(share[0] <= 1.0 and share[1] <= 1.0,
+          f"{label}: the distillation loss on the card is within its limits")
+
+
 def loss_reference_phase(torch, label: str, env, config, ts, scaled_grad_atol: bool = False,
-                         limits: dict | None = None, width: int | None = None) -> float:
+                         limits: dict | None = None, width: int | None = None,
+                         float64_witness: bool = False) -> float:
     """Loss and gradients on the card (one GAE launch for all reward keys)
     against the CPU (plain GAE) for one full-width minibatch of a fresh
     rollout, and against the card's loss with one GAE launch per key (the
@@ -1770,9 +2224,15 @@ def loss_reference_phase(torch, label: str, env, config, ts, scaled_grad_atol: b
     says. The errors are printed, each as its share of its limit, before
     they are checked. ``width`` narrows the minibatch (default: the
     path's, ``n_envs // n_minibatches``) where the CPU's half would take
-    long."""
+    long. The minibatch has the layout and store dtype the path's config
+    resolves to (batch-major: GAE reads its [b, T] keys in place). With
+    ``float64_witness`` the CPU also computes the loss in float64 (net,
+    carries and the view's float leaves widened), and the shares of the
+    card's and the CPU's float32 gradients against it are printed, at the
+    fixed and at the scaled atol: how far float32 on either device lies
+    from the function it rounds, beside how far the two lie apart."""
     from nnx_ppo_tpu_torch.algorithms import ppo as ppo_module
-    from nnx_ppo_tpu_torch.algorithms import ppo_loss
+    from nnx_ppo_tpu_torch.algorithms import ppo_loss, resolve_batch_major, resolve_store_dtype
     from nnx_ppo_tpu_torch.algorithms.ppo import ReplayMinibatch
     from nnx_ppo_tpu_torch.algorithms.rollout import unroll_env
     from nnx_ppo_tpu_torch.core.struct import tree_map
@@ -1785,8 +2245,9 @@ def loss_reference_phase(torch, label: str, env, config, ts, scaled_grad_atol: b
         )
     t0 = time.perf_counter()
     width = width or config.n_envs // config.n_minibatches
-    sel = torch.arange(width, device="cuda")
-    view = ReplayMinibatch.from_rollout(rollout).gather(sel, lambda x, s: x[:, s], lambda x, s: x[s])
+    batch_major = resolve_batch_major(config, net_gpu)
+    view = first_envs(torch, ReplayMinibatch.from_rollout(rollout, batch_major,
+                                                          resolve_store_dtype(config)), width)
     kw = dict(
         clip_range=config.clip_range,
         normalize_advantages=True,
@@ -1798,34 +2259,52 @@ def loss_reference_phase(torch, label: str, env, config, ts, scaled_grad_atol: b
         fused_replay=config.fused_replay,
     )
     lim = dict(LOSS_LIMITS, **(limits or {}))
+
+    def widened(tree):
+        return tree_map(lambda x: x.double() if torch.is_tensor(x) and x.is_floating_point()
+                        else x, tree)
+
+    def cpu_loss(net, view_cpu, widen=False):
+        states = tree_map(lambda x: x[:width].cpu(), ts.network_states)
+        loss, _ = ppo_loss(net, widened(states) if widen else states, view_cpu, **kw)
+        loss.backward()
+        return loss
+
     net_cpu = copy.deepcopy(net_gpu).cpu()
-    view_cpu = tree_map(lambda x: x.cpu(), view)
+    view_cpu = on_device(view, "cpu")
     before = gae_cuda.launches
     net_gpu.zero_grad(set_to_none=True)
     loss_gpu, _ = ppo_loss(net_gpu, tree_map(lambda x: x[:width], ts.network_states), view, **kw)
     loss_gpu.backward()
     check(gae_cuda.launches == before + 1, "the loss on the card launched the GAE kernel once")
-    loss_cpu, _ = ppo_loss(
-        net_cpu, tree_map(lambda x: x[:width].cpu(), ts.network_states), view_cpu, **kw
-    )
-    loss_cpu.backward()
+    loss_cpu = cpu_loss(net_cpu, view_cpu)
     want_grads = [p.grad for p in net_cpu.parameters()]
 
-    def grad_share(got_grads) -> float:
+    worst: dict = {}
+
+    def grad_share(got_grads, scaled: bool = scaled_grad_atol, wants=None) -> float:
         """The largest |got - want| / (atol + rtol |want|) over every
-        gradient entry: above 1 the check fails."""
+        gradient entry (``wants``: the reference's gradients by default):
+        above 1 the check fails. The worst entry is kept in ``worst``
+        (tensor, |got - want|, |want|, the tensor's largest |want|) for
+        the print."""
         share = 0.0
-        for got, want in zip(got_grads, want_grads):
+        for i, (got, want) in enumerate(zip(got_grads, wants or want_grads)):
             largest = want.abs().max().item()
-            atol = (lim["grad_atol"] * (max(1.0, largest) if scaled_grad_atol else 1.0)
+            atol = (lim["grad_atol"] * (max(1.0, largest) if scaled else 1.0)
                     + lim["grad_of_max"] * largest)
-            share = max(share, ((got.cpu() - want).abs()
-                                / (atol + lim["grad_rtol"] * want.abs())).max().item())
+            diff = (got.cpu() - want).abs()
+            ratio = diff / (atol + lim["grad_rtol"] * want.abs())
+            if ratio.max().item() > share:
+                share = ratio.max().item()
+                j = int(ratio.argmax())
+                worst.update(tensor=i, shape=tuple(want.shape), diff=diff.flatten()[j].item(),
+                             want=want.flatten()[j].item(), largest=largest)
         return share
 
-    def loss_share(loss) -> float:
-        return abs(loss.item() - loss_cpu.item()) / (lim["loss_atol"]
-                                                     + lim["loss_rtol"] * abs(loss_cpu.item()))
+    def loss_share(loss, want=None) -> float:
+        want = (loss_cpu if want is None else want).item()
+        return abs(loss.item() - want) / (lim["loss_atol"] + lim["loss_rtol"] * abs(want))
 
     max_rel = max_grad = 0.0
     for p_gpu, p_cpu in zip(net_gpu.parameters(), net_cpu.parameters()):
@@ -1833,14 +2312,36 @@ def loss_reference_phase(torch, label: str, env, config, ts, scaled_grad_atol: b
         max_rel = max(max_rel, (p_gpu.grad.cpu() - p_cpu.grad).abs().max().item() / max(largest, 1e-12))
         max_grad = max(max_grad, largest)
     grads = [p.grad for p in net_gpu.parameters()]
+    fixed_share = grad_share(grads, scaled=False)
     share = grad_share(grads)
+    worst_entry = dict(worst)
+    witness = ""
+    if float64_witness:
+        net_64 = copy.deepcopy(net_gpu).cpu()
+        net_64.zero_grad(set_to_none=True)
+        loss_64 = cpu_loss(net_64.double(), widened(view_cpu), widen=True)
+        grads_64 = [p.grad for p in net_64.parameters()]
+
+        def against_64(got_loss, got_grads) -> str:
+            return (f"loss {loss_share(got_loss, loss_64):.3g}, gradients "
+                    f"{grad_share(got_grads, scaled=False, wants=grads_64):.3g} (scaled atol "
+                    f"{grad_share(got_grads, scaled=True, wants=grads_64):.3g})")
+
+        witness = (f"; float64 witness, share of the limit against float64 on the CPU: the card "
+                   f"{against_64(loss_gpu, grads)}, the CPU's float32 "
+                   f"{against_64(loss_cpu, want_grads)}")
     of_max = f" + {lim['grad_of_max']:g} x max |grad|" if lim["grad_of_max"] else ""
-    print(f"reference {label}: loss cuda {loss_gpu.item():.6f} cpu {loss_cpu.item():.6f}, "
+    print(f"reference {label} ({'batch' if batch_major else 'time'}-major minibatch, "
+          f"{config.replay_store_dtype} store): loss cuda {loss_gpu.item():.6f} cpu "
+          f"{loss_cpu.item():.6f}, "
+          f"worst gradient entry {worst_entry}, "
           f"|diff| {abs(loss_gpu.item() - loss_cpu.item()):.3g}; max grad diff / max |grad| "
           f"{max_rel:.3g}; share of the limit (loss rtol {lim['loss_rtol']:g} atol "
           f"{lim['loss_atol']:g}, gradients rtol {lim['grad_rtol']:g} atol {lim['grad_atol']:g}"
           f"{' x max(1, max |grad|)' if scaled_grad_atol else ''}{of_max}): loss "
-          f"{loss_share(loss_gpu):.3g}, gradients {share:.3g}")
+          f"{loss_share(loss_gpu):.3g}, gradients {share:.3g}"
+          + (f" (against the unscaled atol {fixed_share:.3g})" if scaled_grad_atol else "")
+          + witness)
     check(loss_share(loss_gpu) <= 1.0, f"{label}: the loss on the card is within its limit")
     check(share <= 1.0, f"{label}: the gradients on the card are within their limit")
     net_gpu.zero_grad(set_to_none=True)
@@ -1853,7 +2354,10 @@ def loss_reference_phase(torch, label: str, env, config, ts, scaled_grad_atol: b
     def one_column_wrong(*args, **kwargs):
         def wrong(a):
             a = a.clone()
-            a[:, 0] = a[:, 1]
+            if batch_major:
+                a[0] = a[1]
+            else:
+                a[:, 0] = a[:, 1]
             return a
         return tree_map(wrong, shipped(*args, **kwargs))
 
@@ -1861,19 +2365,18 @@ def loss_reference_phase(torch, label: str, env, config, ts, scaled_grad_atol: b
     net_wrong.zero_grad(set_to_none=True)
     try:
         ppo_module.gae_per_key = one_column_wrong
-        loss_wrong, _ = ppo_loss(
-            net_wrong, tree_map(lambda x: x[:width].cpu(), ts.network_states), view_cpu, **kw
-        )
-        loss_wrong.backward()
+        loss_wrong = cpu_loss(net_wrong, view_cpu)
     finally:
         ppo_module.gae_per_key = shipped
     wrong_loss_share = loss_share(loss_wrong)
     wrong_grad_share = grad_share([p.grad for p in net_wrong.parameters()])
 
-    def one_launch_per_key(rewards, values, last_values, done, truncated, lambda_, gamma):
+    def one_launch_per_key(rewards, values, last_values, done, truncated, lambda_, gamma,
+                           batch_major=False):
         done = tree_map(lambda _: done, rewards) if torch.is_tensor(done) else done
         truncated = tree_map(lambda _: truncated, rewards) if torch.is_tensor(truncated) else truncated
-        return tree_map(lambda r, v, lv, d, tr: gae_cuda(r, v, lv, d, tr, lambda_, gamma),
+        return tree_map(lambda r, v, lv, d, tr: gae_cuda(r, v, lv, d, tr, lambda_, gamma,
+                                                         batch_major),
                         rewards, values, last_values, done, truncated)
 
     n_keys = len(view.rewards) if isinstance(view.rewards, dict) else 1
@@ -1913,8 +2416,7 @@ def replay_modes_phase(torch, label: str, env, config, ts) -> None:
         _, _, rollout = unroll_env(env, ts.env_states, net, ts.network_states,
                                    config.rollout_length, ts.generator)
     width = config.n_envs // config.n_minibatches
-    sel = torch.arange(width, device="cuda")
-    view = ReplayMinibatch.from_rollout(rollout).gather(sel, lambda x, s: x[:, s], lambda x, s: x[s])
+    view = first_envs(torch, ReplayMinibatch.from_rollout(rollout), width)
     results = {}
     for fused in (True, False):
         net.zero_grad(set_to_none=True)
@@ -1930,9 +2432,7 @@ def replay_modes_phase(torch, label: str, env, config, ts) -> None:
     net.zero_grad(set_to_none=True)
     (loss_f, grads_f), (loss_s, grads_s) = results[True], results[False]
     lim = LOSS_LIMITS
-    loss_share = (loss_f - loss_s).abs().item() / (lim["loss_atol"] + lim["loss_rtol"] * loss_s.abs().item())
-    grad_share = max(((a - b).abs() / (lim["grad_atol"] + lim["grad_rtol"] * b.abs())).max().item()
-                     for a, b in zip(grads_f, grads_s))
+    loss_share, grad_share = shares_of_limit(loss_f.item(), grads_f, loss_s.item(), grads_s, lim)
     print(f"replay modes {label}: loss fused {loss_f.item():.6f} unfused {loss_s.item():.6f}; share "
           f"of the limit (loss rtol {lim['loss_rtol']:g} atol {lim['loss_atol']:g}, gradients rtol "
           f"{lim['grad_rtol']:g} atol {lim['grad_atol']:g}): loss {loss_share:.3g}, gradients "
@@ -2175,6 +2675,8 @@ def main() -> int:
     flagship_env, _, flagship_config, _ = flagship(torch)
     loss_reference_phase(torch, "flagship", flagship_env, flagship_config,
                          flagship_path["state"])
+    layout_reference_phase(torch, "flagship", flagship_env, flagship_config,
+                           flagship_path["state"])
 
     # Launches per ppo_step: one env step per rollout step (T = 20), one
     # GAE per minibatch update (16) for all reward keys (2 on the quadruped
@@ -2191,6 +2693,9 @@ def main() -> int:
         "locomotion": dict(none, gae_cuda=16),
         "heavy_physics": dict(none, gae_cuda=16),
         **{label: dict(none, gae_cuda=16) for label in NETWORK_PATHS},
+        "quadruped_2048_pallas_bf16store": dict(none, gae_cuda=16, control_step_cuda=20),
+        # Distillation: the dual rollout's 20 control steps, no GAE.
+        **{label: dict(none, control_step_cuda=20) for label in DISTILL_PATHS},
     }
     physics_wrappers = wrappers[1:4]
 
@@ -2201,8 +2706,37 @@ def main() -> int:
         torch, wrappers, args.profile, "physics", physics_leg, PHYSICS_STEPS_CHECKED,
         PHYSICS_STEPS_TIMED, per_step["physics"], PHYSICS_STEPS_NOSHUFFLE,
     )
+    # The atol scaled with each gradient tensor's largest entry, as on the
+    # humanoid and analytic paths, on the evidence of a float64 witness:
+    # batch-major, this minibatch reads 1.71 of the fixed 1e-5 on the H100
+    # (2.27e-5 on an entry of 3.3e-3 in the actor head, largest 2.56),
+    # while the card's and the CPU's float32 gradients each read 58.5 and
+    # 60.1 of the fixed limit against the loss in float64: float32 on
+    # either device lies far further from the function than the two lie
+    # from each other (the replay recomputes the log-likelihood of a stored
+    # float32 sample, whose rounding 1/std^2 amplifies where std is near
+    # its 1e-3 floor), so the fixed atol bounds no float32 result here.
     loss_reference_phase(torch, "physics", physics_path["env"], physics_path["config"],
-                         physics_path["state"])
+                         physics_path["state"], scaled_grad_atol=True, float64_witness=True)
+    layout_reference_phase(torch, "physics", physics_path["env"], physics_path["config"],
+                           physics_path["state"])
+    # The bf16 replay store on the flat quadruped, then distillation on the
+    # same env and net (the control-step kernel under a dual rollout).
+    bf16store_label = "quadruped_2048_pallas_bf16store"
+    bf16store_path = physics_path_phase(
+        torch, wrappers, args.profile, bf16store_label, bf16store_leg, PHYSICS_STEPS_CHECKED,
+        PHYSICS_STEPS_TIMED, per_step[bf16store_label],
+    )
+    loss_reference_phase(torch, bf16store_label, bf16store_path["env"], bf16store_path["config"],
+                         bf16store_path["state"], scaled_grad_atol=True, float64_witness=True)
+    bf16_store_equality_phase(torch)
+    distill_paths = {
+        label: distill_path_phase(torch, wrappers, args.profile, label, shuffle, checked, timed,
+                                  per_step[label])
+        for label, (shuffle, checked, timed) in DISTILL_PATHS.items()
+    }
+    for label, path in distill_paths.items():
+        distillation_reference_phase(torch, label, path)
     heightgrid_path = physics_path_phase(
         torch, wrappers, args.profile, "heightgrid", heightgrid_leg, HEIGHTGRID_STEPS_CHECKED,
         HEIGHTGRID_STEPS_TIMED, per_step["heightgrid"],
@@ -2275,6 +2809,10 @@ def main() -> int:
     # launch kernels too and must not count as the main paths'.
     for label, path in quadruped_paths.items():
         env_step_reference_phase(torch, label, path["env"], physics_wrappers, per_env_step(label))
+    # The flat quadruped of the bf16-store and distillation paths.
+    distill_label = next(iter(DISTILL_PATHS))
+    env_step_reference_phase(torch, distill_label, distill_paths[distill_label]["env"],
+                             physics_wrappers, per_env_step(distill_label))
     for label, path in humanoid_paths.items():
         # The humanoid's stiffer PD (350) and contacts (12,000 N/m) spread
         # card-against-CPU rounding further than the quadruped's, whose
@@ -2296,8 +2834,9 @@ def main() -> int:
     # count: every count was set to 0 just before each path).
     by_path = {"flagship": flagship_path["launches"]}
     training_paths = {**quadruped_paths, **manipulation_paths, **humanoid_paths, **analytic_paths,
-                      **network_paths}
+                      **network_paths, bf16store_label: bf16store_path}
     by_path.update({label: path["launches"] for label, path in training_paths.items()})
+    by_path.update({label: path["launches"] for label, path in distill_paths.items()})
     kernel_rows = {
         "gae_cuda": gae_kernel, "control_step_cuda": control_kernel,
         "plane_sampler_cuda": sampler_kernel, "substeps_cuda": substeps_kernel,
@@ -2309,7 +2848,8 @@ def main() -> int:
         check(kernel["launches"] > 0, f"{kernel['name']} was launched on a main path")
 
     print(
-        f"flagship: {FLAGSHIP_STEPS_CHECKED + FLAGSHIP_STEPS_TIMED} ppo_steps, "
+        f"flagship ({flagship_path['layout']}): {FLAGSHIP_STEPS_CHECKED + FLAGSHIP_STEPS_TIMED} "
+        "ppo_steps, "
         f"gae launches {by_path['flagship']['gae_cuda']}, actor loss "
         f"{flagship_path['actor_loss']:.5f}, critic loss {flagship_path['critic_loss']:.5f}"
     )
@@ -2323,20 +2863,29 @@ def main() -> int:
              "reacher": MANIPULATION_STEPS_TIMED, "humanoid": HUMANOID_STEPS_TIMED,
              "humanoid_full": HUMANOID_STEPS_TIMED, "locomotion": ANALYTIC_STEPS_TIMED,
              "heavy_physics": ANALYTIC_STEPS_TIMED,
-             **{label: timed for label, (_, _, timed) in NETWORK_PATHS.items()}}
+             **{label: timed for label, (_, _, timed) in NETWORK_PATHS.items()},
+             bf16store_label: PHYSICS_STEPS_TIMED,
+             **{label: timed for label, (_, _, timed) in DISTILL_PATHS.items()}}
     for label, path in training_paths.items():
         counts = ", ".join(f"{name} {n}" for name, n in by_path[label].items())
         dict_reward = isinstance(path["state"].env_states.reward, dict)
         critic = "critic loss (tracking)" if dict_reward else "critic loss"
         print(
-            f"{label}: {path['n_steps']} ppo_steps, launches: {counts}; actor loss "
-            f"{path['actor_loss']:.5f}, {critic} {path['critic_loss']:.5f}"
+            f"{label} ({path['layout']}): {path['n_steps']} ppo_steps, launches: {counts}; actor "
+            f"loss {path['actor_loss']:.5f}, {critic} {path['critic_loss']:.5f}"
         )
         print(
             f"{label}_sps {path['sps']:.1f} (step {path['step_ms']:.2f} ms over "
             f"{timed[label]} steps, shuffled; first call incl. set-up "
             f"{path['first_call_s']:.2f} s) on {card}"
         )
+    for label, path in distill_paths.items():
+        counts = ", ".join(f"{name} {n}" for name, n in by_path[label].items())
+        print(f"{label} ({path['layout']}): {path['n_steps']} distillation_steps, launches: "
+              f"{counts}; distillation NLL {path['nll'][0]:.5f} -> {path['nll'][1]:.5f}")
+        print(f"{label}_sps {path['sps']:.1f} (step {path['step_ms']:.2f} ms over "
+              f"{timed[label]} steps; first call incl. set-up {path['first_call_s']:.2f} s) on "
+              f"{card}")
     print(
         f"physics_sps_noshuffle {physics_path['sps_noshuffle']:.1f} (step "
         f"{physics_path['noshuffle_step_ms']:.2f} ms over {PHYSICS_STEPS_NOSHUFFLE} steps, "

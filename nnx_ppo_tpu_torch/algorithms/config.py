@@ -1,14 +1,19 @@
 """Configuration dataclasses. A copy of ``nnx_ppo_tpu/algorithms/config.py``
 (``PPOConfig``, ``EvalConfig``, ``VideoConfig``, ``TrainConfig``,
-``TrainResult``) with the same fields and defaults.
+``TrainResult``, ``DistillationConfig``, ``DistillationTrainConfig``,
+``DistillationTrainResult``, :142-211) with the same fields and defaults.
 
-Of the replay options the port runs the time-major replay, fused
-(``fused_replay=True``) or as the whole-net step scan
-(``fused_replay=False``), with ``rollout_layout`` "auto" or "time_major"
-and ``replay_store_dtype="float32"``, and shuffled or contiguous
-minibatches (``shuffle_minibatches``); ``ppo_step`` raises
-``NotImplementedError`` for the others. For a replay-time-static network
-the batch-major layout gives the same losses as the time-major one.
+The replay options are JAX's: ``fused_replay``; ``rollout_layout``
+"auto" (batch-major for a fully replay-time-static network under
+``fused_replay``, else time-major), "time_major" or "batch_major"
+(``algorithms/ppo.py::resolve_batch_major``); ``replay_store_dtype``
+"float32" or "bfloat16" (``resolve_store_dtype``: the float observation
+leaves of the replay view stored in bf16, exact only for a bf16-compute
+network without obs normalization; any other network replays
+bf16-rounded observations); and shuffled or contiguous minibatches
+(``shuffle_minibatches``). For a replay-time-static network the
+batch-major layout gives the time-major losses up to float32 reduction
+order.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
-from nnx_ppo_tpu_torch.algorithms.types import LoggingLevel, TrainingState
+from nnx_ppo_tpu_torch.algorithms.types import DistillationState, LoggingLevel, TrainingState
 
 
 @dataclass(frozen=True)
@@ -89,6 +94,50 @@ class TrainResult:
     """Result of train_ppo: final state, metrics, eval history."""
 
     training_state: TrainingState
+    final_metrics: dict[str, Any]
+    eval_history: list[dict[str, Any]]
+    total_steps: int
+    total_iterations: int
+
+
+@dataclass(frozen=True)
+class DistillationConfig:
+    """Core distillation algorithm parameters (the replay options as
+    ``PPOConfig``'s; the teacher's extras always stay exact, so the NLL
+    target is unchanged by ``replay_store_dtype``)."""
+
+    n_envs: int = 256
+    rollout_length: int = 20
+    total_steps: int = 512_000
+    learning_rate: float = 1e-4
+    n_epochs: int = 4
+    n_minibatches: int = 4
+    gradient_clipping: Optional[float] = None
+    weight_decay: Optional[float] = None
+    logging_level: LoggingLevel = LoggingLevel.LOSSES
+    logging_percentiles: Optional[tuple[int, ...]] = None
+    fused_replay: bool = True
+    rollout_layout: str = "auto"
+    replay_store_dtype: str = "float32"
+    shuffle_minibatches: bool = True
+
+
+@dataclass(frozen=True)
+class DistillationTrainConfig:
+    """Complete training configuration for distillation."""
+
+    distillation: DistillationConfig = field(default_factory=DistillationConfig)
+    eval: EvalConfig = field(default_factory=EvalConfig)
+    video: VideoConfig = field(default_factory=VideoConfig)
+    seed: int = 17
+    checkpoint_every_steps: int = 500_000
+
+
+@dataclass
+class DistillationTrainResult:
+    """Result of train_distillation."""
+
+    training_state: DistillationState
     final_metrics: dict[str, Any]
     eval_history: list[dict[str, Any]]
     total_steps: int

@@ -11,15 +11,25 @@ Kept from the JAX package:
 * the deferred commit: every minibatch loss replays from the
   **pre-rollout** carries, and the running statistics (the Normalizer's
   Welford fold) are folded in only after all E·M updates (:455-467);
-* the time-major replay, fused (``fused_replay=True``, the default:
-  ``networks.replay_sequence``, layer-wise over time, so static layers
-  run one forward over their ``[T, b]`` leading dims and recurrent ones
-  scan only their own core) or the whole-net step scan
-  (``fused_replay=False``, :func:`~nnx_ppo_tpu_torch.networks.types.scan_replay`:
-  forward, ``reset_state``, ``tree_where(done, ...)``, ``ppo.py:573-585``);
+* the replay layouts of ``PPOConfig.rollout_layout``
+  (:func:`resolve_batch_major`, ``ppo.py:320-343``): batch-major (the
+  view transposed once per iteration to ``[B, T, ...]``, minibatches
+  gathered as whole env rows, one forward over the ``[b, T]`` leading
+  dims, :func:`~nnx_ppo_tpu_torch.networks.types.replay_sequence_nd`),
+  which ``"auto"`` picks for a fully replay-time-static network under
+  ``fused_replay``; else time-major, fused (``networks.replay_sequence``,
+  layer-wise over time, so static layers run one forward over their
+  ``[T, b]`` leading dims and recurrent ones scan only their own core)
+  or the whole-net step scan (``fused_replay=False``,
+  :func:`~nnx_ppo_tpu_torch.networks.types.scan_replay`: forward,
+  ``reset_state``, ``tree_where(done, ...)``, ``ppo.py:573-585``);
+* ``PPOConfig.replay_store_dtype`` (:func:`resolve_store_dtype`): the
+  view stores the float observation leaves in bf16, fused into the
+  batch-major transpose's one copy; everything else stays exact;
 * GAE (``ops/gae.py::gae_per_key``) under no gradient, once per
-  minibatch for all reward keys: one CUDA kernel launch for CUDA
-  tensors, the plain version per key on the CPU.
+  minibatch for all reward keys, in the minibatch's layout: one CUDA
+  kernel launch for CUDA tensors (batch-major keys read in place), the
+  plain version per key on the CPU.
   Observations, rewards and value estimates may be dicts (one value
   head per reward key); ``combine_advantages`` sums the per-key
   advantages for the actor.
@@ -44,7 +54,7 @@ from nnx_ppo_tpu_torch.algorithms.metrics import compute_metrics, log_weight_sta
 from nnx_ppo_tpu_torch.algorithms.types import LoggingLevel, TrainingState, Transition
 from nnx_ppo_tpu_torch.core.device import resolve_device
 from nnx_ppo_tpu_torch.core.struct import tree_leaves, tree_map, tree_stack
-from nnx_ppo_tpu_torch.networks.types import StatefulModule, scan_replay
+from nnx_ppo_tpu_torch.networks.types import StatefulModule, replay_sequence_nd, scan_replay
 from nnx_ppo_tpu_torch.ops.gae import gae_per_key
 from nnx_ppo_tpu_torch.parallel.permutation import minibatch_plan
 
@@ -162,9 +172,10 @@ def new_training_state(
 
 @dataclasses.dataclass
 class ReplayMinibatch:
-    """The rollout slices the PPO loss reads, time-major ``[T, B, ...]``
-    (``ppo.py:176``); ``last_next_obs`` is ``next_obs[-1]``, for the
-    T+1 value bootstrap."""
+    """The rollout slices the PPO loss reads (``ppo.py:176-300``):
+    sequence leaves time-major ``[T, B, ...]``, or batch-major ``[B, T,
+    ...]`` where ``batch_major``; ``last_next_obs`` is ``next_obs[-1]``,
+    ``[B, ...]``, for the T+1 value bootstrap."""
 
     obs: Any
     old_loglikelihoods: Any
@@ -173,23 +184,42 @@ class ReplayMinibatch:
     truncated: torch.Tensor
     rollout_extras: Any
     last_next_obs: Any
+    batch_major: bool = False
 
     @classmethod
-    def from_rollout(cls, rollout_data: Transition) -> "ReplayMinibatch":
+    def from_rollout(
+        cls,
+        rollout_data: Transition,
+        batch_major: bool = False,
+        store_dtype: Optional[torch.dtype] = None,
+    ) -> "ReplayMinibatch":
+        """The loss's working set of a time-major rollout. ``batch_major``
+        transposes every sequence leaf once, into a contiguous copy;
+        ``store_dtype`` (:func:`resolve_store_dtype`) stores the float
+        observation leaves and ``last_next_obs`` in that dtype, in the
+        same copy where there is one (one kernel per leaf, not two).
+        Log-likelihoods, rewards, extras and flags stay exact; integer and
+        bool observation leaves pass through."""
+        seq = functools.partial(store_sequence, batch_major=batch_major)
         return cls(
-            obs=rollout_data.obs,
-            old_loglikelihoods=rollout_data.network_output.loglikelihoods,
-            rewards=rollout_data.rewards,
-            done=rollout_data.done,
-            truncated=rollout_data.truncated,
-            rollout_extras=rollout_data.rollout_extras,
-            last_next_obs=tree_map(lambda x: x[-1], rollout_data.next_obs),
+            obs=seq(rollout_data.obs, store_dtype),
+            old_loglikelihoods=seq(rollout_data.network_output.loglikelihoods),
+            rewards=seq(rollout_data.rewards),
+            done=seq(rollout_data.done),
+            truncated=seq(rollout_data.truncated),
+            rollout_extras=seq(rollout_data.rollout_extras),
+            last_next_obs=store_sequence(
+                tree_map(lambda x: x[-1], rollout_data.next_obs), store_dtype, batch_major=False
+            ),
+            batch_major=batch_major,
         )
 
     def gather(self, sel: torch.Tensor, take_seq, take_batch) -> "ReplayMinibatch":
-        """One minibatch (extractors from ``minibatch_plan``)."""
+        """One minibatch (extractors from ``minibatch_plan``, for this
+        view's layout)."""
         seq = functools.partial(tree_map, lambda x: take_seq(x, sel))
-        return ReplayMinibatch(
+        return dataclasses.replace(
+            self,
             obs=seq(self.obs),
             old_loglikelihoods=seq(self.old_loglikelihoods),
             rewards=seq(self.rewards),
@@ -200,15 +230,69 @@ class ReplayMinibatch:
         )
 
 
-def _check_supported(config: PPOConfig) -> None:
-    if config.replay_store_dtype != "float32":
-        raise NotImplementedError(
-            f"PPOConfig.replay_store_dtype={config.replay_store_dtype!r} is not ported yet"
-        )
-    if config.rollout_layout not in ("auto", "time_major"):
-        raise NotImplementedError(
-            f"PPOConfig.rollout_layout={config.rollout_layout!r} is not ported yet"
-        )
+def store_sequence(
+    tree: Any, dtype: Optional[torch.dtype] = None, *, batch_major: bool
+) -> Any:
+    """Every leaf of a time-major ``[T, B, ...]`` tree as a replay view
+    stores it: transposed to a contiguous ``[B, T, ...]`` copy where
+    ``batch_major``, its float leaves in ``dtype`` where one is given
+    (in the same copy: ``x.transpose(0, 1).to(dtype,
+    memory_format=torch.contiguous_format)`` is one kernel), integer and
+    bool leaves in their own (JAX's ``_downcast_float_leaves``,
+    ``ppo.py:294-302``). Leaves left as they are come back uncopied."""
+
+    def store(x: torch.Tensor) -> torch.Tensor:
+        to = dtype if dtype is not None and x.is_floating_point() else x.dtype
+        if not batch_major:
+            return x.to(to)
+        x = x.transpose(0, 1)
+        # (.to keeps a same-dtype view as it is, whatever memory_format says.)
+        return x.contiguous() if to == x.dtype else x.to(to, memory_format=torch.contiguous_format)
+
+    return tree_map(store, tree)
+
+
+def resolve_store_dtype(config: Any) -> Optional[torch.dtype]:
+    """``replay_store_dtype`` of a ``PPOConfig`` or ``DistillationConfig``
+    (``ppo.py:305-317``): None for the exact float32 default,
+    ``torch.bfloat16`` for ``"bfloat16"``; anything else raises JAX's
+    ``ValueError``. The bf16 store is exact only where the network rounds
+    its observations to bf16 itself (a bf16-compute stack without obs
+    normalization); any other network replays bf16-rounded observations."""
+    name = config.replay_store_dtype
+    if name == "float32":
+        return None
+    if name == "bfloat16":
+        return torch.bfloat16
+    raise ValueError(
+        f"unknown replay_store_dtype {name!r}; expected 'float32' or "
+        "'bfloat16'"
+    )
+
+
+def resolve_batch_major(config: Any, networks: StatefulModule) -> bool:
+    """``rollout_layout`` of a ``PPOConfig`` or ``DistillationConfig``
+    against the network (``ppo.py:320-343``): batch-major needs
+    ``fused_replay`` and a fully replay-time-static network, and
+    ``"auto"`` picks it exactly then; ``"time_major"`` never. JAX's
+    ``ValueError`` for ``"batch_major"`` on any other network and for an
+    unknown layout."""
+    layout = config.rollout_layout
+    if layout == "time_major":
+        return False
+    static = config.fused_replay and networks.replay_time_static
+    if layout == "batch_major":
+        if not static:
+            raise ValueError(
+                "rollout_layout='batch_major' requires fused_replay=True "
+                "and a fully replay-time-static network (recurrent "
+                "modules need the time-major scan replay); use "
+                "'time_major' or 'auto'."
+            )
+        return True
+    if layout != "auto":
+        raise ValueError(f"unknown rollout_layout {layout!r}")
+    return static
 
 
 def ppo_update(
@@ -224,25 +308,16 @@ def ppo_update(
 ) -> dict[str, Any]:
     """The update phase of :func:`ppo_step`: E·M minibatch gradient
     updates of ``networks`` (in place) on one rollout, replayed from the
-    pre-rollout ``network_states``. Minibatches come from ``generator``
-    unless ``selectors`` pins them (or ``config.shuffle_minibatches`` is
-    off: then they are fixed contiguous env blocks). Returns the loss
-    metrics stacked over the updates (leading dim E·M)."""
-    view = ReplayMinibatch.from_rollout(rollout_data)
-    selectors, take_seq, take_batch = minibatch_plan(
-        config.n_envs,
-        config.n_epochs,
-        config.n_minibatches,
-        shuffle=config.shuffle_minibatches,
-        generator=generator,
-        selectors=selectors,
-    )
-    per_update = []
-    for sel in selectors:
-        minibatch = view.gather(sel, take_seq, take_batch)
-        net_state_subset = tree_map(lambda x: take_batch(x, sel), network_states)
-        opt_state.zero_grad(set_to_none=True)
-        loss, loss_metrics = ppo_loss(
+    pre-rollout ``network_states``, in the layout and store dtype the
+    config resolves to. Minibatches come from ``generator`` unless
+    ``selectors`` pins them (or ``config.shuffle_minibatches`` is off:
+    then they are fixed contiguous env blocks). Returns the loss metrics
+    stacked over the updates (leading dim E·M)."""
+    batch_major = resolve_batch_major(config, networks)
+    view = ReplayMinibatch.from_rollout(rollout_data, batch_major, resolve_store_dtype(config))
+
+    def loss_fn(net_state_subset, minibatch):
+        return ppo_loss(
             networks,
             net_state_subset,
             minibatch,
@@ -255,8 +330,53 @@ def ppo_update(
             logging_level=config.logging_level,
             fused_replay=config.fused_replay,
         )
+
+    return minibatch_updates(
+        networks, opt_state, network_states, view, loss_fn, config, optimizer,
+        batch_major=batch_major, generator=generator, selectors=selectors,
+        log_grad_norm=LoggingLevel.GRAD_NORM in config.logging_level,
+    )
+
+
+def minibatch_updates(
+    networks: StatefulModule,
+    opt_state: torch.optim.Optimizer,
+    network_states: Any,
+    view: Any,
+    loss_fn: Callable[[Any, Any], tuple[torch.Tensor, dict[str, Any]]],
+    config: Any,
+    optimizer: Optimizer,
+    *,
+    batch_major: bool,
+    generator: Optional[torch.Generator] = None,
+    selectors: Optional[torch.Tensor] = None,
+    log_grad_norm: bool = False,
+) -> dict[str, Any]:
+    """The minibatch loop of :func:`ppo_update` and of
+    ``distillation.distillation_update``: for each of the E·M minibatches
+    of ``minibatch_plan`` (in ``view``'s layout), gather it from ``view``,
+    take the carries of its envs from ``network_states``, and step
+    ``optimizer`` on ``loss_fn(carries, minibatch)``'s gradients.
+    ``config`` gives ``n_envs``, ``n_epochs``, ``n_minibatches`` and
+    ``shuffle_minibatches``. Returns the loss metrics stacked over the
+    updates (leading dim E·M), with ``grad_norm`` if ``log_grad_norm``."""
+    selectors, take_seq, take_batch = minibatch_plan(
+        config.n_envs,
+        config.n_epochs,
+        config.n_minibatches,
+        shuffle=config.shuffle_minibatches,
+        generator=generator,
+        selectors=selectors,
+        batch_major=batch_major,
+    )
+    per_update = []
+    for sel in selectors:
+        minibatch = view.gather(sel, take_seq, take_batch)
+        net_state_subset = tree_map(lambda x: take_batch(x, sel), network_states)
+        opt_state.zero_grad(set_to_none=True)
+        loss, loss_metrics = loss_fn(net_state_subset, minibatch)
         loss.backward()
-        if LoggingLevel.GRAD_NORM in config.logging_level:
+        if log_grad_norm:
             grads = [p.grad for p in networks.parameters() if p.grad is not None]
             loss_metrics["grad_norm"] = global_norm(grads)
         optimizer.step(opt_state)
@@ -275,7 +395,6 @@ def ppo_step(
 
     ``training_state.networks`` and ``.opt_state`` are updated in place;
     the returned state holds the advanced carries and step count."""
-    _check_supported(config)
     ts = training_state
     if ts.env_states.done.shape[0] != config.n_envs:
         raise ValueError(
@@ -358,10 +477,12 @@ def ppo_loss(
     fused_replay: bool = True,
 ) -> tuple[torch.Tensor, dict[str, Any]]:
     """Clipped-surrogate PPO loss with replay: re-run the network over
-    the stored ``[T, B]`` sequence with its ``rollout_extras`` (layer-wise
-    ``replay_sequence`` when ``fused_replay``, else the whole-net step
-    scan with per-env resets on ``done``; the JAX function defaults to
-    the scan, this one to the fused form that ``PPOConfig`` selects); bootstrap
+    the stored sequence with its ``rollout_extras`` (a batch-major view:
+    one forward over its ``[b, T]`` leading dims, ``replay_sequence_nd``;
+    a time-major one: layer-wise ``replay_sequence`` when
+    ``fused_replay``, else the whole-net step scan with per-env resets on
+    ``done``; the JAX function defaults to the scan, this one to the
+    fused form that ``PPOConfig`` selects); bootstrap
     the T+1 value with no extras and no generator; per-reward-key GAE;
     optional team-summed advantages; advantage normalization with the
     population std; 0.5·MSE critic; module regularization losses.
@@ -372,20 +493,28 @@ def ppo_loss(
         rollout_data = ReplayMinibatch.from_rollout(rollout_data)
     view = rollout_data
 
-    replay = networks.replay_sequence if fused_replay else functools.partial(scan_replay, networks)
-    network_output, reg_seq, final_net_state = replay(
-        network_state, view.obs, view.done, view.rollout_extras
-    )
+    if view.batch_major:
+        network_output, reg_seq, final_net_state = replay_sequence_nd(
+            networks, network_state, view.obs, view.done.shape[1], view.rollout_extras,
+            done_bt=view.done,
+        )
+    else:
+        replay = (networks.replay_sequence if fused_replay
+                  else functools.partial(scan_replay, networks))
+        network_output, reg_seq, final_net_state = replay(
+            network_state, view.obs, view.done, view.rollout_extras
+        )
     with torch.no_grad():
         # Only the value is read, and GAE carries no gradient.
         last_values = networks(final_net_state, view.last_next_obs).output.value_estimates
 
     values = network_output.value_estimates
-    # Every reward key in one call (one kernel launch on the card); done
-    # and truncated are one tensor shared by the keys, or one per key.
+    # Every reward key in one call (one kernel launch on the card, which
+    # reads a batch-major view's [b, T] keys in place); done and truncated
+    # are one tensor shared by the keys, or one per key.
     advantages = gae_per_key(
         view.rewards, values, last_values, view.done, view.truncated,
-        lambda_=gae_lambda, gamma=discounting_factor,
+        lambda_=gae_lambda, gamma=discounting_factor, batch_major=view.batch_major,
     )
     target_values = tree_map(lambda v, a: v.detach() + a, values, advantages)
 
@@ -488,7 +617,9 @@ def train_ppo(
         raise NotImplementedError("checkpointing is not ported yet")
     if config.video.enabled or video_fn is not None:
         raise NotImplementedError("video recording is not ported yet")
-    _check_supported(config.ppo)
+    # JAX's ValueErrors for an unknown layout or store dtype, before any work.
+    resolve_batch_major(config.ppo, networks)
+    resolve_store_dtype(config.ppo)
     if eval_env is None:
         eval_env = env
 

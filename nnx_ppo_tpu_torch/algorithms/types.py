@@ -1,6 +1,7 @@
-"""Runtime types for PPO. Port of ``nnx_ppo_tpu/algorithms/types.py``
-(``EnvState`` :16, ``RLEnv`` :37, ``TrainingState`` :48, ``Transition``
-:68, ``LoggingLevel`` :120)."""
+"""Runtime types for PPO and distillation. Port of
+``nnx_ppo_tpu/algorithms/types.py`` (``EnvState`` :16, ``RLEnv`` :37,
+``TrainingState`` :48, ``Transition`` :68, ``DistillationTransition``
+:88, ``DistillationState`` :106, ``LoggingLevel`` :120)."""
 
 from __future__ import annotations
 
@@ -96,6 +97,46 @@ class Transition:
     next_obs: Any
     metrics: dict[str, Any]
     rollout_extras: Any = None
+
+
+@dataclasses.dataclass
+class DistillationTransition:
+    """One (or a stacked ``[T]`` of) distillation transition(s). The
+    student's actions drive the env; the teacher's ``rollout_extras``
+    (its sampler holds the teacher's mean, since the teacher runs in eval
+    mode) are the distillation target. ``done`` and ``truncated`` are
+    bool."""
+
+    obs: Any
+    student_output: PPONetworkOutput  # drives the env; logging only
+    rewards: Any
+    done: torch.Tensor
+    truncated: torch.Tensor
+    next_obs: Any
+    metrics: dict[str, Any]
+    student_rollout_extras: Any = None
+    teacher_rollout_extras: Any = None
+
+
+@dataclasses.dataclass
+class DistillationState:
+    """Everything a distillation run carries from one step to the next.
+    The teacher module is an argument of the step; only its per-env carry
+    is kept here. As in :class:`TrainingState`, ``student`` and
+    ``opt_state`` are updated in place, ``generator`` (one device
+    ``torch.Generator``) takes the place of the JAX ``rng_key`` and
+    ``steps_taken`` is counted on the host."""
+
+    student: Any  # StatefulModule on the run's device
+    student_states: Any
+    teacher_states: Any
+    env_states: Any
+    opt_state: torch.optim.Optimizer
+    generator: torch.Generator
+    steps_taken: int
+
+    def replace(self, **changes: Any) -> "DistillationState":
+        return dataclasses.replace(self, **changes)
 
 
 class LoggingLevel(enum.Flag):

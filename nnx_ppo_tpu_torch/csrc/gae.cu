@@ -38,6 +38,18 @@
 //   * Rows are tiled from the end when T rows of a block's tiles would not
 //     fit its shared memory (48 KB: 95 rows at 32 columns and float flags);
 //     the carried advantage and value stay in registers between tiles.
+//   * Two layouts, taken from the caller: time-major [T, B] inputs and
+//     output (rows of envs, the rollout's own stacking), or batch-major
+//     [B, T] ones (rows of time steps, the layout of a batch-major
+//     minibatch: ppo.py's view transposes once per iteration, and the
+//     loss reads each key's rewards, values and flags in place). In the
+//     batch-major layout a block's tile is `columns` env rows of `rows`
+//     steps, staged as [columns][rows]; where the block stages all T steps
+//     of rows that are T apart, the tile is one span of columns * T
+//     elements, copied 16 bytes at a time. Each thread writes its
+//     advantages over its own rewards in shared memory, and the block then
+//     stores the tile back as it came, neighbouring threads on neighbouring
+//     addresses.
 // Each product and sum is rounded on its own (__fmul_rn / __fadd_rn /
 // __fsub_rn, no fused multiply-add) in the order of the plain PyTorch
 // version, so the two agree to the bit for every key.
@@ -50,7 +62,9 @@ constexpr int kMaxKeys = 8;
 constexpr int kSmemBytes = 48 * 1024;  // no opt-in attribute needed
 
 // One reward key: input and output pointers, and the row strides (in
-// elements) of the [T, B] inputs; columns are contiguous.
+// elements) of the [T, B] inputs (time-major: rows of envs, contiguous
+// along B) or of the [B, T] inputs (batch-major: rows of steps,
+// contiguous along T). The output is contiguous in the same layout.
 struct GaeKey {
   const float* rewards;
   const float* values;
@@ -69,10 +83,53 @@ struct GaeArgs {
 
 __device__ __forceinline__ int min_int(int a, int b) { return a < b ? a : b; }
 
-// Start the copies of rows [t0, t0 + rows) x columns [b0, b0 + w) of
-// `src` (row stride `ld`) into `dst` (row stride `columns`), across the
-// block's threads: 16-byte copies when every row segment is 16-byte
-// aligned and a multiple of 16 bytes long, else one element per copy.
+// Start the copies of `n` elements from `src` to the 16-byte aligned
+// `dst`, across the block's threads: 16 bytes a copy while `src` is
+// 16-byte aligned, the tail one element a copy.
+template <class E>
+__device__ void stage_span(E* dst, const E* src, long long n) {
+  const long long bytes = n * static_cast<long long>(sizeof(E));
+  const long long n16 = reinterpret_cast<unsigned long long>(src) % 16 == 0 ? bytes / 16 : 0;
+  for (long long k = threadIdx.x; k < n16; k += blockDim.x)
+    copy_async(reinterpret_cast<char*>(dst) + k * 16, reinterpret_cast<const char*>(src) + k * 16,
+               16);
+  for (long long k = n16 * 16 / static_cast<long long>(sizeof(E)) + threadIdx.x; k < n;
+       k += blockDim.x)
+    copy_async(dst + k, src + k, static_cast<int>(sizeof(E)));
+}
+
+// Batch-major: start the copies of steps [t0, t0 + rows) of env rows
+// [b0, b0 + w) of `src` (row stride `ld`) into `dst` as [w][rows]. Rows
+// that follow each other (ld == rows) make one span; else each env's
+// segment is copied 16 bytes at a time where every segment is 16-byte
+// aligned and a multiple of 16 bytes long, else one element a copy.
+template <class E>
+__device__ void stage_env_rows(E* dst, const E* src, long long ld, int t0, int rows, int b0,
+                               int w) {
+  const E* first = src + static_cast<long long>(b0) * ld + t0;
+  if (ld == rows) {
+    stage_span(dst, first, static_cast<long long>(w) * rows);
+    return;
+  }
+  const unsigned long long misaligned =
+      reinterpret_cast<unsigned long long>(first) |
+      static_cast<unsigned long long>(ld * static_cast<long long>(sizeof(E))) |
+      static_cast<unsigned long long>(rows * static_cast<int>(sizeof(E)));
+  const int chunk = misaligned % 16 == 0 ? 16 : static_cast<int>(sizeof(E));
+  const int per_env = rows * static_cast<int>(sizeof(E)) / chunk;
+  for (int k = static_cast<int>(threadIdx.x); k < w * per_env;
+       k += static_cast<int>(blockDim.x)) {
+    const int j = k / per_env, q = k - j * per_env;
+    copy_async(reinterpret_cast<char*>(dst + static_cast<long long>(j) * rows) + q * chunk,
+               reinterpret_cast<const char*>(first + j * ld) + q * chunk, chunk);
+  }
+}
+
+// Time-major: start the copies of rows [t0, t0 + rows) x columns [b0, b0
+// + w) of `src` (row stride `ld`) into `dst` (row stride `columns`),
+// across the block's threads: 16-byte copies when every row segment is
+// 16-byte aligned and a multiple of 16 bytes long, else one element per
+// copy.
 template <class E>
 __device__ void stage_tile(E* dst, const E* src, long long ld, int t0, int rows, int b0, int w,
                            int columns, int B) {
@@ -90,7 +147,7 @@ __device__ void stage_tile(E* dst, const E* src, long long ld, int t0, int rows,
   }
 }
 
-template <class Done, class Trunc>
+template <class Done, class Trunc, bool kBatchMajor>
 __global__ void gae_kernel(const __grid_constant__ GaeArgs a) {
   extern __shared__ float4 gae_smem[];
   const GaeKey& key = a.key[blockIdx.y];
@@ -99,8 +156,9 @@ __global__ void gae_kernel(const __grid_constant__ GaeArgs a) {
   const int w = min_int(columns, a.B - b0);
   const int c = static_cast<int>(threadIdx.x);
   const int R = a.tile_rows;
-  // [R][columns] tiles, then the last_value row; every part starts on a
-  // 16-byte boundary since columns is a multiple of 16.
+  // [R][columns] tiles (batch-major: [columns][rows] in the same room),
+  // then the last_value row; every part starts on a 16-byte boundary
+  // since columns is a multiple of 16.
   float* s_rewards = reinterpret_cast<float*>(gae_smem);
   float* s_values = s_rewards + R * columns;
   float* s_last = s_values + R * columns;
@@ -114,17 +172,24 @@ __global__ void gae_kernel(const __grid_constant__ GaeArgs a) {
   for (int t_hi = a.T; t_hi > 0;) {
     const int t_lo = t_hi - min_int(R, t_hi);
     const int rows = t_hi - t_lo;
-    stage_tile(s_rewards, key.rewards, key.ld_rewards, t_lo, rows, b0, w, columns, a.B);
-    stage_tile(s_values, key.values, key.ld_values, t_lo, rows, b0, w, columns, a.B);
-    stage_tile(s_done, done, key.ld_done, t_lo, rows, b0, w, columns, a.B);
-    stage_tile(s_trunc, truncation, key.ld_truncation, t_lo, rows, b0, w, columns, a.B);
+    if (kBatchMajor) {
+      stage_env_rows(s_rewards, key.rewards, key.ld_rewards, t_lo, rows, b0, w);
+      stage_env_rows(s_values, key.values, key.ld_values, t_lo, rows, b0, w);
+      stage_env_rows(s_done, done, key.ld_done, t_lo, rows, b0, w);
+      stage_env_rows(s_trunc, truncation, key.ld_truncation, t_lo, rows, b0, w);
+    } else {
+      stage_tile(s_rewards, key.rewards, key.ld_rewards, t_lo, rows, b0, w, columns, a.B);
+      stage_tile(s_values, key.values, key.ld_values, t_lo, rows, b0, w, columns, a.B);
+      stage_tile(s_done, done, key.ld_done, t_lo, rows, b0, w, columns, a.B);
+      stage_tile(s_trunc, truncation, key.ld_truncation, t_lo, rows, b0, w, columns, a.B);
+    }
     if (t_hi == a.T) stage_tile(s_last, key.last_value, 0, 0, 1, b0, w, columns, a.B);
     copy_async_wait();
     __syncthreads();
     if (c < w) {
       if (t_hi == a.T) next_value = s_last[c];
       for (int r = rows - 1; r >= 0; --r) {
-        const int i = r * columns + c;
+        const int i = kBatchMajor ? c * rows + r : r * columns + c;
         const float d = static_cast<float>(s_done[i]);
         const float old_value = s_values[i];
         const float bootstrap = d != 0.0f ? 0.0f : next_value;
@@ -135,8 +200,26 @@ __global__ void gae_kernel(const __grid_constant__ GaeArgs a) {
         // advantage + (((1 - done) * gamma) * lambda) * next_advantage
         const float gate = __fmul_rn(__fmul_rn(__fsub_rn(1.0f, d), a.gamma), a.lambda);
         next_advantage = __fadd_rn(advantage, __fmul_rn(gate, next_advantage));
-        key.out[static_cast<long long>(t_lo + r) * a.B + b0 + c] = next_advantage;
+        if (kBatchMajor)
+          s_rewards[i] = next_advantage;  // only this thread reads or writes [c][*]
+        else
+          key.out[static_cast<long long>(t_lo + r) * a.B + b0 + c] = next_advantage;
         next_value = old_value;
+      }
+    }
+    if (kBatchMajor) {
+      // The tile's advantages go out as its rewards came in: env rows of
+      // the [B, T] output, neighbouring threads on neighbouring addresses
+      // (all T steps of the block's rows are one span of the output).
+      __syncthreads();
+      float* out = key.out + static_cast<long long>(b0) * a.T + t_lo;
+      if (rows == a.T) {
+        for (int k = c; k < w * rows; k += columns) out[k] = s_rewards[k];
+      } else {
+        for (int k = c; k < w * rows; k += columns) {
+          const int j = k / rows, r = k - j * rows;
+          out[static_cast<long long>(j) * a.T + r] = s_rewards[k];
+        }
       }
     }
     __syncthreads();  // the next tile overwrites these
@@ -150,14 +233,15 @@ int block_smem_bytes(int rows, int columns, int done_bytes, int trunc_bytes) {
 }
 
 template <class Done, class Trunc>
-int launch(const GaeArgs& args, int n_keys, int columns, int device, void* stream) {
+int launch(const GaeArgs& args, int n_keys, bool batch_major, int columns, int device,
+           void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const int smem = block_smem_bytes(args.tile_rows, columns, static_cast<int>(sizeof(Done)),
                                     static_cast<int>(sizeof(Trunc)));
   const dim3 grid(static_cast<unsigned>((args.B + columns - 1) / columns),
                   static_cast<unsigned>(n_keys));
-  const auto kernel = gae_kernel<Done, Trunc>;
+  const auto kernel = batch_major ? gae_kernel<Done, Trunc, true> : gae_kernel<Done, Trunc, false>;
   kernel<<<grid, columns, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(args);
   return static_cast<int>(cudaGetLastError());
 }
@@ -172,12 +256,15 @@ extern "C" int gae_max_keys() { return kMaxKeys; }
 // holds 10 entries per key: the addresses of rewards, values, last_value,
 // done, truncation and out, then the row strides (in elements) of
 // rewards, values, done and truncation. The flags are bool (1 byte) where
-// `done_is_bool` / `truncation_is_bool` is set, else float32. `columns`
-// (threads per block) is a multiple of 16 up to 1024; `tile_rows` bounds
-// the rows staged at once (0: as many as fit 48 KB).
+// `done_is_bool` / `truncation_is_bool` is set, else float32. Where
+// `batch_major` is set the inputs are [B, T] with contiguous rows and the
+// output is a contiguous [B, T], else [T, B] both. `columns` (threads per
+// block) is a multiple of 16 up to 1024; `tile_rows` bounds the rows
+// staged at once (0: as many as fit 48 KB).
 extern "C" int gae_forward(const long long* words, int n_keys, int T, int B, float gamma,
-                           float lambda, int done_is_bool, int truncation_is_bool, int columns,
-                           int tile_rows, int device, void* stream) {
+                           float lambda, int done_is_bool, int truncation_is_bool,
+                           int batch_major, int columns, int tile_rows, int device,
+                           void* stream) {
   if (n_keys < 1 || n_keys > kMaxKeys || T < 1 || B < 1 || columns < 16 || columns > 1024 ||
       columns % 16 != 0 || tile_rows < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -207,9 +294,11 @@ extern "C" int gae_forward(const long long* words, int n_keys, int T, int B, flo
   args.tile_rows = rows;
   args.gamma = gamma;
   args.lambda = lambda;
+  const bool bm = batch_major != 0;
   if (done_is_bool && truncation_is_bool)
-    return launch<unsigned char, unsigned char>(args, n_keys, columns, device, stream);
-  if (done_is_bool) return launch<unsigned char, float>(args, n_keys, columns, device, stream);
-  if (truncation_is_bool) return launch<float, unsigned char>(args, n_keys, columns, device, stream);
-  return launch<float, float>(args, n_keys, columns, device, stream);
+    return launch<unsigned char, unsigned char>(args, n_keys, bm, columns, device, stream);
+  if (done_is_bool) return launch<unsigned char, float>(args, n_keys, bm, columns, device, stream);
+  if (truncation_is_bool)
+    return launch<float, unsigned char>(args, n_keys, bm, columns, device, stream);
+  return launch<float, float>(args, n_keys, bm, columns, device, stream);
 }

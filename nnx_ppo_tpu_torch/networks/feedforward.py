@@ -14,7 +14,9 @@ layer computes the float32 product of the bf16-rounded operands: the
 same function (each product of two bf16 values is exact in float32) on
 the CPU and on the card. Its gradients pass through the same casts, so
 they are rounded to bf16 at the operands as JAX's are. Parameters stay
-float32.
+float32. Without ``compute_dtype`` an input of another dtype (a bf16
+replay store's observations) is promoted to the kernel's, as ``jnp.dot``
+promotes it.
 """
 
 from __future__ import annotations
@@ -84,7 +86,10 @@ class Dense(StatefulModule):
 
     def forward(self, state, x, rollout_extras=None, generator=None) -> ModuleOutput:
         if self.compute_dtype is None:
-            y = torch.matmul(x, self.kernel)
+            # jnp.dot promotes a bf16 input (a bf16 replay store) to the
+            # kernel's float32, exactly; torch.matmul refuses mixed dtypes.
+            y = torch.matmul(x if x.dtype == self.kernel.dtype else x.to(self.kernel.dtype),
+                             self.kernel)
         else:
             y = torch.matmul(rounded(x, self.compute_dtype), rounded(self.kernel, self.compute_dtype))
         if self.bias is not None:

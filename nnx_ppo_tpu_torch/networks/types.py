@@ -36,7 +36,7 @@ from typing import Any, Optional
 import torch
 from torch import nn
 
-from nnx_ppo_tpu_torch.core.struct import tree_map, tree_stack, tree_where
+from nnx_ppo_tpu_torch.core.struct import tree_leaves, tree_map, tree_stack, tree_where
 
 ModuleState = Any  # (), dict, tuple, ... of per-env tensors
 
@@ -165,3 +165,63 @@ def scan_replay(
         regs.append(_normalize_reg(out.regularization_loss, 1, B, done_seq.device)[0])
         state = tree_where(done_seq[t], module.reset_state(out.next_state), out.next_state)
     return tree_stack(outputs), torch.stack(regs), state
+
+
+def replay_sequence_nd(
+    module: StatefulModule,
+    module_state: ModuleState,
+    obs_bt: Any,
+    n_steps: int,
+    extras_bt: Any,
+    done_bt: Optional[torch.Tensor] = None,
+) -> tuple[Any, Any, ModuleState]:
+    """The fused replay over **batch-major** ``[B, T, ...]`` buffers
+    (``nnx_ppo_tpu/networks/types.py:230-291``) for a fully
+    replay-time-static network: each layer runs one forward over the
+    ``[B, T]`` leading dims, so neither the time order nor the per-env
+    ``done`` resets matter.
+
+    Each per-env carry leaf is broadcast over T with ``expand`` (a view,
+    not a copy); the port's carries hold no PRNG keys (one
+    ``torch.Generator``, see the module docstring), so no per-step key is
+    made. The forward runs through the modules' ``replay_sequence``
+    (``done_bt`` is read for its ``[B, T]`` shape only; a broadcast False
+    when not given), which for static layers is their forward over the
+    leading dims, and lets a layer whose step form folds every axis past
+    the first flatten below both leading dims instead: a departure from
+    JAX's one whole-net forward, whose ``Flattener`` folds T into the
+    features and raises on dict observations
+    (``nnx_ppo_tpu/networks/utils.py:49-54``).
+
+    Returns ``(output_bt [B, T, ...], reg_bt, final_state)``: ``reg_bt``
+    is what the forward gives (a float or a tensor that broadcasts against
+    ``[B, T]``, as :meth:`StatefulModule.replay_sequence` returns it;
+    every reader takes a mean); ``final_state`` is
+    :func:`advance_state_keys` of the carry it was given, which is that
+    carry: JAX's ``final_state`` argument, a carry to return in its place,
+    has no caller here and is not taken. Any other network raises JAX's
+    ``ValueError``."""
+    if not module.replay_time_static:
+        raise ValueError(
+            "replay_sequence_nd requires a fully replay-time-static "
+            "network (every module's replay output independent of carry "
+            "values); use the time-major replay_sequence path for "
+            "recurrent networks."
+        )
+    T = n_steps
+    B = tree_leaves(obs_bt)[0].shape[0]
+    if done_bt is None:
+        device = tree_leaves(obs_bt)[0].device
+        done_bt = torch.zeros((), dtype=torch.bool, device=device).expand(B, T)
+    nd_state = tree_map(lambda x: x.unsqueeze(1).expand(x.shape[0], T, *x.shape[1:]), module_state)
+    output, reg, _ = module.replay_sequence(nd_state, obs_bt, done_bt, extras_bt)
+    return output, reg, advance_state_keys(module_state, T)
+
+
+def advance_state_keys(module_state: ModuleState, n_steps: int) -> ModuleState:
+    """``nnx_ppo_tpu/networks/types.py:294-305``: advance every PRNG-key
+    leaf of a per-env carry by ``n_steps`` splits. The port's carries hold
+    no keys (every draw comes from the caller's generator), so this is the
+    identity: the carry it is given."""
+    del n_steps
+    return module_state

@@ -12,6 +12,11 @@ result carries no gradient.
 * :func:`gae_per_key` takes every reward key of a minibatch (the trees
   ``ppo_loss`` holds) and, on CUDA tensors, computes them all in ONE
   launch of the same kernel; on CPU tensors it is ``gae_scan`` per key.
+  With ``batch_major=True`` it takes the ``[B, T]`` arrays of a
+  batch-major minibatch and returns ``[B, T]`` advantages: the kernel
+  reads them in place (JAX's batch-major loss swaps each key to ``[T,
+  B]`` and back, ``nnx_ppo_tpu/algorithms/ppo.py:599-619``); the plain
+  version is ``gae_scan`` on the transposed views.
 * :func:`gae` dispatches one key by the tensors' device: the plain
   version for CPU tensors, the kernel for CUDA tensors.
 
@@ -21,9 +26,10 @@ kernel cannot take raises.
 
 The plain version casts ``done`` and ``truncation`` to float32; the
 kernel reads them as they come, bool or float32 (other dtypes raise), so
-no cast runs on the card. A CUDA input is used in place when its columns
-are contiguous, at any row stride (a column slice of a wider tensor
-too); only an input whose columns are strided is copied first.
+no cast runs on the card. A CUDA input is used in place when its
+innermost axis (B time-major, T batch-major) is contiguous, at any row
+stride (a column slice of a wider tensor too); only an input strided
+along that axis is copied first.
 """
 
 from __future__ import annotations
@@ -80,50 +86,52 @@ def _gae_forward():
     fn = cuda_build.load("gae").gae_forward
     fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [
         ctypes.c_int
-    ] * 5 + [ctypes.c_void_p]
+    ] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _rows(x: torch.Tensor, B: int) -> tuple[torch.Tensor, int]:
-    """``(x, row stride)``: ``x`` itself when its columns are contiguous
-    (at any row stride, as in a column slice of a wider tensor), else a
+def _rows(x: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """``(x, row stride)``: ``x`` itself when its rows are contiguous (at
+    any row stride, as in a column slice of a wider tensor), else a
     contiguous copy."""
-    if x.is_contiguous():
-        return x, B
-    if x.stride(1) != 1:
+    if x.stride(1) != 1 and x.shape[1] != 1:
         x = x.contiguous()
-        return x, B
     return x, x.stride(0)
 
 
-def _refuse(keys: list, T: int, B: int, device, flag_dtypes) -> None:
-    """Raise for the first input of ``keys`` that the kernel cannot take."""
+def _refuse(keys: list, shape: tuple, B: int, device, flag_dtypes) -> None:
+    """Raise for the first input of ``keys`` that the kernel cannot take
+    (``shape`` is every sequence input's, ``[T, B]`` or ``[B, T]``)."""
     names = ("rewards", "values", "last_value", "done", "truncation")
     dtypes = (torch.float32, torch.float32, torch.float32) + tuple(flag_dtypes)
     for key in keys:
         for name, x, dtype in zip(names, key, dtypes):
-            shape = (B,) if name == "last_value" else (T, B)
-            if x.shape != shape or x.device != device:
-                raise ValueError(f"{name}: expected shape {shape} on {device}, got "
+            want = (B,) if name == "last_value" else shape
+            if x.shape != want or x.device != device:
+                raise ValueError(f"{name}: expected shape {want} on {device}, got "
                                  f"{tuple(x.shape)} on {x.device}")
             if x.dtype != dtype:
                 raise TypeError(f"{name}: expected {dtype} (as every key's), got {x.dtype}")
 
 
-def _launch(keys: list, lambda_: float, gamma: float, tile_rows: int = 0) -> tuple:
+def _launch(keys: list, lambda_: float, gamma: float, tile_rows: int = 0,
+            batch_major: bool = False) -> tuple:
     """One launch of the GAE kernel for every key of ``keys``, a list of
     ``(rewards, values, last_value, done, truncation)``: ``[T, B]`` float32
     rewards and values, ``[B]`` float32 last values, ``[T, B]`` bool or
-    float32 flags (one dtype each across the keys). Returns the advantages
-    per key and counts the launch in ``gae_cuda.launches``."""
+    float32 flags (one dtype each across the keys); with ``batch_major``
+    the sequence inputs and the outputs are ``[B, T]``. Returns the
+    advantages per key and counts the launch in ``gae_cuda.launches``."""
     n = len(keys)
     if not 1 <= n <= MAX_KEYS:
         raise ValueError(f"the GAE kernel takes 1 to {MAX_KEYS} reward keys in one launch, got {n}")
     first = keys[0][0]
     if first.ndim != 2:
-        raise ValueError(f"rewards must be [T, B], got {tuple(first.shape)}")
-    T, B = shape = first.shape
+        raise ValueError(f"rewards must be {'[B, T]' if batch_major else '[T, B]'}, got "
+                         f"{tuple(first.shape)}")
+    shape = first.shape
+    B, T = shape if batch_major else shape[::-1]
     device = first.device
     if device.type != "cuda":
         raise ValueError(f"the GAE kernel takes CUDA tensors, got {device}")
@@ -139,15 +147,15 @@ def _launch(keys: list, lambda_: float, gamma: float, tile_rows: int = 0) -> tup
                 and r.device == v.device == last.device == d.device == tr.device == device
                 and r.dtype == v.dtype == last.dtype == f32 and d.dtype == done_dtype
                 and tr.dtype == trunc_dtype):
-            _refuse(keys, T, B, device, (done_dtype, trunc_dtype))
-    outs = (torch.empty((n, T, B), dtype=f32, device=device).unbind(0) if n > 1
-            else (torch.empty((T, B), dtype=f32, device=device),))
+            _refuse(keys, shape, B, device, (done_dtype, trunc_dtype))
+    outs = (torch.empty((n, *shape), dtype=f32, device=device).unbind(0) if n > 1
+            else (torch.empty(shape, dtype=f32, device=device),))
     if T == 0 or B == 0:
         return outs
     packed = array.array("q")
     inputs = []  # every tensor the kernel reads, alive until the launch
     for k, (r, v, last, d, tr) in enumerate(keys):
-        (r, ld_r), (v, ld_v), (d, ld_d), (tr, ld_t) = (_rows(x, B) for x in (r, v, d, tr))
+        (r, ld_r), (v, ld_v), (d, ld_d), (tr, ld_t) = (_rows(x) for x in (r, v, d, tr))
         last = last.contiguous()
         inputs.append((r, v, last, d, tr))
         packed.extend((r.data_ptr(), v.data_ptr(), last.data_ptr(), d.data_ptr(), tr.data_ptr(),
@@ -155,7 +163,8 @@ def _launch(keys: list, lambda_: float, gamma: float, tile_rows: int = 0) -> tup
     stream = torch.cuda.current_stream(device)
     err = _gae_forward()(
         packed.buffer_info()[0], n, T, B, gamma, lambda_, done_dtype == torch.bool,
-        trunc_dtype == torch.bool, GAE_COLUMNS, tile_rows, device.index, stream.cuda_stream,
+        trunc_dtype == torch.bool, batch_major, GAE_COLUMNS, tile_rows, device.index,
+        stream.cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"gae kernel launch failed: cudaError_t {err}")
@@ -171,11 +180,12 @@ def gae_cuda(
     truncation: torch.Tensor,
     lambda_: float,
     gamma: float,
+    batch_major: bool = False,
 ) -> torch.Tensor:
     """GAE of one reward key through the CUDA kernel, on the current
-    stream."""
+    stream (``[B, T]`` inputs and output with ``batch_major``)."""
     return _launch([(rewards, values_excl_last, last_value, done, truncation)], lambda_,
-                   gamma)[0]
+                   gamma, batch_major=batch_major)[0]
 
 
 gae_cuda.launches = 0
@@ -189,14 +199,18 @@ def gae_per_key(
     truncation: Any,
     lambda_: float,
     gamma: float,
+    batch_major: bool = False,
 ) -> Any:
     """GAE of every reward key: ``rewards``, ``values_excl_last`` and
     ``last_values`` are trees of the same structure (a dict per reward key,
     or one tensor), ``done`` and ``truncation`` either one tensor shared by
     every key or trees of that structure. Returns the advantages in the
-    structure of ``rewards``. CUDA tensors take ONE kernel launch for all
-    keys (at most :data:`MAX_KEYS`); CPU tensors the plain version per key,
-    ``tree_map(gae_scan, ...)``; any other device raises."""
+    structure of ``rewards``. The sequence inputs and the advantages are
+    ``[T, B]``, or ``[B, T]`` with ``batch_major``. CUDA tensors take ONE
+    kernel launch for all keys (at most :data:`MAX_KEYS`), read in place
+    in either layout; CPU tensors the plain version per key,
+    ``tree_map(gae_scan, ...)`` (batch-major: on the transposed views);
+    any other device raises."""
     if torch.is_tensor(rewards):
         keys = [(rewards, values_excl_last, last_values, done, truncation)]
     elif isinstance(rewards, dict) and torch.is_tensor(done) and torch.is_tensor(truncation):
@@ -210,7 +224,10 @@ def gae_per_key(
         tree_map(lambda *key: keys.append(key), rewards, values_excl_last, last_values, *flags)
     device = keys[0][0].device if keys else torch.device("cpu")
     if device.type == "cuda":
-        outs = _launch(keys, lambda_, gamma)
+        outs = _launch(keys, lambda_, gamma, batch_major=batch_major)
+    elif device.type == "cpu" and batch_major:
+        outs = [gae_scan(r.T, v.T, last, d.T, tr.T, lambda_, gamma).T
+                for r, v, last, d, tr in keys]
     elif device.type == "cpu":
         outs = [gae_scan(*key, lambda_, gamma) for key in keys]
     else:

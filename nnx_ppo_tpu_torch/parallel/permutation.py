@@ -6,7 +6,11 @@ permutation into ``n_minibatches`` equal rows; the permutations come from
 the caller's generator, or are injected as ``selectors`` (a test pins
 them to the JAX package's). Unshuffled (``shuffle=False``): minibatch
 ``m`` is the contiguous env block ``[m·k, (m+1)·k)`` in every epoch, taken
-as a slice (a view: no gather, no copy).
+as a slice (a view: no gather, no copy). The sequence buffers are
+time-major ``[T, B, ...]`` (env axis 1) or, with ``batch_major``,
+``[B, T, ...]`` (env axis 0: a shuffled minibatch gathers whole env
+rows, one contiguous ``T·feat`` run each); the selectors do not depend
+on the layout.
 """
 
 from __future__ import annotations
@@ -41,18 +45,21 @@ def minibatch_plan(
     shuffle: bool = True,
     generator: Optional[torch.Generator] = None,
     selectors: Optional[torch.Tensor] = None,
+    batch_major: bool = False,
 ) -> tuple[
     torch.Tensor,
     Callable[[Any, torch.Tensor], Any],
     Callable[[Any, torch.Tensor], Any],
 ]:
-    """``(selectors, take_seq, take_batch)`` for the E·M updates.
+    """``(selectors, take_seq, take_batch)`` for the E·M updates
+    (``permutation.py:80-165``).
 
-    ``take_seq`` extracts a minibatch from a time-major ``[T, B, ...]``
-    buffer, ``take_batch`` from a per-env ``[B, ...]`` leaf. Pass
-    ``selectors`` to use given permutations instead of drawing them.
-    With ``shuffle=False`` the selectors are the minibatch numbers
-    ``tile(arange(M), E)`` (on the host) and the extractors slice.
+    ``take_seq`` extracts a minibatch from a sequence buffer, time-major
+    ``[T, B, ...]`` or, with ``batch_major``, ``[B, T, ...]``;
+    ``take_batch`` from a per-env ``[B, ...]`` leaf. Pass ``selectors`` to
+    use given permutations instead of drawing them. With ``shuffle=False``
+    the selectors are the minibatch numbers ``tile(arange(M), E)`` (on the
+    host) and the extractors slice.
     """
     if not shuffle:
         if selectors is not None:
@@ -66,10 +73,16 @@ def minibatch_plan(
         def block(m) -> slice:
             return slice(int(m) * k_quota, (int(m) + 1) * k_quota)
 
+        def take_block(x, m):
+            return x[block(m)]
+
+        def take_block_seq(x, m):
+            return x[:, block(m)]
+
         return (
             torch.arange(n_minibatches).repeat(n_epochs),
-            lambda x, m: x[:, block(m)],
-            lambda x, m: x[block(m)],
+            take_block if batch_major else take_block_seq,
+            take_block,
         )
     if selectors is None:
         if generator is None:
@@ -87,4 +100,4 @@ def minibatch_plan(
     def take_batch(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
         return x[inds]
 
-    return selectors, take_seq, take_batch
+    return selectors, take_batch if batch_major else take_seq, take_batch

@@ -226,9 +226,11 @@ def test_ppo_loss_bits_unchanged_by_the_switch_to_gae_per_key(monkeypatch):
 
     after = loss_and_grads()
 
-    def per_key_calls(rewards, values, last_values, done, truncated, lambda_, gamma):
+    def per_key_calls(rewards, values, last_values, done, truncated, lambda_, gamma,
+                      batch_major=False):
         # The code before the switch: the shared flags broadcast to every
-        # key, then one gae call per key.
+        # key, then one gae call per key (a Transition replays time-major).
+        assert not batch_major
         done = tree_map(lambda _: done, rewards)
         truncated = tree_map(lambda _: truncated, rewards)
         return tree_map(lambda r, v, v_last, d, tr: gae(r, v.detach(), v_last, d, tr,

@@ -170,7 +170,7 @@ def test_gae_kernel_rejects_wrong_dtype_and_shape(cuda):
         gae_cuda(args[0], args[1][:4], *args[2:], 0.95, 0.99)
 
 
-def _two_key_quadruped_leg():
+def _two_key_quadruped_leg(activation=torch.relu):
     """A quadruped leg with two reward keys ('tracking', 'penalty') and a
     two-headed critic, at a small width."""
     from nnx_ppo_tpu_torch.networks import (
@@ -179,12 +179,13 @@ def _two_key_quadruped_leg():
 
     env = EpisodeWrapper(QuadrupedJoystick(reuse_mass_matrix=True, n_substeps=2), max_len=50)
     g = torch.Generator().manual_seed(0)
-    enc = Concat.create(proprio=Dense.create(env.observation_size["proprio"], 32, g, torch.relu),
-                        command=Dense.create(3, 8, g, torch.relu))
+    enc = Concat.create(proprio=Dense.create(env.observation_size["proprio"], 32, g, activation),
+                        command=Dense.create(3, 8, g, activation))
     actor = Sequential.create([Dense.create(40, 2 * env.action_size, g),
                                NormalTanhSampler.create(entropy_weight=1e-3)])
-    critic = Parallel.create(tracking=make_mlp([40, 16, 1], g, activation_last_layer=False),
-                             penalty=make_mlp([40, 16, 1], g, activation_last_layer=False))
+    critic = Parallel.create(
+        tracking=make_mlp([40, 16, 1], g, activation, activation_last_layer=False),
+        penalty=make_mlp([40, 16, 1], g, activation, activation_last_layer=False))
     return env, Sequential.create([enc, PPOAdapter.create(action=actor, value=critic)])
 
 
@@ -643,3 +644,125 @@ def test_recurrent_replay_on_the_card_matches_the_cpu(cuda, cell):
     torch.testing.assert_close(results["cuda"][0], results["cpu"][0], rtol=1e-5, atol=1e-5)
     for got, want in zip(results["cuda"][1], results["cpu"][1]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+# Batch-major GAE: (T, B, keys, flag dtype, row stride or None): the
+# bf16-store path's minibatch [b=512, T=20] x 2, the flagship's [256, 30],
+# a ragged b=33, and rows of a wider [B, 32] buffer (per-env segments).
+GAE_BATCH_MAJOR_CASES = {
+    "quadruped_512x20_two_keys": (20, 512, 2, torch.bool, None),
+    "flagship_256x30": (30, 256, 1, torch.bool, None),
+    "ragged_33x20_two_keys": (20, 33, 2, torch.bool, None),
+    "float_flags_rows_of_32": (30, 100, 1, torch.float32, 32),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(GAE_BATCH_MAJOR_CASES))
+def test_batch_major_gae_reads_b_t_keys_in_place_equal_to_gae_scan(cuda, case):
+    """gae_per_key(batch_major=True) on [B, T] keys: one launch, no copy of
+    the inputs, [B, T] advantages equal to the bit to gae_scan on the
+    transposed views."""
+    T, B, n_keys, flag_dtype, ld = GAE_BATCH_MAJOR_CASES[case]
+    width = ld or T
+    rewards, values, last, done, truncated = (
+        {k: x.T.contiguous() if x.ndim == 2 else x for k, x in tree.items()}
+        if isinstance(tree, dict) else tree.T.contiguous()
+        for tree in _per_key_inputs(width, B, n_keys, False, flag_dtype, cuda))
+    if ld:
+        rewards, values = ({k: x[:, :T] for k, x in t.items()} for t in (rewards, values))
+        done, truncated = done[:, :T], truncated[:, :T]
+        assert not done.is_contiguous()
+    before = gae_cuda.launches
+    got = gae_per_key(rewards, values, last, done, truncated, 0.95, 0.99, batch_major=True)
+    assert gae_cuda.launches == before + 1
+    for k in rewards:
+        want = gae_scan(rewards[k].T, values[k].T, last[k], done.T, truncated.T, 0.95, 0.99).T
+        assert got[k].shape == (B, T) and got[k].is_contiguous()
+        assert torch.equal(got[k], want), f"{k}: max abs error {(got[k] - want).abs().max().item():.3g}"
+
+
+def _loss_on_card_and_cpu(loss_fn, net, view, state):
+    """loss_fn(net, state, view) and its gradients on the card and on a
+    CPU copy."""
+    import copy
+
+    from nnx_ppo_tpu_torch.core.struct import tree_map
+
+    results = []
+    for device in ("cuda", "cpu"):
+        m = copy.deepcopy(net).to(device)
+        on = lambda tree: tree_map(lambda x: x.to(device) if torch.is_tensor(x) else x, tree)
+        loss = loss_fn(m, on(state), on(view))
+        loss.backward()
+        results.append((loss.item(), [torch.zeros_like(p).cpu() if p.grad is None else p.grad.cpu()
+                                      for p in m.parameters()]))
+    return results
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["bf16_store", "distillation"])
+def test_new_paths_loss_on_the_card_matches_the_cpu(cuda, path):
+    """The bf16-store PPO loss and the distillation loss of a batch-major
+    minibatch of the flat quadruped (64 envs, T=8, the control-step
+    kernel in the rollout) on the card against the CPU: loss rtol 1e-4 /
+    atol 1e-5 (chip_smoke.py's float32 limit); gradients rtol 1e-3 and
+    an atol of 1e-5 plus 1e-4 of each tensor's largest entry: float32
+    sums over T·B samples in another order move an entry near zero by a
+    share of the summands' size, not of its own (4.4e-5 on one entry of
+    the actor head here; up to 9e-6 of a tensor's largest entry in
+    chip_smoke.py's references on the H100). The net's hidden layers are
+    tanh: with relu this loss is ill-conditioned in float32 itself at 512
+    samples, without any relu input changing sign between the devices:
+    against float64 on the CPU, float32 on the card and on the CPU each
+    read 2.9e-4 to 1.6e-3 of a tensor's largest entry with relu, 1.2e-6
+    to 1.7e-6 with tanh (H100, two seeds each). The student of the
+    distillation loss is the teacher shifted by 0.01·sign(sin(arange)),
+    as in distill_quadruped_2048: with the two equal, the target is the
+    student's own mean and its gradient only rounding noise."""
+    from nnx_ppo_tpu_torch.algorithms import (
+        DistillationConfig, LoggingLevel, distillation_loss, ppo_loss, resolve_batch_major,
+    )
+    from nnx_ppo_tpu_torch.algorithms.distillation import (
+        DistillationMinibatch, distillation_unroll_env,
+    )
+    from nnx_ppo_tpu_torch.algorithms.ppo import ReplayMinibatch
+    from nnx_ppo_tpu_torch.algorithms.rollout import unroll_env
+
+    env, net = _two_key_quadruped_leg(torch.tanh)
+    net = net.to(cuda)
+    assert resolve_batch_major(PPOConfig(), net)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    B, T = 64, 8
+    env_state = env.reset(B, g)
+    state = net.initialize_state(B)
+    before = control_step_cuda.launches
+    with torch.no_grad():
+        if path == "bf16_store":
+            _, _, rollout_data = unroll_env(env, env_state, net, state, T, g)
+            view = ReplayMinibatch.from_rollout(rollout_data, True, torch.bfloat16)
+            assert view.obs["proprio"].dtype == torch.bfloat16
+
+            def loss_fn(m, s, v):
+                return ppo_loss(m, s, v, clip_range=0.2, normalize_advantages=True,
+                                combine_advantages=True, discounting_factor=0.99,
+                                gae_lambda=0.95, critic_loss_weight=1.0,
+                                logging_level=LoggingLevel.NONE)[0]
+        else:
+            teacher = _two_key_quadruped_leg(torch.tanh)[1].to(cuda).eval()
+            for p in net.parameters():
+                shift = torch.sign(torch.sin(torch.arange(p.numel(), dtype=torch.float32)))
+                p.add_(0.01 * shift.reshape(p.shape).to(cuda))
+            _, _, _, rollout_data = distillation_unroll_env(env, env_state, teacher, net, state,
+                                                            teacher.initialize_state(B), T, g)
+            assert resolve_batch_major(DistillationConfig(), net)
+            view = DistillationMinibatch.from_rollout(rollout_data, True)
+
+            def loss_fn(m, s, v):
+                return distillation_loss(m, s, v, LoggingLevel.NONE)[0]
+    assert control_step_cuda.launches == before + T
+    (loss_gpu, grads_gpu), (loss_cpu, grads_cpu) = _loss_on_card_and_cpu(loss_fn, net, view, state)
+    np.testing.assert_allclose(loss_gpu, loss_cpu, rtol=1e-4, atol=1e-5)
+    for got, want in zip(grads_gpu, grads_cpu):
+        torch.testing.assert_close(got, want, rtol=1e-3,
+                                   atol=1e-5 + 1e-4 * want.abs().max().item())

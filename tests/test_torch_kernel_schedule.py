@@ -287,10 +287,11 @@ GAE_MAIN = r"""
 #include <string>
 
 // dir n_keys T B ld done_is_bool truncation_is_bool columns tile_rows gamma
-// lambda: reads {rewards,values,last,done,truncation}<k>.bin (the [T, B]
-// inputs at row stride ld), writes out<k>.bin.
+// lambda batch_major: reads {rewards,values,last,done,truncation}<k>.bin
+// (the [T, B] inputs, or [B, T] batch-major, at row stride ld), writes
+// out<k>.bin.
 int main(int argc, char** argv) {
-  if (argc != 12) return 2;
+  if (argc != 13) return 2;
   const std::string dir = argv[1];
   const int n = std::atoi(argv[2]), T = std::atoi(argv[3]), B = std::atoi(argv[4]);
   const long long ld = std::atoll(argv[5]);
@@ -309,7 +310,8 @@ int main(int argc, char** argv) {
     for (int j = 0; j < 4; ++j) words.push_back(ld);
   }
   const int err = gae_forward(words.data(), n, T, B, gamma, lambda, std::atoi(argv[6]),
-                              std::atoi(argv[7]), std::atoi(argv[8]), std::atoi(argv[9]), 0, nullptr);
+                              std::atoi(argv[7]), std::atoi(argv[12]), std::atoi(argv[8]),
+                              std::atoi(argv[9]), 0, nullptr);
   for (int k = 0; k < n; ++k)
     stub_write((dir + "/out" + std::to_string(k) + ".bin").c_str(), out[k].data(), out[k].size() * 4);
   return err;
@@ -515,10 +517,12 @@ def test_scene_step_kernel_on_the_host_matches_plain_version(host_kernels):
 # -- GAE and the plane sampler on the host ----------------------------------------
 
 
-def run_gae_host(host_kernels, label, keys, T, B, ld, flag_dtypes, tile_rows, lam, gamma):
+def run_gae_host(host_kernels, label, keys, T, B, ld, flag_dtypes, tile_rows, lam, gamma,
+                 batch_major=False):
     """The host-built GAE kernel on ``keys`` (per key: rewards, values,
-    last value, done, truncation as numpy, the [T, B] ones at row stride
-    ``ld``) in one launch; returns the advantages per key."""
+    last value, done, truncation as numpy, the [T, B] ones, or [B, T] with
+    ``batch_major``, at row stride ``ld``) in one launch; returns the
+    advantages per key in the same layout."""
     binary, build = host_kernels["gae"]
     run_dir = build / label
     run_dir.mkdir(exist_ok=True)
@@ -531,11 +535,12 @@ def run_gae_host(host_kernels, label, keys, T, B, ld, flag_dtypes, tile_rows, la
     bools = [int(d == torch.bool) for d in flag_dtypes]
     done = subprocess.run(
         [str(binary), str(run_dir), str(len(keys)), str(T), str(B), str(ld), *map(str, bools),
-         "32", str(tile_rows), float(gamma).hex(), float(lam).hex()],
+         "32", str(tile_rows), float(gamma).hex(), float(lam).hex(), str(int(batch_major))],
         capture_output=True, text=True, timeout=RUN_SECONDS,
     )
     assert done.returncode == 0, f"gae {label}: exit {done.returncode}\n{done.stderr}"
-    return [torch.from_numpy(np.fromfile(run_dir / f"out{k}.bin", np.float32).reshape(T, B))
+    shape = (B, T) if batch_major else (T, B)
+    return [torch.from_numpy(np.fromfile(run_dir / f"out{k}.bin", np.float32).reshape(shape))
             for k in range(len(keys))]
 
 
@@ -575,6 +580,46 @@ def test_gae_kernel_on_the_host_matches_plain_version_to_the_bit(host_kernels, c
                               cols[2].to(flag_dtypes[0]), cols[3].to(flag_dtypes[1]), lam, gamma))
     assert any(bool(k[4][:, :B].any()) for k in keys)  # some truncations
     got = run_gae_host(host_kernels, case, keys, T, B, ld, flag_dtypes, tile_rows, lam, gamma)
+    for g, w in zip(got, wants):
+        assert torch.equal(g, w), f"max abs error {(g - w).abs().max().item():.3g}"
+
+
+# Batch-major: name -> (T, B, row stride, keys, (done dtype, truncation
+# dtype), tile rows). [20, 33] x 2 is the bf16-store path's minibatch at a
+# ragged width (one 16-byte span per block, the last block one env; its
+# bool flags end in single bytes); [30, 48] rows 32 apart (a step slice of
+# a wider buffer: per-env segments); tile_rows 8 stages 20 steps as 4 + 8 +
+# 8 in segments of each env.
+GAE_HOST_BATCH_MAJOR_CASES = {
+    "20x33_two_keys_bool": (20, 33, 20, 2, (torch.bool, torch.bool), 0),
+    "30x48_float_flags_rows_of_32": (30, 48, 32, 1, (torch.float32, torch.float32), 0),
+    "7x33_three_keys_float_done": (7, 33, 7, 3, (torch.float32, torch.bool), 0),
+    "20x40_steps_in_tiles_of_8": (20, 40, 20, 2, (torch.bool, torch.float32), 8),
+}
+
+
+@pytest.mark.parametrize("case", list(GAE_HOST_BATCH_MAJOR_CASES))
+def test_gae_kernel_on_the_host_reads_batch_major_keys_to_the_bit(host_kernels, case):
+    """[B, T] inputs read in place and [B, T] advantages: every key equals
+    gae_scan on the transposed views to the bit (ppo_loss's plain path
+    for a batch-major minibatch)."""
+    T, B, ld, n_keys, flag_dtypes, tile_rows = GAE_HOST_BATCH_MAJOR_CASES[case]
+    rng = np.random.RandomState(len(case))
+    lam, gamma = 0.95, 0.99
+    keys, wants = [], []
+    for _ in range(n_keys):
+        done = rng.rand(B, ld) < 0.15
+        truncated = done & (rng.rand(B, ld) < 0.5)
+        wide = [rng.randn(B, ld).astype(np.float32), rng.randn(B, ld).astype(np.float32)]
+        last = rng.randn(B).astype(np.float32)
+        keys.append((wide[0], wide[1], last, done, truncated))
+        rows = [torch.from_numpy(np.ascontiguousarray(x[:, :T])) for x in (*wide, done, truncated)]
+        wants.append(gae_scan(rows[0].T, rows[1].T, torch.from_numpy(last),
+                              rows[2].to(flag_dtypes[0]).T, rows[3].to(flag_dtypes[1]).T,
+                              lam, gamma).T)
+    assert any(bool(k[4][:, :T].any()) for k in keys)  # some truncations
+    got = run_gae_host(host_kernels, case, keys, T, B, ld, flag_dtypes, tile_rows, lam, gamma,
+                       batch_major=True)
     for g, w in zip(got, wants):
         assert torch.equal(g, w), f"max abs error {(g - w).abs().max().item():.3g}"
 

@@ -287,8 +287,6 @@ def test_train_ppo_cpu_smoke():
     [
         dict(checkpoint_fn=lambda ts, s: None),
         dict(config=TrainConfig(video=dataclasses.replace(TrainConfig().video, enabled=True))),
-        dict(config=TrainConfig(ppo=PPOConfig(replay_store_dtype="bfloat16"))),
-        dict(config=TrainConfig(ppo=PPOConfig(rollout_layout="batch_major"))),
     ],
 )
 def test_unported_options_raise(kwargs):
