@@ -8,8 +8,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. device: the card's name and power limit, from nvidia-smi;
 2. build: every hand-written kernel of the training paths (GAE, the
-   physics control step with its substeps entry point at the quadruped's
-   and at the humanoid's sizes, the plane sampler, the scene control step
+   physics control step with its substeps entry point at the quadruped's,
+   the humanoid's and the MJCF quadruped's sizes, the plane sampler, the
+   scene control step
    at the pusher's and the reacher's sizes), compiled with nvcc from the
    sources in nnx_ppo_tpu_torch/csrc/, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card at
@@ -17,7 +18,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    a warp; for the scene kernel also a two-tree scene with every joint
    type; for GAE every reward key of a minibatch in one launch; for the
    control step also the humanoid, held at 8192 envs, exact with
-   self-collision and joint limits at 2048, and both ragged), printing
+   self-collision and joint limits at 2048, and both ragged, and the MJCF
+   quadruped at 2048 and 33 envs, held to the bit), printing
    whether each output is equal to the bit (GAE and the plane sampler
    must be), then timed with CUDA events and torch.profiler against the
    plain version, GAE and the sampler also in a CUDA graph; GAE's columns
@@ -60,9 +62,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    through new_distillation_state and distillation_multi_step,
    distill_quadruped_2048 and distill_quadruped_2048_noshuffle (the
    teacher in eval mode, the student its copy with jittered parameters;
-   20 control steps a step, no GAE). Every path prints the replay layout
-   its config resolves to ("auto": batch-major for a fully
-   replay-time-static network, as the JAX package resolves it);
+   20 control steps a step, no GAE); and (PR 10) mjcf_quadruped_2048 (the
+   MJCF quadruped of examples/mjcf_import.py, built from its saved import
+   through legged_from_import: kp 60 and action scales from the position
+   actuators, the crouch at 0.312 m, held factor; the physics leg's net,
+   2048 envs, T=20; the control step at the imported model's sizes) and
+   quadruped_2048_fastM_generic (QuadrupedJoystick on the generic engine,
+   substep_impl="xla", depthwise=False, held factor: eager PyTorch, no
+   physics kernel; one checked and one timed step), each with one more
+   ppo_step under the profiler for its device kernels, busy time and idle
+   share. Every path prints the replay layout its config resolves to
+   ("auto": batch-major for a fully replay-time-static network, as the
+   JAX package resolves it);
 5. reference: for the flagship, the physics leg, the pusher, both
    humanoid paths and both analytic paths the PPO
    loss and its gradients on the card against the same computation on
@@ -81,7 +92,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    launch (the [B, T] keys of a batch-major minibatch read in place) to
    the bit with gae_scan on the transposed views at [512, 20] x 2, [256,
    30] and a ragged 33 envs, with the profiler's count of the kernels
-   around it.
+   around it; and (PR 10) each physics kernel against the generic engine
+   on the card, an independent implementation (the control step at the
+   physics leg's quadruped and at the MJCF quadruped through the env,
+   qpos 2e-4 / qvel 2e-3; the scene kernel on the reacher and the pusher,
+   qpos 2e-5 / qvel 2e-4 / normals 1e-4: the JAX package's tolerances
+   for the same checks), each beside what a generic step of one substep
+   fewer reads, and the generic engine's forward dynamics on the card
+   against the CPU on trees with slide and ball joints.
 
 It prints a ``kernels`` JSON line (each kernel's design, and its
 registers, stack, spills and shared memory from ptxas and the launch), the
@@ -129,6 +147,12 @@ FLAGSHIP_STEPS_TIMED = 3
 PHYSICS_STEPS_CHECKED = 2
 PHYSICS_STEPS_TIMED = 3
 PHYSICS_STEPS_NOSHUFFLE = 2
+MJCF_STEPS_CHECKED = 2
+MJCF_STEPS_TIMED = 3
+# The generic engine in eager PyTorch: tens of thousands of launches per
+# env step, so one checked and one timed ppo_step.
+GENERIC_STEPS_CHECKED = 1
+GENERIC_STEPS_TIMED = 1
 HEIGHTGRID_STEPS_CHECKED = 2
 HEIGHTGRID_STEPS_TIMED = 3
 XLAFACTOR_STEPS_CHECKED = 1
@@ -602,6 +626,8 @@ CONTROL_STEP_CASES = {
     "humanoid exact, self-collision and joint limits, B=2048": ("humanoid", 2048, True, True),
     "humanoid held, B=33": ("humanoid", 33, False, False),
     "humanoid exact, self-collision and joint limits, B=1001": ("humanoid", 1001, True, True),
+    "mjcf_quadruped held, B=2048": ("mjcf_quadruped", 2048, False, False),
+    "mjcf_quadruped held, B=33": ("mjcf_quadruped", 33, False, False),
 }
 # The cases timed beside their bound: the physics leg's shape, the flat
 # quadruped's of the bf16-store and distillation paths, and the two
@@ -611,6 +637,7 @@ CONTROL_STEP_TIMED = {
     "quadruped_flat_2048": "held, flat ground, no extras, B=2048",
     "humanoid_held_8192": "humanoid held, B=8192",
     "humanoid_exact_full_2048": "humanoid exact, self-collision and joint limits, B=2048",
+    "mjcf_quadruped_2048": "mjcf_quadruped held, B=2048",
 }
 # The (lanes per env, threads per block) variants of --variants.
 CONTROL_STEP_GROUPS, SCENE_STEP_GROUPS = (2, 4, 8, 16), (1, 2, 4, 8)
@@ -625,16 +652,27 @@ def control_step_case(name: str, torch):
     pose with some feet in contact; the humanoid at kp=350 from states near
     the standing pose with some feet on the ground and, in every other env,
     the two feet's spheres pressed together
-    (``physics/testing.py::humanoid_states``)."""
+    (``physics/testing.py::humanoid_states``); the MJCF quadruped at its
+    imported kp (60) from states near its crouch (``DEFAULT_POSE`` at
+    0.312 m), built from the saved import, with its own sizes (4 ground
+    geoms where the native quadruped has 8)."""
+    import numpy as np
+
     from nnx_ppo_tpu_torch.physics.cuda_step import ControlStepPlan
-    from nnx_ppo_tpu_torch.physics.models import make_humanoid
+    from nnx_ppo_tpu_torch.physics.models import make_humanoid, mjcf_quadruped
     from nnx_ppo_tpu_torch.physics.models.quadruped import default_qpos, make_quadruped
     from nnx_ppo_tpu_torch.physics.terrain import rough_terrain
     from nnx_ppo_tpu_torch.physics.testing import humanoid_states, standing_states
 
     model_name, B, exact, full = CONTROL_STEP_CASES[name]
     keys = ("qpos", "qvel", "target")
-    if model_name == "humanoid":
+    if model_name == "mjcf_quadruped":
+        env = mjcf_quadruped.make_env(reuse_mass_matrix=not exact)
+        plan = ControlStepPlan(env.model, env.kp, 0.002, 10, exact)
+        pose = np.concatenate([[0.0, 0.0, mjcf_quadruped.STAND_HEIGHT, 1.0, 0.0, 0.0, 0.0],
+                               mjcf_quadruped.DEFAULT_POSE])
+        arrays = standing_states(env.model, pose, B, seed=3)
+    elif model_name == "humanoid":
         model = make_humanoid(self_collision=full, joint_limits=full)
         plan = ControlStepPlan(model, 350.0, 0.002, 10, exact)
         arrays = humanoid_states(model, B, seed=3)
@@ -806,7 +844,8 @@ def control_step_kernel_phase(torch, variants: bool) -> dict:
     events, device time by the profiler and in a CUDA graph) beside their
     bound, the plain version, ptxas's row and the shared memory per block
     (the humanoid: 11 bodies, nv = 16, one row of the forward solve per
-    lane at 16 lanes per env; 6 ground geoms, 0 or 4 pairs)."""
+    lane at 16 lanes per env; 6 ground geoms, 0 or 4 pairs; the MJCF
+    quadruped: 13 bodies, 4 ground geoms, held to the bit)."""
     from nnx_ppo_tpu_torch.ops import cuda_build
     from nnx_ppo_tpu_torch.physics import cuda_step
 
@@ -823,6 +862,9 @@ def control_step_kernel_phase(torch, variants: bool) -> dict:
         print(f"control_step {name}: max_abs_err qpos {errs['qpos']:.3g} (atol 2e-4) "
               f"qvel {errs['qvel']:.3g} (atol 2e-3) normals {errs['normals']:.3g} "
               f"(rtol 5e-3, atol 5e-2); {describe_equal(equal)}")
+        if CONTROL_STEP_CASES[name][0] == "mjcf_quadruped":
+            # A third model's -D sizes: held to the plain version to the bit.
+            check(all(equal.values()), f"control_step {name}: torch.equal with the plain version")
     rows = {}
     for label, name in CONTROL_STEP_TIMED.items():
         rows[label] = row = control_step_row(*cases[name], torch)
@@ -1701,6 +1743,31 @@ def bf16store_leg(torch):
     return env, networks, dataclasses.replace(config, replay_store_dtype="bfloat16"), optimizer
 
 
+def mjcf_quadruped_leg(torch):
+    """mjcf_quadruped_2048 (benchmarks/suite.py:577-582): the MJCF quadruped
+    (examples/mjcf_import.py's XML) from its saved import through
+    legged_from_import: kp 60 and per-joint action scales from the position
+    actuators, the crouch DEFAULT_POSE at 0.312 m, held factor, flat
+    ground; the physics leg's net and config (2048 envs, T=20, 4 x 4
+    minibatches). One control-step launch per env step at the imported
+    model's sizes."""
+    from nnx_ppo_tpu_torch.physics.models.mjcf_quadruped import make_env
+
+    return quadruped_leg(torch, make_env(reuse_mass_matrix=True))
+
+
+def generic_quadruped_leg(torch):
+    """quadruped_2048_fastM_generic (benchmarks/suite.py:427-430): the
+    quadruped with the held factor on the generic engine
+    (substep_impl="xla", depthwise=False), flat ground, no randomization or
+    pushes; the physics leg's net and config. Eager PyTorch on the card: no
+    physics kernel, GAE only."""
+    from nnx_ppo_tpu_torch.envs import QuadrupedJoystick
+
+    return quadruped_leg(torch, QuadrupedJoystick(
+        reuse_mass_matrix=True, depthwise=False, substep_impl="xla"))
+
+
 def distill_leg(torch, shuffle: bool = True):
     """distill_quadruped_2048 and _noshuffle (benchmarks/suite.py:708-743):
     the bf16-store path's env and net as the teacher, in eval mode; the
@@ -1808,6 +1875,28 @@ def profile_step(torch, step, step_ms: float, profile_dir: str, label: str):
         f.write(prof.key_averages().table(sort_by="cpu_time_total", row_limit=40))
     print(f"profile {label}: {path}")
     return ts
+
+
+def step_device_profile(torch, step, step_ms: float, label: str):
+    """One training step (``step()`` returns the next state) under
+    torch.profiler, device activity only: device kernels per step, device
+    busy ms (their summed device time) and the device's idle share against
+    the unprofiled step time ``step_ms``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ts = step()
+        torch.cuda.synchronize()
+    device_events = [e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    busy_ms = sum(e.self_device_time_total for e in device_events) / 1e3
+    out = {"device_kernels": sum(e.count for e in device_events), "busy_ms": busy_ms,
+           "idle_share": 1 - busy_ms / step_ms}
+    print(f"{label}: {out['device_kernels']} device kernels per ppo_step, device busy "
+          f"{busy_ms:.2f} ms of the unprofiled {step_ms:.2f} ms step, idle share "
+          f"{out['idle_share']:.3f}")
+    return ts, out
 
 
 def print_layout(label: str, config, networks) -> str:
@@ -2029,12 +2118,16 @@ def distill_path_phase(torch, kernels: list, profile_dir: str | None, label: str
     }
 
 
+def share_of_limit(got, want, rtol: float, atol: float) -> float:
+    """The largest ``|got - want| / (atol + rtol |want|)``: 1 is the limit."""
+    return ((got - want).abs() / (atol + rtol * want.abs())).max().item()
+
+
 def shares_of_limit(loss, grads, loss_want, grads_want, lim: dict) -> tuple[float, float]:
     """(loss share, largest gradient share) of ``lim``'s tolerances: above
     1 a check fails."""
     loss_share = abs(loss - loss_want) / (lim["loss_atol"] + lim["loss_rtol"] * abs(loss_want))
-    grad_share = max((((g.cpu() - w.cpu()).abs())
-                      / (lim["grad_atol"] + lim["grad_rtol"] * w.cpu().abs())).max().item()
+    grad_share = max(share_of_limit(g.cpu(), w.cpu(), lim["grad_rtol"], lim["grad_atol"])
                      for g, w in zip(grads, grads_want))
     return loss_share, grad_share
 
@@ -2509,6 +2602,150 @@ def env_step_reference_phase(torch, label: str, env, kernels: list, per_env_step
         f"would read {errors(wrong)}"))
 
 
+def kernel_vs_generic_phase(torch) -> dict:
+    """Each kernel against the generic engine (an independent
+    implementation: 6x6 spatial algebra in eager PyTorch, against the
+    kernels' scalar lane forms) on the card, from the same state, for one
+    control step, at the tolerances of the JAX package's own checks of its
+    kernels against its generic engine: the control step (held factor)
+    qpos rtol / atol 2e-4, qvel 2e-3 (tests/test_physics_soa.py:79-82), on
+    the physics leg's quadruped (randomization, one push in four envs,
+    rough terrain) and on the MJCF quadruped, through the env (the kernel
+    path against substep_impl="xla"), foot contact force rtol 5e-3 / atol
+    5e-2; the scene kernel qpos 2e-5, qvel 2e-4, normals 1e-4
+    (tests/test_soa_general.py:81-87) on the reacher (every normal) and the
+    pusher (the cross pair: scene_step returns only its normals). Beside
+    each, what the generic step with one substep fewer reads, as a share
+    of the same limits."""
+    import numpy as np
+
+    from nnx_ppo_tpu_torch.envs import ArmPush, ArmReacher, QuadrupedJoystick
+    from nnx_ppo_tpu_torch.physics import DomainRandomization, engine
+    from nnx_ppo_tpu_torch.physics.models import mjcf_quadruped
+    from nnx_ppo_tpu_torch.physics.scene import scene_step
+    from nnx_ppo_tpu_torch.physics.terrain import rough_terrain
+    from nnx_ppo_tpu_torch.physics.testing import manipulation_states
+
+    rows, failures = {}, []
+    legged = {
+        "quadruped_physics_leg": lambda impl: QuadrupedJoystick(
+            reuse_mass_matrix=True, randomize=DomainRandomization(**DR_RANGES), push_prob=0.02,
+            push_force=50.0, terrain=rough_terrain(**ROUGH), depthwise=False, substep_impl=impl),
+        "mjcf_quadruped": lambda impl: mjcf_quadruped.make_env(
+            reuse_mass_matrix=True, depthwise=False, substep_impl=impl),
+    }
+    B = 2048
+    for label, make in legged.items():
+        kernel_env, generic_env = make("pallas"), make("xla")
+        g = torch.Generator(device="cuda")
+        g.manual_seed(13)
+        state = kernel_env.reset(B, g)
+        action = 2.4 * torch.rand((B, kernel_env.action_size), generator=g, device="cuda") - 1.2
+        push = None
+        if kernel_env.push_force > 0.0:
+            push = (torch.arange(B, device="cuda") % 4 == 0, kernel_env._draw_push(B, g)[1])
+        resample = kernel_env._draw_resample(B, g)
+        short_env = copy.copy(generic_env)
+        short_env.n_substeps -= 1
+        got, want, short = (e._step_from(state, action, push, resample, None)
+                            for e in (kernel_env, generic_env, short_env))
+        torch.cuda.synchronize()
+        check(bool((want.metrics["contact_force"] > 0).any()), f"{label}: feet are in contact")
+        limits = {"qpos": (2e-4, 2e-4), "qvel": (2e-3, 2e-3)}
+        row = {}
+        for key, (rtol, atol) in limits.items():
+            row[key] = share_of_limit(got.data[key], want.data[key], rtol, atol)
+            row[f"{key}_short"] = share_of_limit(short.data[key], want.data[key], rtol, atol)
+            row[f"{key}_max_abs_err"] = (got.data[key] - want.data[key]).abs().max().item()
+        row["contact_force"] = share_of_limit(got.metrics["contact_force"],
+                                              want.metrics["contact_force"], 5e-3, 5e-2)
+        rows[label] = row
+        print(f"control step against the generic engine, {label}, B={B}: qpos "
+              f"{row['qpos_max_abs_err']:.3g} ({row['qpos']:.3f} of rtol/atol 2e-4), qvel "
+              f"{row['qvel_max_abs_err']:.3g} ({row['qvel']:.3f} of 2e-3), contact force "
+              f"{row['contact_force']:.3f} of rtol 5e-3 / atol 5e-2; a generic step of "
+              f"{generic_env.n_substeps - 1} substeps would read qpos {row['qpos_short']:.1f} "
+              f"and qvel {row['qvel_short']:.1f} of the limits")
+        failures += [f"{label} {k}" for k in ("qpos", "qvel", "contact_force") if row[k] > 1.0]
+
+    B = 1024
+    for label, env in (("reacher", ArmReacher()), ("pusher", ArmPush())):
+        pusher = label == "pusher"
+        run = env._scene_runner
+        arrays = manipulation_states(B, seed=14, with_ball=pusher,
+                                     shoulder_height=0.55 if pusher else 1.0)
+        qpos, qvel, tau = (torch.tensor(arrays[k], device="cuda") for k in ("qpos", "qvel", "tau"))
+
+        def generic(n_substeps):
+            if not pusher:
+                return engine.step(env.model, qpos, qvel, tau, run.dt, n_substeps)
+            arm = env.scene.models[0]
+            split = lambda x, n: (x[:, :n], x[:, n:])
+            qps, qvs, cross = scene_step(env.scene, split(qpos, arm.nq), split(qvel, arm.nv),
+                                         split(tau, arm.nv), run.dt, n_substeps)
+            return torch.cat(qps, dim=-1), torch.cat(qvs, dim=-1), cross
+
+        got = run.cuda(qpos, qvel, tau)
+        want, short = generic(run.n_substeps), generic(run.n_substeps - 1)
+        torch.cuda.synchronize()
+        got_normals = got[2][:, -1:] if pusher else got[2]
+        if pusher:
+            check(bool((want[2] > 0).any() and (want[2] == 0).any()),
+                  "pusher: the cross pair touches in some envs, not in others")
+        row = {}
+        for i, (key, tol) in enumerate((("qpos", 2e-5), ("qvel", 2e-4), ("normals", 1e-4))):
+            g_i = got_normals if key == "normals" else got[i]
+            row[key] = share_of_limit(g_i, want[i], tol, tol)
+            row[f"{key}_short"] = share_of_limit(short[i], want[i], tol, tol)
+            row[f"{key}_max_abs_err"] = (g_i - want[i]).abs().max().item()
+        rows[label] = row
+        print(f"scene step against the generic engine, {label}, B={B}, {run.n_substeps} "
+              f"substeps: qpos {row['qpos_max_abs_err']:.3g} ({row['qpos']:.3f} of rtol/atol "
+              f"2e-5), qvel {row['qvel_max_abs_err']:.3g} ({row['qvel']:.3f} of 2e-4), normals "
+              f"{row['normals_max_abs_err']:.3g} ({row['normals']:.3f} of 1e-4); a generic step "
+              f"of {run.n_substeps - 1} substeps would read qpos {row['qpos_short']:.1f}, qvel "
+              f"{row['qvel_short']:.1f}, normals {row['normals_short']:.1f} of the limits")
+        failures += [f"{label} {k}" for k in ("qpos", "qvel", "normals") if row[k] > 1.0]
+    check(not failures, f"kernels against the generic engine within the limits: {failures}")
+    return rows
+
+
+def engine_card_vs_cpu_phase(torch) -> dict:
+    """The generic engine's forward_dynamics on the card against the CPU,
+    on the tree with every joint type (free root, hinge with a stop and a
+    spring, two slides, a ball, a sphere pair) and on the fixed-base tree
+    rooted by a slide (physics/testing.py), 1024 states each, dt = 2 ms:
+    qacc and normals at rtol 1e-5 and atol 1e-5 times the largest entry
+    (at least 1), the tolerance of the engine's CPU parity with the JAX
+    package (tests/test_torch_generic_engine.py)."""
+    from nnx_ppo_tpu_torch.physics import forward_dynamics
+    from nnx_ppo_tpu_torch.physics.testing import (
+        general_tree, general_tree_states, slider_tree, slider_tree_states,
+    )
+
+    rows = {}
+    for label, model, arrays in (
+        ("general_tree", general_tree(), general_tree_states(1024, seed=9)),
+        ("slider_tree", slider_tree(), slider_tree_states(1024, seed=10)),
+    ):
+        cpu = [torch.tensor(arrays[k]) for k in ("qpos", "qvel", "tau")]
+        want = forward_dynamics(model, *cpu, dt=0.002)
+        got = forward_dynamics(model, *(x.cuda() for x in cpu), dt=0.002)
+        torch.cuda.synchronize()
+        row = {}
+        for key, g, w in zip(("qacc", "normals"), got, want):
+            g = g.cpu()
+            scale = max(1.0, w.abs().max().item())
+            row[key] = share_of_limit(g, w, 1e-5, 1e-5 * scale)
+            row[f"{key}_max_abs_err"] = (g - w).abs().max().item()
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * scale)
+        rows[label] = row
+        print(f"generic engine on the card against the CPU, {label}: qacc "
+              f"{row['qacc_max_abs_err']:.3g} ({row['qacc']:.3f} of the limit), normals "
+              f"{row['normals_max_abs_err']:.3g} ({row['normals']:.3f} of the limit)")
+    return rows
+
+
 def manipulation_env_step_reference_phase(torch, label: str, env, scene_wrapper) -> None:
     """Two steps of a manipulation env on the card (the scene kernel)
     against the CPU (the plain version) from the same reset state and
@@ -2624,7 +2861,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from nnx_ppo_tpu_torch.algorithms import new_training_state
+    from nnx_ppo_tpu_torch.algorithms import make_optimizer, new_training_state, ppo_step
     from nnx_ppo_tpu_torch.ops import cuda_build
     from nnx_ppo_tpu_torch.ops.gae import gae_cuda
     from nnx_ppo_tpu_torch.physics.cuda_scene_step import scene_step_cuda
@@ -2694,6 +2931,9 @@ def main() -> int:
         "heavy_physics": dict(none, gae_cuda=16),
         **{label: dict(none, gae_cuda=16) for label in NETWORK_PATHS},
         "quadruped_2048_pallas_bf16store": dict(none, gae_cuda=16, control_step_cuda=20),
+        "mjcf_quadruped_2048": dict(none, gae_cuda=16, control_step_cuda=20),
+        # The generic engine: no physics kernel.
+        "quadruped_2048_fastM_generic": dict(none, gae_cuda=16),
         # Distillation: the dual rollout's 20 control steps, no GAE.
         **{label: dict(none, control_step_cuda=20) for label in DISTILL_PATHS},
     }
@@ -2737,6 +2977,25 @@ def main() -> int:
     }
     for label, path in distill_paths.items():
         distillation_reference_phase(torch, label, path)
+    # The MJCF quadruped (the control step at a third model's sizes) and the
+    # quadruped on the generic engine; each path's device profile of one
+    # more ppo_step (kernels, busy time, idle share).
+    new_paths = {
+        label: physics_path_phase(torch, wrappers, args.profile, label, leg, checked, timed,
+                                  per_step[label])
+        for label, leg, checked, timed in (
+            ("mjcf_quadruped_2048", mjcf_quadruped_leg, MJCF_STEPS_CHECKED, MJCF_STEPS_TIMED),
+            ("quadruped_2048_fastM_generic", generic_quadruped_leg, GENERIC_STEPS_CHECKED,
+             GENERIC_STEPS_TIMED),
+        )
+    }
+    new_path_profiles = {}
+    for label, path in new_paths.items():
+        env, config = path["env"], path["config"]
+        optimizer = make_optimizer(config.learning_rate)
+        path["state"], new_path_profiles[label] = step_device_profile(
+            torch, lambda: ppo_step(env, path["state"], config, optimizer)[0], path["step_ms"],
+            label)
     heightgrid_path = physics_path_phase(
         torch, wrappers, args.profile, "heightgrid", heightgrid_leg, HEIGHTGRID_STEPS_CHECKED,
         HEIGHTGRID_STEPS_TIMED, per_step["heightgrid"],
@@ -2824,6 +3083,14 @@ def main() -> int:
                                  reward_atol=5e-4)
     for label, path in manipulation_paths.items():
         manipulation_env_step_reference_phase(torch, label, path["env"], scene_step_cuda)
+    # The new paths' env step on the card against the CPU, then each kernel
+    # against the generic engine on the card, and the generic engine on the
+    # card against the CPU.
+    for label, path in new_paths.items():
+        env_step_reference_phase(torch, label, path["env"], physics_wrappers,
+                                 per_env_step(label))
+    kernel_vs_generic = kernel_vs_generic_phase(torch)
+    engine_card_vs_cpu = engine_card_vs_cpu_phase(torch)
     print(f"paths and references: {time.perf_counter() - t_paths:.1f} s")
     if args.learn:
         learning_phase(torch, args.learn)
@@ -2834,7 +3101,7 @@ def main() -> int:
     # count: every count was set to 0 just before each path).
     by_path = {"flagship": flagship_path["launches"]}
     training_paths = {**quadruped_paths, **manipulation_paths, **humanoid_paths, **analytic_paths,
-                      **network_paths, bf16store_label: bf16store_path}
+                      **network_paths, bf16store_label: bf16store_path, **new_paths}
     by_path.update({label: path["launches"] for label, path in training_paths.items()})
     by_path.update({label: path["launches"] for label, path in distill_paths.items()})
     kernel_rows = {
@@ -2865,6 +3132,8 @@ def main() -> int:
              "heavy_physics": ANALYTIC_STEPS_TIMED,
              **{label: timed for label, (_, _, timed) in NETWORK_PATHS.items()},
              bf16store_label: PHYSICS_STEPS_TIMED,
+             "mjcf_quadruped_2048": MJCF_STEPS_TIMED,
+             "quadruped_2048_fastM_generic": GENERIC_STEPS_TIMED,
              **{label: timed for label, (_, _, timed) in DISTILL_PATHS.items()}}
     for label, path in training_paths.items():
         counts = ", ".join(f"{name} {n}" for name, n in by_path[label].items())
@@ -2897,6 +3166,11 @@ def main() -> int:
         f"ms per call alone, 20 per step, is {factor_share:.3f} of the {xlafactor_path['step_ms']:.2f} "
         "ms step"
     )
+    for label, prof in new_path_profiles.items():
+        print(f"{label}: {prof['device_kernels']} device kernels per ppo_step, device busy "
+              f"{prof['busy_ms']:.2f} ms, idle share {prof['idle_share']:.3f} on {card}")
+    print(json.dumps({"kernel_vs_generic": kernel_vs_generic,
+                      "engine_card_vs_cpu": engine_card_vs_cpu}))
     print(f"run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernel_rows.values())}))
     print(f"card: {card}")

@@ -1,25 +1,39 @@
-"""Generic joystick-locomotion env over the SoA control step, batched.
+"""Generic joystick-locomotion env over the rigid-body step, batched.
 
-Port of ``nnx_ppo_tpu/envs/legged.py`` (``LeggedJoystick`` :162). One
-implementation serves every legged model: velocity-command tracking with
-dict obs, dict rewards (per-key GAE), per-substep PD position control
-(P explicit, D implicit via model joint damping), command resampling and
-tilt/height termination. The JAX env steps one env and is vmapped; this
-one holds ``[B, ...]`` tensors and steps all envs with one call of a
-runner of ``physics/cuda_step.py``: CUDA kernels for CUDA tensors, their
-plain versions for CPU tensors. The runners are the only dynamics paths
-of the port:
+Port of ``nnx_ppo_tpu/envs/legged.py`` (``LeggedJoystick`` :162,
+``legged_from_mjcf`` :45). One implementation serves every legged model:
+velocity-command tracking with dict obs, dict rewards (per-key GAE),
+per-substep PD position control (P explicit, D implicit via model joint
+damping), command resampling and tilt/height termination. The JAX env
+steps one env and is vmapped; this one holds ``[B, ...]`` tensors and
+steps all envs at once, on one of three dynamics paths picked at
+construction by ``substep_impl`` (JAX's values):
 
-* the control-step runner (default): factor and all substeps in one
-  launch; ``reuse_mass_matrix=False`` selects its ``exact`` mode (factor
-  rebuilt at every substep). With a ``HeightGrid`` terrain it first
-  samples each ground geom's tangent plane (the plane-sampler kernel) and
-  holds the planes over the control step;
+* the control-step runner (``physics/cuda_step.py``): factor and all
+  substeps in one launch, the CUDA kernel for CUDA tensors and its plain
+  version for CPU tensors; ``reuse_mass_matrix=False`` selects its
+  ``exact`` mode (factor rebuilt at every substep). With a ``HeightGrid``
+  terrain it first samples each ground geom's tangent plane (the
+  plane-sampler kernel) and holds the planes over the control step;
 * the substep runner (``pallas_in_kernel_factor=False``): the factor of
   ``M(q) + dt·D`` is built outside the kernel
   (``physics/engine.py::mass_matrix_factor``) once per control step and
   handed to the substeps kernel, ``pallas_substeps_per_kernel`` substeps
-  per launch. Flat ground, no randomization, no pushes, held factor only.
+  per launch. Flat ground, no randomization, no pushes, held factor only;
+* the generic engine (``physics/engine.py::forward_dynamics`` and
+  ``integrate``, eager PyTorch; JAX ``legged.py:760-810``): PD recomputed
+  every substep, the push as an ``external_forces`` point force at the
+  trunk origin, the factor held over the control step under
+  ``reuse_mass_matrix``, domain-randomization ``params`` and terrain.
+
+``substep_impl="auto"`` takes a runner when the model and its features
+are supported (``engine_soa.soa_unsupported_reason``) and otherwise the
+generic engine; ``"pallas"`` takes a runner or raises JAX's
+``ValueError``; ``"xla"`` always takes the generic engine. JAX's
+``depthwise=None`` picks its depth-wise engine on ``"xla"`` where the
+model allows; the port has no depth-wise engine, so ``None`` and
+``False`` both give the generic one (JAX tests the two equal up to
+rounding).
 
 Randomness: the JAX env carries a key per env in ``State.data`` and
 splits it in ``step``. Here ``reset`` and ``step`` take the caller's one
@@ -27,14 +41,15 @@ device ``torch.Generator``, and every draw sits behind one small method
 per phase (``_draw_reset``, ``_draw_push``, ``_draw_resample``,
 ``_draw_obs_noise``), so that a test can inject another package's draws.
 
-Not ported yet (each raises ``NotImplementedError``):
-``legged_from_mjcf``, ``render`` and ``depthwise`` dynamics.
+Not ported yet (each raises ``NotImplementedError``): ``render`` and
+``depthwise=True``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any, Optional, Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -43,17 +58,134 @@ from nnx_ppo_tpu_torch.core.device import DeviceConstants
 from nnx_ppo_tpu_torch.envs.types import State
 from nnx_ppo_tpu_torch.physics import soa
 from nnx_ppo_tpu_torch.physics.cuda_step import make_control_step_runner, make_substep_runner
-from nnx_ppo_tpu_torch.physics.engine import mass_matrix_factor
+from nnx_ppo_tpu_torch.physics.engine import forward_dynamics, integrate, mass_matrix_factor
+from nnx_ppo_tpu_torch.physics.engine_soa import (
+    soa_features_unsupported_reason,
+    soa_unsupported_reason,
+)
 from nnx_ppo_tpu_torch.physics.model import Model
 from nnx_ppo_tpu_torch.physics.randomize import DomainParams, privileged_vector
 from nnx_ppo_tpu_torch.physics.terrain import HeightGrid, Terrain
 
 
-def legged_from_mjcf(*args: Any, **kwargs: Any):
-    """Build a :class:`LeggedJoystick` from a MuJoCo MJCF description
-    (``nnx_ppo_tpu/envs/legged.py:45``). Not ported yet."""
-    raise NotImplementedError(
-        "legged_from_mjcf is not ported yet (the MJCF importer is not part of the port)"
+def legged_from_mjcf(
+    xml,
+    *,
+    kp: Optional[float] = None,
+    action_scale=None,
+    n_feet: Optional[int] = None,
+    default_pose=None,
+    stand_height: Optional[float] = None,
+    contact_stiffness: float = 6_000.0,
+    contact_damping: float = 120.0,
+    model_overrides: Optional[dict] = None,
+    **env_kwargs,
+) -> "LeggedJoystick":
+    """Build a :class:`LeggedJoystick` directly from a MuJoCo MJCF robot
+    description (``nnx_ppo_tpu/envs/legged.py:45``; ``physics/mjcf.py``,
+    which needs ``mujoco``).
+
+    The MJCF supplies what it knows best, the caller overrides the rest:
+
+    * model, contact spheres and collision pairs, imported as usual (the
+      XML must declare a z = 0 floor plane, or a world hfield);
+    * default pose and stand height from the MJCF reference configuration
+      (``qpos0``): joint segment and base z; override with
+      ``default_pose=`` / ``stand_height=`` when the nominal stance
+      differs from the declared zero configuration;
+    * ``kp`` from ``<position>`` actuators (their mean P-gain); their
+      D-gains (``kv``) fold into the model's implicit joint damping;
+    * ``action_scale``: per-joint half-widths of the position actuators'
+      ctrlranges when they cover every joint, else the caller's scalar;
+    * ``n_feet``: how many leading contact geoms are feet (contact
+      metrics only), all imported geoms by default;
+    * an imported hfield becomes the env's ``terrain``.
+
+    Everything else (``terrain=``, ``randomize=``, ``reuse_mass_matrix=``,
+    ``substep_impl=``, ...) passes through to :class:`LeggedJoystick`.
+    """
+    from nnx_ppo_tpu_torch.physics.mjcf import from_mjcf
+
+    imp = from_mjcf(
+        xml,
+        contact_stiffness=contact_stiffness,
+        contact_damping=contact_damping,
+        # Extra Model fields (friction_vel, max_contact_force,
+        # limit_stiffness, ...): light robots need softer contacts.
+        **(model_overrides or {}),
+    )
+    return legged_from_import(
+        imp, kp=kp, action_scale=action_scale, n_feet=n_feet, default_pose=default_pose,
+        stand_height=stand_height, **env_kwargs,
+    )
+
+
+def legged_from_import(
+    imp,
+    *,
+    kp: Optional[float] = None,
+    action_scale=None,
+    n_feet: Optional[int] = None,
+    default_pose=None,
+    stand_height: Optional[float] = None,
+    **env_kwargs,
+) -> "LeggedJoystick":
+    """The part of :func:`legged_from_mjcf` after the import: a
+    :class:`LeggedJoystick` from an ``MjcfImport`` (fresh from
+    ``from_mjcf``, or rebuilt without ``mujoco`` from a saved import such
+    as ``physics/models/mjcf_quadruped.py::load_quadruped_import``). JAX
+    ``legged.py:96-160``."""
+    model = imp.model
+    if not model.free_base:
+        raise ValueError("legged_from_mjcf needs a free-base robot")
+    if not model.geom_body:
+        raise ValueError(
+            "no contact spheres imported — the MJCF needs a z = 0 "
+            "floor plane and sphere (or capsule) collision geoms"
+        )
+    if default_pose is None:
+        default_pose = np.asarray(imp.qpos0[7:], np.float64)
+    if stand_height is None:
+        stand_height = float(imp.qpos0[2])
+    if imp.terrain is not None and "terrain" not in env_kwargs:
+        # A world hfield imported as a HeightGrid becomes the env's
+        # ground (spawn heights and rewards measure relative to it).
+        env_kwargs["terrain"] = imp.terrain
+
+    position_acts = [a for a in imp.actuators if a.kind == "position"]
+    if kp is None:
+        if not position_acts:
+            raise ValueError("no <position> actuators in the MJCF — pass kp= explicitly")
+        kp = float(np.mean([a.kp for a in position_acts]))
+    if position_acts and any(a.kv for a in position_acts):
+        # Fold actuator D-gains into the per-dof joint damping, which the
+        # engine integrates implicitly (how a stiff PD derivative term
+        # stays stable).
+        damping = np.asarray(model.damping, np.float64).copy()
+        for a in position_acts:
+            damping[a.dof] += a.kv
+        model = dataclasses.replace(model, damping=damping)
+    if action_scale is None:
+        # Only position actuators' ctrlranges are joint-target ranges (a
+        # motor or velocity ctrlrange is a torque or speed limit).
+        ranged = [a for a in position_acts if a.ctrlrange is not None and a.dof >= 6]
+        covered = {a.dof for a in ranged}
+        if ranged and covered == set(range(6, 6 + len(default_pose))):
+            scale = np.zeros(len(default_pose))
+            for a in ranged:
+                scale[a.dof - 6] = 0.5 * (a.ctrlrange[1] - a.ctrlrange[0])
+            action_scale = scale
+        else:
+            action_scale = 0.5
+
+    return LeggedJoystick(
+        model,
+        default_pose,
+        stand_height,
+        kp=kp,
+        action_scale=action_scale,
+        n_feet=(n_feet if n_feet is not None else len(model.geom_body)),
+        **env_kwargs,
     )
 
 
@@ -102,32 +234,20 @@ class LeggedJoystick(DeviceConstants):
         push_prob: float = 0.0,
         push_force: float = 0.0,
         depthwise: Optional[bool] = None,
+        substep_impl: str = "auto",
         pallas_substeps_per_kernel: int = 1,
         pallas_in_kernel_factor: bool = True,
     ):
         if depthwise:
             raise NotImplementedError(
-                "depthwise dynamics are not ported yet; the port steps through "
-                "the SoA control-step runner only"
+                "depthwise dynamics are not ported yet; depthwise=None or False "
+                "steps the generic engine (or the SoA runners)"
             )
-        if not pallas_in_kernel_factor:
-            # Only the factor-passed-in kernel requires the held factor
-            # and the bare feature set; the control-step runner carries
-            # terrain, randomization and pushes as extra lanes.
-            reason = None
-            if not reuse_mass_matrix:
-                reason = (
-                    "the substep kernel holds the M + dt·D factor over the "
-                    "control step — pass reuse_mass_matrix=True"
-                )
-            elif terrain is not None:
-                reason = "the legacy substep kernel supports the flat z=0 ground only"
-            elif randomize is not None:
-                reason = "the legacy substep kernel does not consume per-env DR overrides"
-            elif push_force > 0.0:
-                reason = "the legacy substep kernel does not apply external push forces"
-            if reason is not None:
-                raise ValueError(f"pallas_in_kernel_factor=False unsupported: {reason}")
+        if substep_impl not in ("auto", "xla", "pallas"):
+            raise ValueError(
+                f"substep_impl must be 'auto'|'xla'|'pallas', got {substep_impl!r}"
+            )
+        self.substep_impl = substep_impl
         self.model = model
         self.default_pose = torch.tensor(np.asarray(default_pose), dtype=torch.float32)
         self.stand_height = stand_height
@@ -172,22 +292,46 @@ class LeggedJoystick(DeviceConstants):
         self.push_prob = push_prob
         self.push_force = push_force
 
-        self._dr_fields: tuple = () if randomize is None else tuple(randomize.fields)
-        self._kernel_push = push_force > 0.0
+        self._dr_fields: tuple = ()
+        self._kernel_push = False
         self._control_runner = self._substep_runner = None
-        if pallas_in_kernel_factor:
-            self._control_runner = make_control_step_runner(
-                model, kp, self.physics_dt, n_substeps,
-                exact=not reuse_mass_matrix,
-                terrain=terrain,
-                dr_fields=self._dr_fields,
-                has_push=self._kernel_push,
-            )
-        else:
-            self._substep_runner = make_substep_runner(
-                model, kp, self.physics_dt, n_substeps,
-                substeps_per_kernel=pallas_substeps_per_kernel,
-            )
+        if substep_impl != "xla":
+            reason = soa_unsupported_reason(model)
+            if reason is None and not reuse_mass_matrix and not pallas_in_kernel_factor:
+                # Only the factor-passed-in kernel requires the held factor.
+                reason = (
+                    "the substep kernel holds the M + dt·D factor over the "
+                    "control step — pass reuse_mass_matrix=True"
+                )
+            if reason is None:
+                if pallas_in_kernel_factor:
+                    # The control-step runner carries terrain, scalar DR
+                    # draws and pushes as extra lanes of the one launch.
+                    reason = soa_features_unsupported_reason(terrain=terrain, randomize=randomize)
+                elif terrain is not None:
+                    reason = "the legacy substep kernel supports the flat z=0 ground only"
+                elif randomize is not None:
+                    reason = "the legacy substep kernel does not consume per-env DR overrides"
+                elif push_force > 0.0:
+                    reason = "the legacy substep kernel does not apply external push forces"
+            if reason is None:
+                if pallas_in_kernel_factor:
+                    self._dr_fields = () if randomize is None else tuple(randomize.fields)
+                    self._kernel_push = push_force > 0.0
+                    self._control_runner = make_control_step_runner(
+                        model, kp, self.physics_dt, n_substeps,
+                        exact=not reuse_mass_matrix,
+                        terrain=terrain,
+                        dr_fields=self._dr_fields,
+                        has_push=self._kernel_push,
+                    )
+                else:
+                    self._substep_runner = make_substep_runner(
+                        model, kp, self.physics_dt, n_substeps,
+                        substeps_per_kernel=pallas_substeps_per_kernel,
+                    )
+            elif substep_impl == "pallas":
+                raise ValueError(f"substep_impl='pallas' unsupported: {reason}")
         self.observation_size = {"proprio": 3 * self.n_act + 6, "command": 3}
         if height_scan > 0:
             lin = torch.linspace(-height_scan_extent, height_scan_extent, height_scan)
@@ -429,17 +573,22 @@ class LeggedJoystick(DeviceConstants):
                 q, action, qpos, qvel, last_normals[:, : self.n_feet], resample, noise
             )
         dr: Optional[DomainParams] = q.get("dr") if self.randomize is not None else None
+        # The push: a horizontal world-frame force at the trunk origin,
+        # held for the control step (zero when not pushing).
+        f_push = None
+        if self.push_force > 0.0:
+            pushing, theta = push
+            magnitude = pushing.to(torch.float32) * self.push_force
+            f_push = [magnitude * torch.cos(theta), magnitude * torch.sin(theta), magnitude * 0.0]
+        if self._control_runner is None:
+            qpos, qvel, foot_normals = self._generic_substeps(q, target, dr, f_push)
+            return self._finish_step(q, action, qpos, qvel, foot_normals, resample, noise)
 
         # DR scalars and the push vector ride along as packed per-env
         # extra lanes of the one control-step launch.
         parts = [getattr(dr, name) for name in self._dr_fields]
         if self._kernel_push:
-            pushing, theta = push
-            magnitude = pushing.to(torch.float32) * self.push_force
-            parts.extend(
-                [magnitude * torch.cos(theta), magnitude * torch.sin(theta),
-                 magnitude * 0.0]
-            )
+            parts.extend(f_push)
         if parts:
             qpos, qvel, last_normals = self._control_runner(
                 q["qpos"], q["qvel"], target, torch.stack(parts, dim=1)
@@ -449,6 +598,31 @@ class LeggedJoystick(DeviceConstants):
         return self._finish_step(
             q, action, qpos, qvel, last_normals[:, : self.n_feet], resample, noise
         )
+
+    def _generic_substeps(self, q: dict, target: torch.Tensor, dr: Optional[DomainParams],
+                          f_push: Optional[list]) -> tuple:
+        """The control step on the generic engine (JAX ``legged.py:760-
+        810``): ``(qpos, qvel, the last substep's foot normal forces)``."""
+        gain = 1.0 if dr is None or dr.gain_scale is None else dr.gain_scale[:, None]
+        chol = None
+        if self.reuse_mass_matrix:
+            chol = mass_matrix_factor(self.model, q["qpos"], dt=self.physics_dt, params=dr)
+        if f_push is not None:
+            f_push = torch.stack(f_push, dim=-1)
+        qp, qv = q["qpos"], q["qvel"]
+        base = torch.zeros((qp.shape[0], 6), device=qp.device)
+        normals = None
+        for _ in range(self.n_substeps):
+            # PD recomputed every substep against the held target (P
+            # explicit; D implicit via the model's joint damping).
+            tau = torch.cat([base, gain * self.kp * (target - qp[:, 7:])], dim=-1)
+            ext = [(0, qp[:, 0:3], f_push)] if f_push is not None else None
+            qacc, normals = forward_dynamics(
+                self.model, qp, qv, tau, dt=self.physics_dt, chol=chol, terrain=self.terrain,
+                params=dr, external_forces=ext,
+            )
+            qp, qv = integrate(self.model, qp, qv, qacc, self.physics_dt)
+        return qp, qv, normals[:, : self.n_feet]
 
     def _finish_step(self, q, action, qpos, qvel, last_foot_normals, resample, noise) -> State:
         """Post-substep tail: command resampling and state assembly."""

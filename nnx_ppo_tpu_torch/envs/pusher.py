@@ -5,13 +5,14 @@ scene workload (``physics/scene.py``): the ball-shoulder arm (tree 0) and
 a free rolling ball (tree 1) interact only through the cross-tree sphere
 contact between the end effector and the ball, the contact force the
 policy must learn to aim. The JAX env steps one env and is vmapped; this
-one holds ``[B, ...]`` tensors and advances all envs with one call of the
-scene control-step runner (``physics/cuda_scene_step.py``): arm, ball and
-their cross contact, all substeps of a control step in one launch of the
-CUDA kernel for CUDA tensors, the plain version for CPU tensors. The JAX
-env's ``substep_impl`` argument has no counterpart: dispatch is by the
-tensors' device, and the runner is the port's only dynamics path for this
-env (``scene.scene_step`` on the generic engine is not ported).
+one holds ``[B, ...]`` tensors and advances all envs at once.
+``substep_impl`` takes JAX's values (``pusher.py:71-114``): ``"auto"``
+and ``"pallas"`` step through the scene control-step runner
+(``physics/cuda_scene_step.py``): arm, ball and their cross contact, all
+substeps of a control step in one launch of the CUDA kernel for CUDA
+tensors, the plain version for CPU tensors; ``"xla"`` through
+``scene.scene_step`` on the generic engine (eager PyTorch, JAX
+``pusher.py:262-285``).
 
 Randomness: ``reset`` takes the caller's device ``torch.Generator``; every
 draw sits behind ``_draw_reset`` so that a test can inject another
@@ -31,7 +32,7 @@ from nnx_ppo_tpu_torch.envs.types import State
 from nnx_ppo_tpu_torch.physics.cuda_scene_step import make_scene_control_step_runner
 from nnx_ppo_tpu_torch.physics.model import FREE, Model, ModelBuilder
 from nnx_ppo_tpu_torch.physics.models.arm import make_arm
-from nnx_ppo_tpu_torch.physics.scene import Scene
+from nnx_ppo_tpu_torch.physics.scene import Scene, scene_step
 from nnx_ppo_tpu_torch.physics.spatial import quat_integrate
 
 BALL_RADIUS = 0.08
@@ -83,6 +84,7 @@ class ArmPush:
         control_dt: float = 0.02,
         n_substeps: int = 16,
         target_radius: tuple[float, float] = (0.25, 0.45),
+        substep_impl: str = "auto",
     ):
         arm = make_arm(
             shoulder_height=SHOULDER_HEIGHT,
@@ -100,11 +102,18 @@ class ArmPush:
         self.n_substeps = n_substeps
         self.physics_dt = control_dt / n_substeps
         self.target_radius = target_radius
+        if substep_impl not in ("auto", "xla", "pallas"):
+            raise ValueError(
+                f"substep_impl must be 'auto'|'xla'|'pallas', got {substep_impl!r}"
+            )
+        self.substep_impl = substep_impl
         # Arm + ball + their cross contact, all substeps of a control
-        # step in one kernel launch.
-        self._scene_runner = make_scene_control_step_runner(
-            self.scene.models, self.scene.pairs, self.physics_dt, n_substeps
-        )
+        # step in one kernel launch, or (None) scene_step's substeps.
+        self._scene_runner = None
+        if substep_impl != "xla":
+            self._scene_runner = make_scene_control_step_runner(
+                self.scene.models, self.scene.pairs, self.physics_dt, n_substeps
+            )
 
     # -- draws ---------------------------------------------------------------
 
@@ -210,11 +219,22 @@ class ArmPush:
         q = state.data
         arm = self.scene.models[0]
         tau = self.torque_scale * torch.clamp(action, -1.0, 1.0)
-        qp, qv, _ = self._scene_runner(
-            torch.cat([q["arm_qpos"], q["ball_qpos"]], dim=-1),
-            torch.cat([q["arm_qvel"], q["ball_qvel"]], dim=-1),
-            torch.cat([tau, torch.zeros_like(q["ball_qvel"])], dim=-1),
-        )
+        if self._scene_runner is not None:
+            qp, qv, _ = self._scene_runner(
+                torch.cat([q["arm_qpos"], q["ball_qpos"]], dim=-1),
+                torch.cat([q["arm_qvel"], q["ball_qvel"]], dim=-1),
+                torch.cat([tau, torch.zeros_like(q["ball_qvel"])], dim=-1),
+            )
+        else:
+            qps, qvs, _ = scene_step(
+                self.scene,
+                (q["arm_qpos"], q["ball_qpos"]),
+                (q["arm_qvel"], q["ball_qvel"]),
+                (tau, torch.zeros_like(q["ball_qvel"])),
+                self.physics_dt,
+                n_substeps=self.n_substeps,
+            )
+            qp, qv = torch.cat(qps, dim=-1), torch.cat(qvs, dim=-1)
         ball_qvel = qv[:, arm.nv :]
         # Velocity clamps: the penalty contacts are explicit, and a
         # worst-case adversarial action sequence can drive the

@@ -4,12 +4,12 @@ Port of ``nnx_ppo_tpu/envs/reacher.py`` (``ArmReacher`` :29). Torque
 control (no PD: a quaternion joint has no scalar position error), dense
 exp-distance reward, per-episode targets drawn from the reachable shell.
 The JAX env steps one env and is vmapped; this one holds ``[B, ...]``
-tensors and advances all envs with one call of the scene control-step
-runner (``physics/cuda_scene_step.py``, a scene of one tree and no
-pairs): the CUDA kernel for CUDA tensors, its plain version for CPU
-tensors. The JAX env's ``substep_impl`` argument has no counterpart:
-dispatch is by the tensors' device, and the runner is the port's only
-dynamics path for this env (the generic engine's ``step`` is not ported).
+tensors and advances all envs at once. ``substep_impl`` takes JAX's
+values (``reacher.py:50-80``): ``"auto"`` and ``"pallas"`` step through
+the scene control-step runner (``physics/cuda_scene_step.py``, a scene of
+one tree and no pairs: the CUDA kernel for CUDA tensors, its plain
+version for CPU tensors), ``"xla"`` through the generic engine's
+``engine.step`` (eager PyTorch, JAX ``reacher.py:200-210``).
 
 Randomness: ``reset`` takes the caller's device ``torch.Generator``; every
 draw sits behind ``_draw_reset`` so that a test can inject another
@@ -24,7 +24,7 @@ import torch
 
 from nnx_ppo_tpu_torch.envs.types import State
 from nnx_ppo_tpu_torch.physics.cuda_scene_step import make_scene_control_step_runner
-from nnx_ppo_tpu_torch.physics.engine import fwd_kinematics
+from nnx_ppo_tpu_torch.physics.engine import fwd_kinematics, step
 from nnx_ppo_tpu_torch.physics.models.arm import (
     EE_OFFSET,
     FORE_LEN,
@@ -64,6 +64,7 @@ class ArmReacher:
         control_dt: float = 0.02,
         n_substeps: int = 4,
         target_radius: tuple[float, float] = (0.25, 0.6),
+        substep_impl: str = "auto",
     ):
         self.model = make_arm()
         self.torque_scale = torque_scale
@@ -74,10 +75,18 @@ class ArmReacher:
         self.physics_dt = control_dt / n_substeps
         self.target_radius = target_radius
         self.reach = UPPER_LEN + FORE_LEN
-        # A control step of the ball+hinge arm in one kernel launch.
-        self._scene_runner = make_scene_control_step_runner(
-            (self.model,), (), self.physics_dt, n_substeps
-        )
+        if substep_impl not in ("auto", "xla", "pallas"):
+            raise ValueError(
+                f"substep_impl must be 'auto'|'xla'|'pallas', got {substep_impl!r}"
+            )
+        self.substep_impl = substep_impl
+        # A control step of the ball+hinge arm in one kernel launch, or
+        # (None) the generic engine's substeps.
+        self._scene_runner = None
+        if substep_impl != "xla":
+            self._scene_runner = make_scene_control_step_runner(
+                (self.model,), (), self.physics_dt, n_substeps
+            )
 
     # -- draws ---------------------------------------------------------------
 
@@ -162,5 +171,10 @@ class ArmReacher:
         del generator
         q = state.data
         tau = self.torque_scale * torch.clamp(action, -1.0, 1.0)
-        qpos, qvel, _ = self._scene_runner(q["qpos"], q["qvel"], tau)
+        if self._scene_runner is not None:
+            qpos, qvel, _ = self._scene_runner(q["qpos"], q["qvel"], tau)
+        else:
+            qpos, qvel, _ = step(
+                self.model, q["qpos"], q["qvel"], tau, self.physics_dt, n_substeps=self.n_substeps
+            )
         return self._state({"qpos": qpos, "qvel": qvel, "target": q["target"]}, action)

@@ -107,8 +107,10 @@ def quat_integrate(q: torch.Tensor, omega_body: torch.Tensor, dt) -> torch.Tenso
     exact for constant ω, renormalized against float drift)."""
     angle = torch.linalg.norm(omega_body, dim=-1) * dt
     half = 0.5 * angle
-    # axis · sin(half), through sinc to avoid 0/0.
-    axis_sin = 0.5 * dt * omega_body * torch.sinc(half / math.pi)[..., None]
+    # axis · sin(half), through sinc to avoid 0/0. A tensor divisor:
+    # PyTorch divides by a Python scalar on the card as a product with its
+    # reciprocal, where the CPU (and JAX) divide.
+    axis_sin = 0.5 * dt * omega_body * torch.sinc(half / torch.full_like(half, math.pi))[..., None]
     dq = torch.cat([torch.cos(half)[..., None], axis_sin], dim=-1)
     out = quat_mul(q, dq)
     return out / torch.linalg.norm(out, dim=-1, keepdim=True)

@@ -766,3 +766,163 @@ def test_new_paths_loss_on_the_card_matches_the_cpu(cuda, path):
     for got, want in zip(grads_gpu, grads_cpu):
         torch.testing.assert_close(got, want, rtol=1e-3,
                                    atol=1e-5 + 1e-4 * want.abs().max().item())
+
+
+# -- the MJCF quadruped and the generic engine on the card ----------------------
+
+
+MJCF_QUADRUPED_CASES = {"held_2048": 2048, "held_ragged_33": 33}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(MJCF_QUADRUPED_CASES))
+def test_control_step_kernel_at_the_mjcf_quadrupeds_sizes_matches_plain_version(cuda, case):
+    """The control step built at the imported MJCF quadruped's sizes (13
+    bodies, 4 ground geoms where the native quadruped has 8), from the
+    saved import: equal to the bit, as every other model's."""
+    from nnx_ppo_tpu_torch.physics.models import mjcf_quadruped
+
+    B = MJCF_QUADRUPED_CASES[case]
+    env = mjcf_quadruped.make_env(reuse_mass_matrix=True)
+    plan = ControlStepPlan(env.model, env.kp, 0.002, 10, False)
+    pose = np.concatenate([[0.0, 0.0, mjcf_quadruped.STAND_HEIGHT, 1.0, 0.0, 0.0, 0.0],
+                           mjcf_quadruped.DEFAULT_POSE])
+    arrays = standing_states(env.model, pose, B, seed=3)
+    args = [torch.tensor(arrays[k], device=cuda) for k in ("qpos", "qvel", "target")]
+    before = control_step_cuda.launches
+    got = plan(*args)
+    assert control_step_cuda.launches == before + 1
+    want = plan.plain(*args)
+    assert (want[2] > 0).any() and (want[2] == 0).any()
+    assert_equal_to_the_bit(got, want)
+
+
+def _legged_pair(kind):
+    """(kernel env, generic env) of one legged configuration: the physics
+    leg's quadruped (randomization, pushes, rough terrain) or the MJCF
+    quadruped, both with the held factor."""
+    from nnx_ppo_tpu_torch.physics import DomainRandomization
+    from nnx_ppo_tpu_torch.physics.models import mjcf_quadruped
+
+    def make(impl):
+        if kind == "mjcf_quadruped":
+            return mjcf_quadruped.make_env(reuse_mass_matrix=True, substep_impl=impl)
+        return QuadrupedJoystick(
+            reuse_mass_matrix=True, push_prob=0.02, push_force=50.0, terrain=rough_terrain(**ROUGH),
+            randomize=DomainRandomization(mass_scale=(0.8, 1.2), friction=(0.4, 1.0),
+                                          damping_scale=(0.9, 1.1), gain_scale=(0.9, 1.1)),
+            substep_impl=impl,
+        )
+
+    return make("pallas"), make("xla")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["quadruped_physics_leg", "mjcf_quadruped"])
+def test_control_step_kernel_matches_the_generic_engine(cuda, kind):
+    """One control step of ten substeps through the kernel against the
+    generic engine on the card, from the same state, action and draws: qpos
+    rtol / atol 2e-4, qvel 2e-3, the tolerances of the JAX package's check
+    of its kernel against its generic engine (tests/test_physics_soa.py:
+    79-82); foot contact force rtol 5e-3 / atol 5e-2."""
+    kernel_env, generic_env = _legged_pair(kind)
+    B = 256
+    g = torch.Generator(device=cuda).manual_seed(13)
+    state = kernel_env.reset(B, g)
+    action = 2.4 * torch.rand((B, kernel_env.action_size), generator=g, device=cuda) - 1.2
+    push = None
+    if kernel_env.push_force > 0.0:
+        push = (torch.arange(B, device=cuda) % 4 == 0, kernel_env._draw_push(B, g)[1])
+    resample = kernel_env._draw_resample(B, g)
+    before = control_step_cuda.launches
+    got = kernel_env._step_from(state, action, push, resample, None)
+    assert control_step_cuda.launches == before + 1
+    want = generic_env._step_from(state, action, push, resample, None)
+    assert control_step_cuda.launches == before + 1
+    assert (want.metrics["contact_force"] > 0).any()
+    torch.testing.assert_close(got.data["qpos"], want.data["qpos"], rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(got.data["qvel"], want.data["qvel"], rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(got.metrics["contact_force"], want.metrics["contact_force"],
+                               rtol=5e-3, atol=5e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cls", [ArmReacher, ArmPush], ids=["reacher", "pusher"])
+def test_scene_kernel_matches_the_generic_engine(cuda, cls):
+    """One control step of the scene kernel against engine.step (reacher)
+    or scene_step (pusher) on the card: qpos rtol / atol 2e-5, qvel 2e-4,
+    normals 1e-4 (tests/test_soa_general.py:81-87); the pusher's generic
+    step returns its cross pair's normals only."""
+    from nnx_ppo_tpu_torch.physics.engine import step
+    from nnx_ppo_tpu_torch.physics.scene import scene_step
+
+    env = cls()
+    pusher = cls is ArmPush
+    run = env._scene_runner
+    arrays = manipulation_states(512, seed=14, with_ball=pusher,
+                                 shoulder_height=PUSHER_SHOULDER_HEIGHT if pusher else 1.0)
+    qpos, qvel, tau = (torch.tensor(arrays[k], device=cuda) for k in ("qpos", "qvel", "tau"))
+    got = run.cuda(qpos, qvel, tau)
+    if pusher:
+        arm = env.scene.models[0]
+        split = lambda x, n: (x[:, :n], x[:, n:])
+        qps, qvs, cross = scene_step(env.scene, split(qpos, arm.nq), split(qvel, arm.nv),
+                                     split(tau, arm.nv), run.dt, run.n_substeps)
+        want = (torch.cat(qps, dim=-1), torch.cat(qvs, dim=-1), cross)
+        got = (got[0], got[1], got[2][:, -1:])
+        assert (cross > 0).any() and (cross == 0).any()
+    else:
+        want = step(env.model, qpos, qvel, tau, run.dt, run.n_substeps)
+    for (name, tol), g, w in zip((("qpos", 2e-5), ("qvel", 2e-4), ("normals", 1e-4)), got, want):
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol, msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tree", ["general_tree", "slider_tree"])
+def test_generic_engine_on_the_card_matches_the_cpu(cuda, tree):
+    """forward_dynamics on a tree with slide and ball joints (and a free or
+    a slide root) on the card against the CPU: rtol 1e-5, atol 1e-5 times
+    the largest entry, the engine's CPU parity tolerance with the JAX
+    package (tests/test_torch_generic_engine.py)."""
+    from nnx_ppo_tpu_torch.physics.engine import forward_dynamics
+
+    model, arrays = ((general_tree(), general_tree_states(256, seed=9)) if tree == "general_tree"
+                     else (slider_tree(), slider_tree_states(256, seed=10)))
+    cpu = [torch.tensor(arrays[k]) for k in ("qpos", "qvel", "tau")]
+    want = forward_dynamics(model, *cpu, dt=0.002)
+    got = forward_dynamics(model, *(x.to(cuda) for x in cpu), dt=0.002)
+    for g, w in zip(got, want):
+        assert g.is_cuda
+        scale = max(1.0, w.abs().max().item())
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["quadruped", "reacher", "pusher"])
+def test_generic_env_steps_on_the_card_launch_no_physics_kernel(cuda, kind):
+    """substep_impl="xla" on the card: eager PyTorch, no control-step or
+    scene kernel; the step equals the CPU's within the env tolerances
+    (qpos 2e-4, qvel 2e-3)."""
+    env = {"quadruped": lambda: QuadrupedJoystick(reuse_mass_matrix=True, substep_impl="xla"),
+           "reacher": lambda: ArmReacher(substep_impl="xla"),
+           "pusher": lambda: ArmPush(substep_impl="xla")}[kind]()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    state = env.reset(128, g)
+    action = torch.full((128, env.action_size), 0.5, device=cuda)
+    before = (control_step_cuda.launches, scene_step_cuda.launches)
+    on_card = env.step(state, action, torch.Generator(device=cuda).manual_seed(1))
+    assert (control_step_cuda.launches, scene_step_cuda.launches) == before
+    from nnx_ppo_tpu_torch.core.struct import tree_map
+
+    cpu_state = tree_map(lambda x: x.cpu(), state)
+    if kind == "quadruped":
+        draws = env._draw_resample(128, torch.Generator(device=cuda).manual_seed(1))
+        on_card = env._step_from(state, action, None, draws, None)
+        on_cpu = env._step_from(cpu_state, action.cpu(), None, tree_map(lambda x: x.cpu(), draws),
+                                None)
+    else:
+        on_cpu = env.step(cpu_state, action.cpu())
+    for key, value in on_cpu.data.items():
+        if isinstance(value, torch.Tensor):
+            atol = 2e-3 if "qvel" in key else 2e-4
+            torch.testing.assert_close(on_card.data[key].cpu(), value, rtol=0, atol=atol, msg=key)

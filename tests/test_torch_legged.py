@@ -271,10 +271,15 @@ def test_exact_mode_is_the_default_and_differs_from_held():
 @pytest.mark.parametrize(
     "build, error, match",
     [
-        (lambda: legged_from_mjcf("<mujoco/>"), NotImplementedError, "legged_from_mjcf"),
+        # The importer is ported: an MJCF without a jointed body is
+        # refused as in JAX (nnx_ppo_tpu/physics/mjcf.py:487).
+        (lambda: legged_from_mjcf("<mujoco/>"), ValueError, "no jointed bodies"),
         (lambda: QuadrupedJoystick(depthwise=True), NotImplementedError, "depthwise"),
-        # A terrain that is neither analytic nor a HeightGrid is refused.
-        (lambda: QuadrupedJoystick(terrain=object()), ValueError, "HeightGrid"),
+        # A terrain that is neither analytic nor a HeightGrid is refused by
+        # the kernel path (on "auto" the env takes the generic engine, as
+        # JAX's does).
+        (lambda: QuadrupedJoystick(terrain=object(), substep_impl="pallas"), ValueError,
+         "HeightGrid"),
         (lambda: QuadrupedJoystick().render([]), NotImplementedError, "render"),
     ],
     ids=["mjcf", "depthwise", "grid_terrain", "render"],
@@ -414,9 +419,11 @@ def test_path_step_matches_jax_with_injected_draws(path_trajectory):
     ids=["exact_factor", "terrain", "randomize", "push", "4_of_10_substeps"],
 )
 def test_passed_in_factor_path_keeps_the_jax_refusals(kwargs, match):
-    """nnx_ppo_tpu/envs/legged.py:322-357 and pallas_step.py:657-663."""
+    """nnx_ppo_tpu/envs/legged.py:322-357 and pallas_step.py:657-663: JAX
+    raises these under substep_impl="pallas" (on "auto" it takes the
+    generic engine instead, as the port does)."""
     with pytest.raises(ValueError, match=match):
-        QuadrupedJoystick(pallas_in_kernel_factor=False, **kwargs)
+        QuadrupedJoystick(pallas_in_kernel_factor=False, substep_impl="pallas", **kwargs)
 
 
 def test_passed_in_factor_path_uses_the_substep_runner_only():

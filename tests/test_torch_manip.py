@@ -193,7 +193,9 @@ def test_draws_come_from_the_generator_in_a_fixed_order():
 
 
 def test_envs_step_through_the_scene_runner_only():
-    """No ``substep_impl`` argument: dispatch is by the tensors' device."""
+    """``substep_impl`` "auto" (the default) and "pallas" step through the
+    scene runner, dispatched by the tensors' device; "xla" steps the
+    generic engine (tests/test_torch_generic_engine.py)."""
     reacher, pusher = ArmReacher(), ArmPush()
     assert isinstance(reacher._scene_runner, SceneStepPlan)
     assert (reacher._scene_runner.n_substeps, reacher._scene_runner.dt) == (4, 0.005)
@@ -201,10 +203,12 @@ def test_envs_step_through_the_scene_runner_only():
     assert (pusher._scene_runner.n_substeps, pusher._scene_runner.dt) == (16, 0.00125)
     assert pusher._scene_runner.pairs == ((0, 0, 1, 0),) and pusher.scene.pairs == ((0, 0, 1, 0),)
     assert (pusher._scene_runner.nq, pusher._scene_runner.nv, pusher._scene_runner.n_normals) == (12, 10, 3)
-    with pytest.raises(TypeError, match="substep_impl"):
-        ArmReacher(substep_impl="xla")
-    with pytest.raises(TypeError, match="substep_impl"):
-        ArmPush(substep_impl="pallas")
+    assert isinstance(ArmPush(substep_impl="pallas")._scene_runner, SceneStepPlan)
+    assert ArmReacher(substep_impl="xla")._scene_runner is None
+    with pytest.raises(ValueError, match="substep_impl"):
+        ArmReacher(substep_impl="triton")
+    with pytest.raises(ValueError, match="substep_impl"):
+        ArmPush(substep_impl="warp")
 
 
 @pytest.mark.parametrize("cls", [ArmReacher, ArmPush], ids=["reacher", "pusher"])

@@ -415,10 +415,12 @@ def test_runner_rejects_what_the_kernel_cannot_take():
          ValueError, "tree index 2 out of range"),
         (lambda: Scene(models=(make_arm(), _make_ball()), pairs=((0, 1, 1, 0),)),
          ValueError, "geom index 1 out of range for tree 0"),
+        # scene_step / scene_forward are ported; a state tuple with no
+        # entry for a tree is refused (JAX's zip would drop the tree).
         (lambda: scene_module.scene_step(Scene(models=(make_arm(),)), (), (), (), DT),
-         NotImplementedError, "item 11"),
+         ValueError, "one entry per tree"),
         (lambda: scene_module.scene_forward(Scene(models=(make_arm(),)), (), (), ()),
-         NotImplementedError, "scene_forward is not ported"),
+         ValueError, "one entry per tree"),
     ],
     ids=["joint_type", "nested_free", "heightgrid", "pair_in_one_tree", "tree_index", "geom_index",
          "scene_step", "scene_forward"],
