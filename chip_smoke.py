@@ -99,13 +99,35 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    qpos 2e-5 / qvel 2e-4 / normals 1e-4: the JAX package's tolerances
    for the same checks), each beside what a generic step of one substep
    fewer reads, and the generic engine's forward dynamics on the card
-   against the CPU on trees with slide and ball joints.
+   against the CPU on trees with slide and ball joints;
+6. one env: every physics kernel launched for a batch of one
+   (the video's render rollout; the control step held, exact, on flat
+   ground and on sampled planes, the plane sampler, the substeps kernel,
+   the scene step at the pusher's and the reacher's sizes), each output
+   equal to the bit with the plain version, with its device time;
+   checkpoint: the flagship and the physics leg through train_ppo with
+   make_checkpoint_fn (anneal_lr), 2k iterations twice from one seed,
+   then the checkpoint at k loaded into a fresh template and trained to
+   2k: whether the two uninterrupted runs are equal to the bit (then the
+   resumed one must be), the resumed run's largest difference, save and
+   load ms and bytes on disk; and a distill_quadruped_2048 state's round
+   trip, equal to the bit; video: train_ppo with video on the flagship
+   (500-step episode), and the render rollout of one env plus render, 200
+   steps, on the physics leg's quadruped, the data-terrain quadruped and
+   the pusher: the frames' shape, video_sps, and the kernels launched per
+   env step (each rollout step one launch of each of its kernels at one
+   env). Each of these runs has every kernel's count set to 0 just before
+   and read just after.
 
 It prints a ``kernels`` JSON line (each kernel's design, and its
 registers, stack, spills and shared memory from ptxas and the launch), the
 card line, and last ``{"ok": true, "device": {...}}``. With no CUDA device
 it exits 1 and prints no result. ``--profile DIR`` also writes
-torch.profiler tables of one training step of each path to DIR; ``--learn
+torch.profiler tables of one training step of each path to DIR, and
+traces one more ppo_step of the flagship and of the physics leg with
+``utils.profiling.trace`` (into DIR), printing the host ms and the device
+ms of its ``unroll_env`` and ``ppo_update`` ranges as shares of the
+step's; ``--learn
 N`` also trains the flagship for N iterations through train_ppo and prints
 its eval curve; ``--variants`` also builds the control-step kernel with
 fused multiply-adds and prints its error and time beside the shipped
@@ -129,6 +151,7 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
+import importlib
 import json
 import os
 import re
@@ -415,7 +438,8 @@ def device_kernels_per_call(fn, torch, n: int = 20) -> dict:
 def gae_call(inputs: tuple, lam: float, gamma: float):
     """One minibatch's GAE as ppo_loss runs it: gae_per_key (one launch for
     all keys) where the package has it, else one gae_cuda call per key."""
-    from nnx_ppo_tpu_torch.ops import gae as gae_module
+    # The module: the package exports the function gae under its name.
+    gae_module = importlib.import_module("nnx_ppo_tpu_torch.ops.gae")
 
     if hasattr(gae_module, "gae_per_key"):
         return lambda: gae_module.gae_per_key(*inputs, lam, gamma)
@@ -442,7 +466,8 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 
 def gae_kernel_phase(torch) -> dict:
-    from nnx_ppo_tpu_torch.ops import gae as gae_module
+    # The module: the package exports the function gae under its name.
+    gae_module = importlib.import_module("nnx_ppo_tpu_torch.ops.gae")
     from nnx_ppo_tpu_torch.ops.gae import gae_cuda, gae_per_key, gae_scan
 
     lam, gamma = 0.95, 0.99
@@ -646,7 +671,7 @@ VARIANT_THREADS = (32, 64, 128, 256)
 MAX_BLOCK_SMEM_BYTES = 232448
 
 
-def control_step_case(name: str, torch):
+def control_step_case(name: str, torch, batch: int | None = None):
     """(plan, args on the card) of one control-step configuration, 10
     substeps of 2 ms: the quadruped at kp=60 from states near the standing
     pose with some feet in contact; the humanoid at kp=350 from states near
@@ -665,6 +690,7 @@ def control_step_case(name: str, torch):
     from nnx_ppo_tpu_torch.physics.testing import humanoid_states, standing_states
 
     model_name, B, exact, full = CONTROL_STEP_CASES[name]
+    B = batch or B
     keys = ("qpos", "qvel", "target")
     if model_name == "mjcf_quadruped":
         env = mjcf_quadruped.make_env(reuse_mass_matrix=not exact)
@@ -1041,7 +1067,7 @@ PLANE_SAMPLER_CASES = {
 SAMPLER_GROUPS, SAMPLER_THREADS = (4, 8, 16), (64, 128, 256)
 
 
-def plane_sampler_case(name: str, torch):
+def plane_sampler_case(name: str, torch, batch: int | None = None):
     """(plan, qpos on the card) of one sampler configuration: standing
     quadrupeds spread over the spawn radius, at the local ground height."""
     from nnx_ppo_tpu_torch.physics.cuda_step import ControlStepPlan
@@ -1050,6 +1076,7 @@ def plane_sampler_case(name: str, torch):
     from nnx_ppo_tpu_torch.physics.testing import standing_states
 
     B, n, extent = PLANE_SAMPLER_CASES[name]
+    B = batch or B
     model = make_quadruped()
     plan = ControlStepPlan(model, 60.0, 0.002, 10, terrain=data_terrain(n, extent))
     arrays = standing_states(model, default_qpos(model), B, seed=5, terrain=rough_terrain(**ROUGH))
@@ -1317,7 +1344,7 @@ SCENE_STEP_CASES = {
 }
 
 
-def scene_step_case(name: str, torch):
+def scene_step_case(name: str, torch, batch: int | None = None):
     """(plan, args on the card) of one scene configuration: the runner of
     the env itself (pusher: arm + ball + cross pair, 16 substeps of 1.25
     ms; reacher: the arm alone, 4 substeps of 5 ms), or the two test trees
@@ -1332,6 +1359,7 @@ def scene_step_case(name: str, torch):
     )
 
     kind, B = SCENE_STEP_CASES[name]
+    B = batch or B
     if kind == "pusher":
         plan = ArmPush()._scene_runner
         arrays = manipulation_states(B, seed=7, with_ball=True, shoulder_height=SHOULDER_HEIGHT)
@@ -2792,7 +2820,8 @@ def ab_kernels_phase(torch) -> dict:
     that two versions are compared in one chip call with one script. A
     package without ``gae_per_key`` runs one ``gae_cuda`` call per key, as
     its ``ppo_loss`` does."""
-    from nnx_ppo_tpu_torch.ops import gae as gae_module
+    # The module: the package exports the function gae under its name.
+    gae_module = importlib.import_module("nnx_ppo_tpu_torch.ops.gae")
 
     lam, gamma = 0.95, 0.99
     per_key = hasattr(gae_module, "gae_per_key")
@@ -2837,6 +2866,361 @@ def learning_phase(torch, iterations: int) -> None:
             f"lifespan_mean {row['lifespan_mean']:.1f}"
         )
     print(f"learn: {iterations} iterations in {time.perf_counter() - t0:.1f} s")
+
+
+# The kernels at a batch of one env, the video's render rollout batch:
+# label -> (wrapper, kernel name, the case it cuts to one env). A lane-group
+# block then holds one env and empty slots (the control step and substeps 8
+# envs per 128 threads, the plane sampler 8 per 64, the scene 16 per 64).
+ONE_ENV_CASES = {
+    "control_step held, full features": ("control_step_cuda", "control_step_kernel",
+                                         "held, full features, B=2048"),
+    "control_step exact, full features": ("control_step_cuda", "control_step_kernel",
+                                          "exact, full features, B=2048"),
+    "control_step held, flat ground": ("control_step_cuda", "control_step_kernel",
+                                       "held, flat ground, no extras, B=2048"),
+    "plane_sampler on the 256x256 table": ("plane_sampler_cuda", "plane_sampler_kernel",
+                                           "B=2048 on the 256x256 table"),
+    "control_step on the sampled planes": ("control_step_cuda", "control_step_kernel",
+                                           "B=2048 on the 256x256 table"),
+    "substeps, ten in one launch": ("substeps_cuda", "substeps_kernel", None),
+    "scene_step pusher": ("scene_step_cuda", "scene_step_kernel", "pusher, B=4096"),
+    "scene_step reacher": ("scene_step_cuda", "scene_step_kernel", "reacher, B=4096"),
+}
+
+
+def one_env_call(label: str, torch):
+    """(kernel call, plain call) of one :data:`ONE_ENV_CASES` entry at one
+    env; each returns the outputs as a tuple."""
+    from nnx_ppo_tpu_torch.physics import cuda_step
+    from nnx_ppo_tpu_torch.physics.engine import mass_matrix_factor
+    from nnx_ppo_tpu_torch.physics.models.quadruped import default_qpos, make_quadruped
+    from nnx_ppo_tpu_torch.physics.testing import standing_states
+
+    wrapper, _, case = ONE_ENV_CASES[label]
+    if label.startswith("plane_sampler"):
+        plan, args = plane_sampler_case(case, torch, batch=1)
+        return (lambda: (plan.sample_planes_cuda(args[0]),),
+                lambda: (plan.sample_planes_plain(args[0]),))
+    if label == "control_step on the sampled planes":
+        plan, args = plane_sampler_case(case, torch, batch=1)
+    elif wrapper == "control_step_cuda":
+        plan, args = control_step_case(case, torch, batch=1)
+    elif wrapper == "scene_step_cuda":
+        plan, args = scene_step_case(case, torch, batch=1)
+    else:
+        model = make_quadruped()
+        arrays = standing_states(model, default_qpos(model), 1, seed=3)
+        args = [torch.tensor(arrays[k], device="cuda") for k in ("qpos", "qvel", "target")]
+        args.append(mass_matrix_factor(model, args[0], dt=0.002))
+        run = cuda_step.make_substep_runner(model, 60.0, 0.002, 10, -1)
+        return (lambda: run(*args),
+                lambda: cuda_step.substeps_plain(model, *args, 60.0, 0.002, 10))
+    return lambda: plan.cuda(*args), lambda: plan.plain(*args)
+
+
+def one_env_kernel_phase(torch, wrappers: list) -> dict:
+    """Every physics kernel launched for one env against its plain version
+    on the same inputs: each output must be equal to the bit, as at 33
+    envs and more (the block's empty env slots must write nothing and
+    leave no barrier short); then the device time of one launch by the
+    profiler. Returns, per wrapper, its cases."""
+    counters = {k.__name__: k for k in wrappers}
+    rows: dict = {}
+    for label, (wrapper, kernel, _) in ONE_ENV_CASES.items():
+        run, plain = one_env_call(label, torch)
+        before = counters[wrapper].launches
+        got = run()
+        torch.cuda.synchronize()
+        check(counters[wrapper].launches == before + 1, f"{label} at one env: one launch counted")
+        want = plain()
+        torch.cuda.synchronize()
+        check(all(g.shape[0] == 1 for g in got), f"{label}: one env out")
+        equal = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        check(equal, f"{label} at one env equals the plain version to the bit (max abs err {err})")
+        device_us = 1e3 * device_ms_per_call(run, 50, kernel, torch)
+        rows.setdefault(wrapper, {})[label] = {"batch": 1, "equal": equal, "max_abs_err": err,
+                                               "device_us": device_us}
+        print(f"one env, {label}: torch.equal True, max_abs_err {err:.3g}, {device_us:.2f} us "
+              "per launch (profiler)")
+    return rows
+
+
+CHECKPOINT_ITERATIONS = 2  # k: the resumed run restarts after k of 2k iterations
+
+
+def saved_tensors(torch, state, directory: str) -> tuple[dict, float]:
+    """Every named tensor a checkpoint of ``state`` holds (weights,
+    statistics, optimizer moments and counts, carries, env states, the
+    generator's state, the step count), by saving one; and the save's
+    milliseconds."""
+    from nnx_ppo_tpu_torch.algorithms import save_checkpoint
+    from nnx_ppo_tpu_torch.algorithms.checkpointing import TENSORS_FILE
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(directory, state, 0)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    return torch.load(os.path.join(directory, "state", TENSORS_FILE), weights_only=True), save_ms
+
+
+def leaf_differences(torch, a: dict, b: dict) -> dict:
+    """Per name: 0.0 where the two tensors are equal to the bit (NaN in
+    the same places), else the largest absolute difference (inf for a
+    differing generator state or a NaN in one place only)."""
+    out = {}
+    for name, x in a.items():
+        y = b[name]
+        if torch.equal(x.isnan(), y.isnan()) and torch.equal(x.nan_to_num(), y.nan_to_num()):
+            out[name] = 0.0
+        elif x.dtype == torch.uint8 or not torch.equal(x.isnan(), y.isnan()):
+            out[name] = float("inf")
+        else:
+            out[name] = (x.double() - y.double()).abs().max().item()
+    return out
+
+
+def checkpoint_path_phase(torch, wrappers: list, label: str, leg, per_step: dict,
+                          directory: str) -> dict:
+    """A path at full width through train_ppo with make_checkpoint_fn: 2k
+    iterations twice from one seed (``anneal_lr``, so the schedule's
+    count is part of the state), then the first run's checkpoint at k
+    loaded into a fresh template (another seed) and trained to 2k. Where
+    the two uninterrupted runs are equal to the bit, the resumed one must
+    be too; else it must lie no further from the first than the second
+    does. Every kernel's count is set to 0 before each run and read
+    after."""
+    from nnx_ppo_tpu_torch.algorithms import (
+        EvalConfig, TrainConfig, load_checkpoint, make_checkpoint_fn, new_training_state,
+        train_ppo,
+    )
+
+    env, networks, ppo, _ = leg(torch)
+    per_iter = ppo.n_envs * ppo.rollout_length
+    k = CHECKPOINT_ITERATIONS
+    config = TrainConfig(
+        ppo=dataclasses.replace(ppo, total_steps=2 * k * per_iter, anneal_lr=True),
+        eval=EvalConfig(enabled=False), checkpoint_every_steps=k * per_iter, seed=0,
+    )
+    launches = {w.__name__: 0 for w in wrappers}
+    save_ms: list = []
+
+    def train(run: str, **kwargs):
+        saver = make_checkpoint_fn(os.path.join(directory, run), config)
+
+        def timed_saver(state, step):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            saver(state, step)
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+
+        for w in wrappers:
+            w.launches = 0
+        torch.cuda.synchronize()
+        res = train_ppo(env, networks, config, checkpoint_fn=timed_saver, **kwargs)
+        torch.cuda.synchronize()
+        n_iterations = res.total_iterations
+        for w in wrappers:
+            check(w.launches == per_step[w.__name__] * n_iterations,
+                  f"checkpoint {label} {run}: {w.__name__} launches {w.launches}")
+            launches[w.__name__] += w.launches
+        return res
+
+    first, second = train("first"), train("second")
+    step_dir = os.path.join(directory, "first", f"step_{k * per_iter:010d}")
+    template = new_training_state(env, networks, ppo.n_envs, seed=1, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = load_checkpoint(step_dir, template)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    check(restored["step"] == k * per_iter and restored["config"] == config,
+          f"checkpoint {label}: step and config restored")
+    resumed = train("resumed", initial_state=restored["training_state"])
+    check(first.total_steps == second.total_steps == resumed.total_steps == 2 * k * per_iter,
+          f"checkpoint {label}: every run ends at 2k iterations")
+    bytes_on_disk = sum(os.path.getsize(os.path.join(root, f))
+                        for root, _, files in os.walk(step_dir) for f in files)
+    leaves = {run: saved_tensors(torch, res.training_state, os.path.join(directory, f"{run}_end"))[0]
+              for run, res in (("first", first), ("second", second), ("resumed", resumed))}
+    spread = leaf_differences(torch, leaves["first"], leaves["second"])
+    gap = leaf_differences(torch, leaves["first"], leaves["resumed"])
+    deterministic = max(spread.values()) == 0.0
+    differing = sorted(name for name, d in spread.items() if d)
+    if deterministic:
+        check(max(gap.values()) == 0.0,
+              f"checkpoint {label}: the resumed run equals the uninterrupted one to the bit "
+              f"({[n for n, d in gap.items() if d][:5]} differ)")
+    else:
+        check(max(gap.values()) <= max(spread.values()),
+              f"checkpoint {label}: the resumed run lies no further than a second run")
+    result = {
+        "uninterrupted_runs_equal": deterministic,
+        "leaves": len(spread),
+        "uninterrupted_leaves_differing": differing,
+        "uninterrupted_largest_difference": max(spread.values()),
+        "resumed_largest_difference": max(gap.values()),
+        "save_ms": save_ms,
+        "load_ms": load_ms,
+        "bytes_on_disk": bytes_on_disk,
+        "launches": launches,
+    }
+    print(f"checkpoint {label}: two uninterrupted runs of {2 * k} iterations equal to the bit: "
+          f"{deterministic} ({len(differing)} of {len(spread)} leaves differ, largest "
+          f"{result['uninterrupted_largest_difference']:.3g}{'; ' + ', '.join(differing[:6]) if differing else ''}); "
+          f"resumed after {k}: largest difference {result['resumed_largest_difference']:.3g}; "
+          f"save {', '.join(f'{ms:.1f}' for ms in save_ms[:3])} ms, load {load_ms:.1f} ms, "
+          f"{bytes_on_disk} bytes on disk; launches {launches}")
+    return result
+
+
+def distill_round_trip_phase(torch, path: dict, directory: str) -> dict:
+    """A distillation state at full width saved and loaded into a fresh
+    template (another seed): every named tensor equal to the bit."""
+    from nnx_ppo_tpu_torch.algorithms import load_checkpoint, new_distillation_state
+
+    state, config = path["state"], path["config"]
+    original, save_ms = saved_tensors(torch, state, os.path.join(directory, "saved"))
+    step_dir = os.path.join(directory, "saved")
+    template = new_distillation_state(path["env"], path["teacher"], state.student, config.n_envs,
+                                      seed=1, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = load_checkpoint(step_dir, template)["training_state"]
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    again, _ = saved_tensors(torch, restored, os.path.join(directory, "again"))
+    diffs = leaf_differences(torch, original, again)
+    check(max(diffs.values()) == 0.0, "distill_quadruped_2048: the round trip is exact")
+    bytes_on_disk = sum(os.path.getsize(os.path.join(root, f))
+                        for root, _, files in os.walk(step_dir) for f in files)
+    print(f"checkpoint distill_quadruped_2048: state round trip equal to the bit over "
+          f"{len(diffs)} leaves; save {save_ms:.1f} ms, load {load_ms:.1f} ms, {bytes_on_disk} "
+          "bytes on disk")
+    return {"leaves": len(diffs), "equal": True, "save_ms": save_ms, "load_ms": load_ms,
+            "bytes_on_disk": bytes_on_disk}
+
+
+VIDEO_LENGTH = 200
+VIDEO_SIZE = (("height", 240), ("width", 320))
+
+
+def video_phase(torch, wrappers: list) -> dict:
+    """The video pipeline on the card: train_ppo with video on the
+    flagship (one iteration, the video at step 0, 500-step episode), then
+    the render rollout of one env and the render of 200 steps on the
+    physics leg's quadruped, the data-terrain quadruped and the pusher
+    (random policies in eval mode). Every kernel's count is set to 0
+    before each and read after: each env step of the rollout launches its
+    physics kernels once, at one env."""
+    from nnx_ppo_tpu_torch.algorithms import (
+        EvalConfig, LoggingLevel, TrainConfig, VideoConfig, eval_rollout_for_render_scan,
+        train_ppo, unstack_trajectory,
+    )
+    import numpy as np
+
+    from nnx_ppo_tpu_torch.algorithms.rollout import render_seed
+
+    out: dict = {}
+    env, networks, ppo, _ = flagship(torch)
+    videos, logged = [], []
+    config = TrainConfig(
+        ppo=dataclasses.replace(ppo, total_steps=ppo.n_envs * ppo.rollout_length,
+                                logging_level=LoggingLevel.LOSSES | LoggingLevel.THROUGHPUT),
+        eval=EvalConfig(enabled=False),
+        video=VideoConfig(enabled=True, episode_length=500, render_kwargs=VIDEO_SIZE),
+    )
+    for w in wrappers:
+        w.launches = 0
+    train_ppo(env, networks, config, video_fn=videos.append,
+              log_fn=lambda m, s: logged.append((s, m)))
+    launches = {w.__name__: w.launches for w in wrappers}
+    check(len(videos) == 1 and videos[0].frames.shape == (501, 240, 320, 3),
+          f"flagship video: {[v.frames.shape for v in videos]}")
+    check(videos[0].frames.dtype.name == "uint8" and (videos[0].frames != 255).any(),
+          "flagship video frames are uint8 and not blank")
+    video_sps = [m["throughput/video_sps"] for s, m in logged if "throughput/video_sps" in m]
+    check(len(video_sps) == 1, "throughput/video_sps logged once")
+    check(launches["gae_cuda"] == 16 and sum(launches.values()) == 16,
+          f"flagship with video: {launches}")
+    out["flagship"] = {"frames": list(videos[0].frames.shape), "video_sps": video_sps[0],
+                       "episode_reward": videos[0].episode_reward, "launches": launches}
+    print(f"video flagship (train_ppo, 500 steps): frames {videos[0].frames.shape}, video_sps "
+          f"{video_sps[0]:.1f}, episode reward {videos[0].episode_reward:.2f}; launches {launches}")
+
+    for label, leg, per_env_step in (
+        ("physics", physics_leg, {"control_step_cuda": 1}),
+        ("heightgrid", heightgrid_leg, {"plane_sampler_cuda": 1, "control_step_cuda": 1}),
+        ("pusher", pusher_leg, {"scene_step_cuda": 1}),
+    ):
+        env, networks, _, _ = leg(torch)
+        net = copy.deepcopy(networks).to("cuda").eval()
+        generator = torch.Generator(device="cuda")
+        generator.manual_seed(render_seed(0, 0))
+        for w in wrappers:
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stacked, final, reward = eval_rollout_for_render_scan(env, net, VIDEO_LENGTH, generator)
+        rollout_s = time.perf_counter() - t0
+        launches = {w.__name__: w.launches for w in wrappers}
+        for name, n in launches.items():
+            check(n == per_env_step.get(name, 0) * VIDEO_LENGTH,
+                  f"video {label}: {name} launched {n} times in {VIDEO_LENGTH} env steps")
+        frames = env.render(unstack_trajectory(stacked, final, VIDEO_LENGTH), **dict(VIDEO_SIZE))
+        total_s = time.perf_counter() - t0
+        frames = np.stack(frames)
+        check(frames.shape == (VIDEO_LENGTH + 1, 240, 320, 3) and frames.dtype == np.uint8,
+              f"video {label}: frames {frames.shape}")
+        check(bool((frames != 255).any()) and bool(np.isfinite(float(reward))),
+              f"video {label}: frames drawn, reward finite")
+        per_step = {name: n / VIDEO_LENGTH for name, n in launches.items() if n}
+        out[label] = {"frames": list(frames.shape), "video_sps": VIDEO_LENGTH / total_s,
+                      "rollout_s": rollout_s, "render_s": total_s - rollout_s,
+                      "episode_reward": float(reward), "kernels_per_env_step": per_step,
+                      "launches": launches}
+        print(f"video {label} (one env, {VIDEO_LENGTH} steps): frames {frames.shape}, video_sps "
+              f"{VIDEO_LENGTH / total_s:.1f} (rollout {rollout_s:.2f} s, render "
+              f"{total_s - rollout_s:.2f} s), kernels per env step {per_step}, every one a "
+              "launch at one env through its kernel")
+    return out
+
+
+def step_split_phase(torch, label: str, env, config, state, profile_dir: str) -> dict:
+    """One ppo_step under ``utils.profiling.trace`` (a Chrome trace into
+    ``profile_dir``): host ms (the ranges' CPU time) and device ms (the
+    kernels launched inside each range) of ``unroll_env`` and
+    ``ppo_update``, each as a share of ``ppo_step``'s."""
+    from torch.autograd import DeviceType
+
+    from nnx_ppo_tpu_torch.algorithms import make_optimizer, ppo_step
+    from nnx_ppo_tpu_torch.utils import profiling
+
+    optimizer = make_optimizer(config.learning_rate)
+    with profiling.trace(os.path.join(profile_dir, f"{label}_trace")) as prof:
+        state, _ = ppo_step(env, state, config, optimizer)
+        torch.cuda.synchronize()
+    ranges = {e.key: e for e in prof.key_averages()
+              if e.key in ("ppo_step", "unroll_env", "ppo_update")
+              and e.device_type == DeviceType.CPU}
+    check(set(ranges) == {"ppo_step", "unroll_env", "ppo_update"},
+          f"{label}: the trace holds the step's ranges ({sorted(ranges)})")
+    out = {name: {"host_ms": e.cpu_time_total / 1e3, "device_ms": e.device_time_total / 1e3}
+           for name, e in ranges.items()}
+    step = out["ppo_step"]
+    for name in ("unroll_env", "ppo_update"):
+        out[name]["host_share"] = out[name]["host_ms"] / step["host_ms"]
+        out[name]["device_share"] = (out[name]["device_ms"] / step["device_ms"]
+                                     if step["device_ms"] else float("nan"))
+    print(f"profile {label}: ppo_step host {step['host_ms']:.2f} ms, device {step['device_ms']:.2f} "
+          f"ms; unroll_env host {out['unroll_env']['host_ms']:.2f} ms "
+          f"({out['unroll_env']['host_share']:.3f}), device {out['unroll_env']['device_ms']:.2f} ms "
+          f"({out['unroll_env']['device_share']:.3f}); ppo_update host "
+          f"{out['ppo_update']['host_ms']:.2f} ms ({out['ppo_update']['host_share']:.3f}), device "
+          f"{out['ppo_update']['device_ms']:.2f} ms ({out['ppo_update']['device_share']:.3f}) on "
+          f"{card_line()}")
+    return out
 
 
 def main() -> int:
@@ -2905,6 +3289,7 @@ def main() -> int:
     sampler_kernel = plane_sampler_kernel_phase(torch)
     substeps_kernel = substeps_kernel_phase(torch, bool(args.profile))
     scene_kernel = scene_step_kernel_phase(torch, args.variants)
+    one_env = one_env_kernel_phase(torch, wrappers)
     print(f"kernel phases: {time.perf_counter() - t_kernels:.1f} s")
     t_paths = time.perf_counter()
 
@@ -3092,6 +3477,35 @@ def main() -> int:
     kernel_vs_generic = kernel_vs_generic_phase(torch)
     engine_card_vs_cpu = engine_card_vs_cpu_phase(torch)
     print(f"paths and references: {time.perf_counter() - t_paths:.1f} s")
+
+    # Checkpoint and exact resume, the video pipeline, and
+    # (with --profile) the rollout's and the update's shares of a step.
+    t_slice = time.perf_counter()
+    checkpoint_dir = os.path.join("build", "smoke_checkpoints")
+    shutil.rmtree(checkpoint_dir, ignore_errors=True)
+    per_step["flagship"] = dict(none, gae_cuda=16)
+    checkpoints = {
+        label: checkpoint_path_phase(torch, wrappers, label, leg, per_step[label],
+                                     os.path.join(checkpoint_dir, label))
+        for label, leg in (("flagship", flagship), ("physics", physics_leg))
+    }
+    checkpoints["distill_quadruped_2048"] = distill_round_trip_phase(
+        torch, distill_paths["distill_quadruped_2048"], os.path.join(checkpoint_dir, "distill"))
+    shutil.rmtree(checkpoint_dir, ignore_errors=True)
+    videos = video_phase(torch, wrappers)
+    step_split = {}
+    if args.profile:
+        for label, path in (("flagship", flagship_path), ("physics", physics_path)):
+            env = flagship_env if label == "flagship" else path["env"]
+            config = flagship_config if label == "flagship" else path["config"]
+            step_split[label] = step_split_phase(torch, label, env, config, path["state"],
+                                                 args.profile)
+    print(json.dumps({"checkpoint": {k: {n: v for n, v in c.items() if n != "launches"}
+                                     for k, c in checkpoints.items()},
+                      "video": {k: {n: v for n, v in c.items() if n != "launches"}
+                                for k, c in videos.items()},
+                      "step_split": step_split}))
+    print(f"checkpoint, video and profile phases: {time.perf_counter() - t_slice:.1f} s")
     if args.learn:
         learning_phase(torch, args.learn)
     if args.phases:
@@ -3104,6 +3518,9 @@ def main() -> int:
                       **network_paths, bf16store_label: bf16store_path, **new_paths}
     by_path.update({label: path["launches"] for label, path in training_paths.items()})
     by_path.update({label: path["launches"] for label, path in distill_paths.items()})
+    by_path.update({f"checkpoint_{label}": c["launches"] for label, c in checkpoints.items()
+                    if "launches" in c})
+    by_path.update({f"video_{label}": v["launches"] for label, v in videos.items()})
     kernel_rows = {
         "gae_cuda": gae_kernel, "control_step_cuda": control_kernel,
         "plane_sampler_cuda": sampler_kernel, "substeps_cuda": substeps_kernel,
@@ -3112,6 +3529,7 @@ def main() -> int:
     for wrapper_name, kernel in kernel_rows.items():
         kernel["launches_by_path"] = {k: p[wrapper_name] for k, p in by_path.items()}
         kernel["launches"] = sum(kernel["launches_by_path"].values())
+        kernel["one_env"] = one_env.get(wrapper_name, {})
         check(kernel["launches"] > 0, f"{kernel['name']} was launched on a main path")
 
     print(

@@ -9,3 +9,16 @@ at first use.
 """
 
 __version__ = "0.1.0"
+
+from nnx_ppo_tpu_torch import algorithms, core, envs, networks, ops, parallel, utils, wrappers
+
+__all__ = [
+    "algorithms",
+    "core",
+    "envs",
+    "networks",
+    "ops",
+    "parallel",
+    "utils",
+    "wrappers",
+]

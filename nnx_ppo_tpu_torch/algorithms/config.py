@@ -1,7 +1,8 @@
 """Configuration dataclasses. A copy of ``nnx_ppo_tpu/algorithms/config.py``
 (``PPOConfig``, ``EvalConfig``, ``VideoConfig``, ``TrainConfig``,
 ``TrainResult``, ``DistillationConfig``, ``DistillationTrainConfig``,
-``DistillationTrainResult``, :142-211) with the same fields and defaults.
+``DistillationTrainResult``, :142-211; ``VideoData``, :183-190) with the
+same fields and defaults.
 
 The replay options are JAX's: ``fused_replay``; ``rollout_layout``
 "auto" (batch-major for a fully replay-time-static network under
@@ -20,6 +21,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any, Optional
+
+import numpy as np
 
 from nnx_ppo_tpu_torch.algorithms.types import DistillationState, LoggingLevel, TrainingState
 
@@ -69,13 +72,16 @@ class EvalConfig:
 
 @dataclass(frozen=True)
 class VideoConfig:
-    """Video recording configuration (not ported yet: ``train_ppo``
-    raises when it is enabled)."""
+    """Video recording configuration."""
 
     enabled: bool = False
     every_steps: int = 200_000
     episode_length: int = 1000
     render_kwargs: tuple[tuple[str, Any], ...] = (("height", 480), ("width", 640))
+
+    @property
+    def render_kwargs_dict(self) -> dict[str, Any]:
+        return dict(self.render_kwargs)
 
 
 @dataclass(frozen=True)
@@ -87,6 +93,16 @@ class TrainConfig:
     video: VideoConfig = field(default_factory=VideoConfig)
     seed: int = 17
     checkpoint_every_steps: int = 500_000
+
+
+@dataclass
+class VideoData:
+    """Data passed to the video callback."""
+
+    frames: np.ndarray  # (T, H, W, C), uint8
+    step: int
+    episode_reward: float
+    episode_length: int
 
 
 @dataclass

@@ -31,6 +31,7 @@ import functools
 from typing import Any, Callable, Optional, Union
 
 import torch
+from torch.profiler import record_function
 
 from nnx_ppo_tpu_torch.algorithms import rollout
 from nnx_ppo_tpu_torch.algorithms.config import (
@@ -44,6 +45,7 @@ from nnx_ppo_tpu_torch.algorithms.ppo import (
     _should_run,
     _to_host,
     make_optimizer,
+    record_video,
     minibatch_updates,
     resolve_batch_major,
     resolve_store_dtype,
@@ -259,51 +261,53 @@ def distillation_step(
     rollout -> E·M minibatch updates -> student statistics fold ->
     commit the next carries. ``distillation_state.student`` and
     ``.opt_state`` are updated in place; the teacher is used as given (in
-    eval mode for the distillation target to be its mean)."""
-    ds = distillation_state
-    if ds.env_states.done.shape[0] != config.n_envs:
-        raise ValueError(
-            f"distillation state holds {ds.env_states.done.shape[0]} envs, "
-            f"config.n_envs is {config.n_envs}"
-        )
-    with torch.no_grad():
-        next_student_state, next_teacher_state, next_env_state, rollout_data = (
-            distillation_unroll_env(
-                env, ds.env_states, teacher, ds.student, ds.student_states,
-                ds.teacher_states, config.rollout_length, ds.generator,
+    eval mode for the distillation target to be its mean). Runs inside a
+    profiler range named ``distillation_step``."""
+    with record_function("distillation_step"):
+        ds = distillation_state
+        if ds.env_states.done.shape[0] != config.n_envs:
+            raise ValueError(
+                f"distillation state holds {ds.env_states.done.shape[0]} envs, "
+                f"config.n_envs is {config.n_envs}"
             )
+        with torch.no_grad():
+            next_student_state, next_teacher_state, next_env_state, rollout_data = (
+                distillation_unroll_env(
+                    env, ds.env_states, teacher, ds.student, ds.student_states,
+                    ds.teacher_states, config.rollout_length, ds.generator,
+                )
+            )
+        loss_metrics = distillation_update(
+            ds.student, ds.opt_state, ds.student_states, rollout_data, config, optimizer,
+            generator=ds.generator,
         )
-    loss_metrics = distillation_update(
-        ds.student, ds.opt_state, ds.student_states, rollout_data, config, optimizer,
-        generator=ds.generator,
-    )
-    total_steps = ds.steps_taken + config.rollout_length * config.n_envs
-    # Fold the student's own rollout extras into its running statistics.
-    ds.student.update_statistics(rollout_data.student_rollout_extras)
+        total_steps = ds.steps_taken + config.rollout_length * config.n_envs
+        # Fold the student's own rollout extras into its running statistics.
+        ds.student.update_statistics(rollout_data.student_rollout_extras)
 
-    metrics: dict[str, Any] = {}
-    for k, v in loss_metrics.items():
-        _log_metric(metrics, k, v, config.logging_percentiles)
-    if LoggingLevel.TRAIN_ROLLOUT_STATS in config.logging_level:
-        _log_metric(metrics, "rollout_batch/reward", rollout_data.rewards,
-                    config.logging_percentiles)
-        _log_metric(metrics, "rollout_batch/action", rollout_data.student_output.actions,
-                    config.logging_percentiles)
-        metrics["rollout_batch/done_rate"] = rollout_data.done.float().mean()
-        metrics["rollout_batch/truncation_rate"] = rollout_data.truncated.float().mean()
-    if LoggingLevel.TRAINING_ENV_METRICS in config.logging_level:
-        for k, v in rollout_data.metrics.items():
+        metrics: dict[str, Any] = {}
+        for k, v in loss_metrics.items():
             _log_metric(metrics, k, v, config.logging_percentiles)
-    metrics["total_steps"] = total_steps
-    return (
-        ds.replace(
-            student_states=next_student_state,
-            teacher_states=next_teacher_state,
-            env_states=next_env_state,
-            steps_taken=total_steps,
-        ),
-        metrics,
-    )
+        if LoggingLevel.TRAIN_ROLLOUT_STATS in config.logging_level:
+            _log_metric(metrics, "rollout_batch/reward", rollout_data.rewards,
+                        config.logging_percentiles)
+            _log_metric(metrics, "rollout_batch/action", rollout_data.student_output.actions,
+                        config.logging_percentiles)
+            metrics["rollout_batch/done_rate"] = rollout_data.done.float().mean()
+            metrics["rollout_batch/truncation_rate"] = rollout_data.truncated.float().mean()
+        if LoggingLevel.TRAINING_ENV_METRICS in config.logging_level:
+            for k, v in rollout_data.metrics.items():
+                _log_metric(metrics, k, v, config.logging_percentiles)
+        metrics["total_steps"] = total_steps
+        return (
+            ds.replace(
+                student_states=next_student_state,
+                teacher_states=next_teacher_state,
+                env_states=next_env_state,
+                steps_taken=total_steps,
+            ),
+            metrics,
+        )
 
 
 def distillation_multi_step(
@@ -379,9 +383,10 @@ def train_distillation(
     ``config.eval.every_steps``. The teacher runs from a copy in eval
     mode on the run's device; ``student`` is copied, never trained in
     place. Pass ``res.training_state`` back as ``initial_state`` to
-    resume. Checkpointing (``checkpoint_fn``) and video
-    (``config.video.enabled`` or ``video_fn``) are not ported yet and
-    raise ``NotImplementedError``."""
+    resume, or a state restored by ``checkpointing.load_checkpoint`` to
+    resume exactly. Checkpoints and videos follow ``train_ppo``'s cadence
+    (``distillation.py:527-619``), the video of the student in eval mode;
+    a ``video_fn`` with video disabled is ignored."""
     if config is None:
         config = default_distillation_config()
     if total_steps is not None:
@@ -391,10 +396,6 @@ def train_distillation(
         )
     if seed is not None:
         config = dataclasses.replace(config, seed=seed)
-    if checkpoint_fn is not None:
-        raise NotImplementedError("checkpointing is not ported yet")
-    if config.video.enabled or video_fn is not None:
-        raise NotImplementedError("video recording is not ported yet")
     dcfg = config.distillation
     # JAX's ValueErrors for an unknown layout or store dtype, before any work.
     resolve_batch_major(dcfg, student)
@@ -431,10 +432,20 @@ def train_distillation(
     n_iterations = 0
     steps = state.steps_taken
     last_eval_step = -config.eval.every_steps
+    last_video_step = -config.video.every_steps
+    last_checkpoint_step = -config.checkpoint_every_steps
     if config.eval.enabled:
         metrics.update(run_eval(state.student))
         eval_history.append({"step": steps, **metrics})
         last_eval_step = steps
+    if config.video.enabled:
+        record_video(eval_env, state.student, config, video_fn, steps, n_iterations, run_device)
+        last_video_step = steps
+    if checkpoint_fn is not None and _should_run(
+        steps, last_checkpoint_step, config.checkpoint_every_steps
+    ):
+        checkpoint_fn(state, steps)
+        last_checkpoint_step = steps
     if log_fn is not None and metrics:
         log_fn(metrics, steps)
 
@@ -447,6 +458,15 @@ def train_distillation(
             metrics.update(eval_metrics)
             eval_history.append({"step": steps, **eval_metrics})
             last_eval_step = steps
+        if config.video.enabled and _should_run(steps, last_video_step, config.video.every_steps):
+            record_video(eval_env, state.student, config, video_fn, steps, n_iterations,
+                         run_device)
+            last_video_step = steps
+        if checkpoint_fn is not None and _should_run(
+            steps, last_checkpoint_step, config.checkpoint_every_steps
+        ):
+            checkpoint_fn(state, steps)
+            last_checkpoint_step = steps
         if log_fn is not None:
             log_fn(metrics, steps)
 

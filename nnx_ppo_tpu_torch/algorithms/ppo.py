@@ -46,16 +46,18 @@ import functools
 import time
 from typing import Any, Callable, Optional, Union
 
+import numpy as np
 import torch
+from torch.profiler import record_function
 
 from nnx_ppo_tpu_torch.algorithms import rollout
-from nnx_ppo_tpu_torch.algorithms.config import PPOConfig, TrainConfig, TrainResult
+from nnx_ppo_tpu_torch.algorithms.config import PPOConfig, TrainConfig, TrainResult, VideoData
 from nnx_ppo_tpu_torch.algorithms.metrics import compute_metrics, log_weight_stats
 from nnx_ppo_tpu_torch.algorithms.types import LoggingLevel, TrainingState, Transition
 from nnx_ppo_tpu_torch.core.device import resolve_device
 from nnx_ppo_tpu_torch.core.struct import tree_leaves, tree_map, tree_stack
 from nnx_ppo_tpu_torch.networks.types import StatefulModule, replay_sequence_nd, scan_replay
-from nnx_ppo_tpu_torch.ops.gae import gae_per_key
+from nnx_ppo_tpu_torch.ops.gae import gae, gae_per_key  # noqa: F401  (gae: exported here, as in JAX)
 from nnx_ppo_tpu_torch.parallel.permutation import minibatch_plan
 
 Schedule = Callable[[int], float]
@@ -88,6 +90,16 @@ class Optimizer:
             wd = 1e-4 if self.weight_decay is True else float(self.weight_decay)
             opt = torch.optim.AdamW(params, weight_decay=wd, **kwargs)
         opt.param_groups[0]["update_count"] = 0
+        # The state exists from init, as optax's does (count 0, zero
+        # moments), so a fresh optimizer has the structure of a stepped
+        # one and a checkpoint restores into it by name. Adam takes these
+        # as it would its own first-step state: the same bits.
+        for p in opt.param_groups[0]["params"]:
+            opt.state[p] = {
+                "step": torch.tensor(0.0),
+                "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
+                "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format),
+            }
         return opt
 
     def step(self, opt_state: torch.optim.Optimizer) -> None:
@@ -112,6 +124,10 @@ class Optimizer:
 def global_norm(tensors: list) -> torch.Tensor:
     """``optax.global_norm``: the L2 norm of all tensors together."""
     return torch.sqrt(sum(torch.sum(torch.square(t)) for t in tensors))
+
+
+def default_config() -> TrainConfig:
+    return TrainConfig()
 
 
 def make_optimizer(
@@ -312,30 +328,32 @@ def ppo_update(
     config resolves to. Minibatches come from ``generator`` unless
     ``selectors`` pins them (or ``config.shuffle_minibatches`` is off:
     then they are fixed contiguous env blocks). Returns the loss metrics
-    stacked over the updates (leading dim E·M)."""
-    batch_major = resolve_batch_major(config, networks)
-    view = ReplayMinibatch.from_rollout(rollout_data, batch_major, resolve_store_dtype(config))
+    stacked over the updates (leading dim E·M). Runs inside a profiler
+    range named ``ppo_update``."""
+    with record_function("ppo_update"):
+        batch_major = resolve_batch_major(config, networks)
+        view = ReplayMinibatch.from_rollout(rollout_data, batch_major, resolve_store_dtype(config))
 
-    def loss_fn(net_state_subset, minibatch):
-        return ppo_loss(
-            networks,
-            net_state_subset,
-            minibatch,
-            clip_range=config.clip_range,
-            normalize_advantages=config.normalize_advantages,
-            combine_advantages=config.combine_advantages,
-            discounting_factor=config.discounting_factor,
-            gae_lambda=config.gae_lambda,
-            critic_loss_weight=config.critic_loss_weight,
-            logging_level=config.logging_level,
-            fused_replay=config.fused_replay,
+        def loss_fn(net_state_subset, minibatch):
+            return ppo_loss(
+                networks,
+                net_state_subset,
+                minibatch,
+                clip_range=config.clip_range,
+                normalize_advantages=config.normalize_advantages,
+                combine_advantages=config.combine_advantages,
+                discounting_factor=config.discounting_factor,
+                gae_lambda=config.gae_lambda,
+                critic_loss_weight=config.critic_loss_weight,
+                logging_level=config.logging_level,
+                fused_replay=config.fused_replay,
+            )
+
+        return minibatch_updates(
+            networks, opt_state, network_states, view, loss_fn, config, optimizer,
+            batch_major=batch_major, generator=generator, selectors=selectors,
+            log_grad_norm=LoggingLevel.GRAD_NORM in config.logging_level,
         )
-
-    return minibatch_updates(
-        networks, opt_state, network_states, view, loss_fn, config, optimizer,
-        batch_major=batch_major, generator=generator, selectors=selectors,
-        log_grad_norm=LoggingLevel.GRAD_NORM in config.logging_level,
-    )
 
 
 def minibatch_updates(
@@ -394,51 +412,54 @@ def ppo_step(
     metrics -> ``update_statistics`` -> commit the next env/net carries.
 
     ``training_state.networks`` and ``.opt_state`` are updated in place;
-    the returned state holds the advanced carries and step count."""
-    ts = training_state
-    if ts.env_states.done.shape[0] != config.n_envs:
-        raise ValueError(
-            f"training state holds {ts.env_states.done.shape[0]} envs, "
-            f"config.n_envs is {config.n_envs}"
-        )
-    with torch.no_grad():
-        next_net_state, next_env_state, rollout_data = rollout.unroll_env(
-            env,
-            ts.env_states,
+    the returned state holds the advanced carries and step count. Runs
+    inside a profiler range named ``ppo_step`` (JAX's trace shows the
+    jitted function by that name)."""
+    with record_function("ppo_step"):
+        ts = training_state
+        if ts.env_states.done.shape[0] != config.n_envs:
+            raise ValueError(
+                f"training state holds {ts.env_states.done.shape[0]} envs, "
+                f"config.n_envs is {config.n_envs}"
+            )
+        with torch.no_grad():
+            next_net_state, next_env_state, rollout_data = rollout.unroll_env(
+                env,
+                ts.env_states,
+                ts.networks,
+                ts.network_states,
+                config.rollout_length,
+                ts.generator,
+            )
+        loss_metrics = ppo_update(
             ts.networks,
+            ts.opt_state,
             ts.network_states,
-            config.rollout_length,
-            ts.generator,
+            rollout_data,
+            config,
+            optimizer,
+            generator=ts.generator,
         )
-    loss_metrics = ppo_update(
-        ts.networks,
-        ts.opt_state,
-        ts.network_states,
-        rollout_data,
-        config,
-        optimizer,
-        generator=ts.generator,
-    )
-    total_steps = ts.steps_taken + config.rollout_length * config.n_envs
-    metrics = compute_metrics(
-        loss_metrics, rollout_data, config.logging_level, config.logging_percentiles
-    )
-    metrics["total_steps"] = total_steps
-    if LoggingLevel.WEIGHTS in config.logging_level:
-        log_weight_stats(metrics, ts.networks, config.logging_percentiles)
+        total_steps = ts.steps_taken + config.rollout_length * config.n_envs
+        metrics = compute_metrics(
+            loss_metrics, rollout_data, config.logging_level, config.logging_percentiles
+        )
+        metrics["total_steps"] = total_steps
+        if LoggingLevel.WEIGHTS in config.logging_level:
+            log_weight_stats(metrics, ts.networks, config.logging_percentiles)
 
-    # Fold rollout statistics only now, after the updates.
-    ts.networks.update_statistics(rollout_data.rollout_extras)
-    # Commit the env/net advance only now: the minibatches above replayed
-    # from the pre-rollout carries.
-    return (
-        ts.replace(
-            network_states=next_net_state,
-            env_states=next_env_state,
-            steps_taken=total_steps,
-        ),
-        metrics,
-    )
+        # Fold rollout statistics only now, after the updates.
+        ts.networks.update_statistics(rollout_data.rollout_extras)
+        # Commit the env/net advance only now: the minibatches above replayed
+        # from the pre-rollout carries.
+        return (
+            ts.replace(
+                network_states=next_net_state,
+                env_states=next_env_state,
+                steps_taken=total_steps,
+            ),
+            metrics,
+        )
 
 
 def ppo_multi_step(
@@ -583,6 +604,40 @@ def _to_host(v: Any) -> Any:
     return v.item() if torch.is_tensor(v) and v.ndim == 0 else v
 
 
+def record_video(
+    eval_env: Any,
+    net: StatefulModule,
+    config: Any,
+    video_fn: Optional[Callable[[VideoData], None]],
+    steps: int,
+    iteration: int,
+    device: torch.device,
+) -> bool:
+    """One video of both trainers (JAX ``ppo.py:862-886``,
+    ``distillation.py:551-570``): the render rollout of ``net`` in eval
+    mode on a generator seeded from ``(config.seed, iteration)``,
+    ``eval_env.render`` of the trajectory, and ``video_fn`` of the frames.
+    Returns False, with nothing done, when there is no ``video_fn`` or
+    the env has no ``render``."""
+    if video_fn is None or not hasattr(eval_env, "render"):
+        return False
+    generator = torch.Generator(device=device)
+    generator.manual_seed(rollout.render_seed(config.seed, iteration))
+    length = config.video.episode_length
+    net.eval()
+    try:
+        stacked, final, episode_reward = rollout.eval_rollout_for_render_scan(
+            eval_env, net, length, generator
+        )
+    finally:
+        net.train()
+    trajectory = rollout.unstack_trajectory(stacked, final, length)
+    frames = eval_env.render(trajectory, **config.video.render_kwargs_dict)
+    video_fn(VideoData(frames=np.stack(frames), step=steps,
+                       episode_reward=float(episode_reward), episode_length=length))
+    return True
+
+
 def train_ppo(
     env: Any,
     networks: StatefulModule,
@@ -598,12 +653,18 @@ def train_ppo(
     optimizer: Optional[Optimizer] = None,
     device: Union[str, torch.device] = "cuda",
 ) -> TrainResult:
-    """Train a PPO agent, with evaluation every ``config.eval.every_steps``.
+    """Train a PPO agent, with evaluation every ``config.eval.every_steps``
+    (JAX ``ppo.py:707-963``).
 
     ``networks`` is copied, never trained in place. Pass
-    ``res.training_state`` back as ``initial_state`` to resume.
-    Checkpointing (``checkpoint_fn``) and video (``config.video.enabled``
-    or ``video_fn``) are not ported yet and raise ``NotImplementedError``.
+    ``res.training_state`` back as ``initial_state`` to resume, or a state
+    restored by ``checkpointing.load_checkpoint`` to resume exactly.
+    ``checkpoint_fn(training_state, step)`` runs at step 0 and then every
+    ``config.checkpoint_every_steps``. With ``config.video.enabled``,
+    ``video_fn`` gets a :class:`VideoData` at step 0 and then every
+    ``config.video.every_steps`` (none without a ``video_fn`` or where the
+    eval env has no ``render``); ``video_fn`` alone, with video disabled,
+    is ignored, as in JAX.
     """
     if config is None:
         config = TrainConfig()
@@ -613,10 +674,6 @@ def train_ppo(
         )
     if seed is not None:
         config = dataclasses.replace(config, seed=seed)
-    if checkpoint_fn is not None:
-        raise NotImplementedError("checkpointing is not ported yet")
-    if config.video.enabled or video_fn is not None:
-        raise NotImplementedError("video recording is not ported yet")
     # JAX's ValueErrors for an unknown layout or store dtype, before any work.
     resolve_batch_major(config.ppo, networks)
     resolve_store_dtype(config.ppo)
@@ -670,15 +727,34 @@ def train_ppo(
             )
         return {k: _to_host(v) for k, v in eval_metrics.items()}
 
+    def run_video(net: StatefulModule, steps: int, iteration: int) -> dict[str, Any]:
+        t0 = time.perf_counter()
+        if not record_video(eval_env, net, config, video_fn, steps, iteration, run_device):
+            return {}
+        if measure_throughput:
+            return {"throughput/video_sps": config.video.episode_length
+                    / (time.perf_counter() - t0)}
+        return {}
+
     eval_history: list[dict[str, Any]] = []
     metrics: dict[str, Any] = {}
     n_iterations = 0
     steps = training_state.steps_taken
     last_eval_step = -config.eval.every_steps
+    last_video_step = -config.video.every_steps
+    last_checkpoint_step = -config.checkpoint_every_steps
     if config.eval.enabled:
         metrics.update(run_eval(training_state.networks))
         eval_history.append({"step": steps, **metrics})
         last_eval_step = steps
+    if config.video.enabled:
+        metrics.update(run_video(training_state.networks, steps, n_iterations))
+        last_video_step = steps
+    if checkpoint_fn is not None and _should_run(
+        steps, last_checkpoint_step, config.checkpoint_every_steps
+    ):
+        checkpoint_fn(training_state, steps)
+        last_checkpoint_step = steps
     if log_fn is not None and metrics:
         log_fn(metrics, steps)
 
@@ -707,6 +783,14 @@ def train_ppo(
             metrics.update(eval_metrics)
             eval_history.append({"step": steps, **eval_metrics})
             last_eval_step = steps
+        if config.video.enabled and _should_run(steps, last_video_step, config.video.every_steps):
+            metrics.update(run_video(training_state.networks, steps, n_iterations))
+            last_video_step = steps
+        if checkpoint_fn is not None and _should_run(
+            steps, last_checkpoint_step, config.checkpoint_every_steps
+        ):
+            checkpoint_fn(training_state, steps)
+            last_checkpoint_step = steps
         if log_fn is not None:
             log_fn(metrics, steps)
 

@@ -1,5 +1,7 @@
 """Rollouts. Port of ``nnx_ppo_tpu/algorithms/rollout.py``
-(``single_transition`` and ``unroll_env`` :24-87, ``eval_rollout`` :111).
+(``single_transition`` and ``unroll_env`` :24-87, ``eval_rollout`` :111,
+and the video's rollout: ``SlimData``, ``SlimState``, ``_slim``,
+``eval_rollout_for_render_scan`` and ``unstack_trajectory``, :166-286).
 
 Environments are batched natively, so one call steps all ``B`` envs. All
 draws (sampler noise, draws inside ``env.step``, env resets) come, in a
@@ -12,12 +14,14 @@ when they feed training: rollouts carry no gradient.
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
+from torch.profiler import record_function
 
 from nnx_ppo_tpu_torch.algorithms.types import Transition
-from nnx_ppo_tpu_torch.core.struct import tree_map, tree_stack, tree_where
+from nnx_ppo_tpu_torch.core.struct import tree_leaves, tree_map, tree_stack, tree_where
 from nnx_ppo_tpu_torch.networks.types import ModuleState, StatefulModule
 
 
@@ -64,13 +68,15 @@ def unroll_env(
     generator: torch.Generator,
 ) -> tuple[ModuleState, Any, Transition]:
     """Run :func:`single_transition` for ``unroll_length`` steps and
-    stack the transitions time-major ``[T, B, ...]``."""
-    carry = (network_state, env_state)
-    transitions = []
-    for _ in range(unroll_length):
-        carry, transition = single_transition(env, networks, carry, generator)
-        transitions.append(transition)
-    rollout = tree_stack(transitions)
+    stack the transitions time-major ``[T, B, ...]``. Runs inside a
+    profiler range named ``unroll_env``."""
+    with record_function("unroll_env"):
+        carry = (network_state, env_state)
+        transitions = []
+        for _ in range(unroll_length):
+            carry, transition = single_transition(env, networks, carry, generator)
+            transitions.append(transition)
+        rollout = tree_stack(transitions)
     value_shapes = tree_map(lambda v: v.shape, rollout.network_output.value_estimates)
     reward_shapes = tree_map(lambda r: r.shape, rollout.rewards)
     if value_shapes != reward_shapes:
@@ -137,3 +143,105 @@ def eval_rollout(
         for pl, p in zip(logging_percentiles, torch.quantile(lifespan, q / 100.0)):
             metrics[f"lifespan/p{int(pl)}"] = p
     return metrics
+
+
+class SlimData(NamedTuple):
+    """Minimal physics-data fields needed for rendering."""
+
+    qpos: Any
+    qvel: Any
+    time: Any
+    mocap_pos: Any
+    mocap_quat: Any
+    xfrc_applied: Any
+
+
+class SlimState(NamedTuple):
+    """Minimal env state for rendering: the render rollout stacks only
+    these over T."""
+
+    data: Any
+    done: Any
+    info: Any
+    metrics: Any
+
+
+def _slim(env_state: Any) -> SlimState:
+    """The render-relevant fields of a batched env state: the slim field
+    subset of MuJoCo-style ``data`` (an object with ``qpos``; fields it
+    lacks are zeros ``[B]``), the observation where there is no ``data``,
+    else ``data`` as it is (the analytic and rigid-body envs' dicts)."""
+    data = getattr(env_state, "data", None)
+    if data is not None and hasattr(data, "qpos"):
+        zeros = torch.zeros(data.qpos.shape[:1], device=data.qpos.device)
+        data = SlimData(
+            qpos=data.qpos,
+            qvel=data.qvel,
+            time=getattr(data, "time", zeros),
+            mocap_pos=getattr(data, "mocap_pos", zeros),
+            mocap_quat=getattr(data, "mocap_quat", zeros),
+            xfrc_applied=getattr(data, "xfrc_applied", zeros),
+        )
+    elif data is None:
+        data = env_state.obs
+    return SlimState(data=data, done=env_state.done, info=env_state.info,
+                     metrics=env_state.metrics)
+
+
+@torch.no_grad()
+def eval_rollout_for_render_scan(
+    env: Any,
+    networks: StatefulModule,
+    max_episode_length: int,
+    generator: torch.Generator,
+) -> tuple[SlimState, SlimState, torch.Tensor]:
+    """One env (``env.reset(1, generator)``) for ``max_episode_length``
+    steps, collecting a :class:`SlimState` per step for rendering on the
+    host. Call it with the networks in eval mode, as the trainers do. A
+    done env and its carry are reset in place, as JAX's ``where`` does;
+    the reward adds up until the first ``done``.
+
+    Returns ``(stacked_states [T], final_state, total_reward)`` on the
+    host, without the env axis: the per-step states are stacked on the
+    device and copied to the host once, a copy per leaf, not one per
+    frame. JAX's render key is ``fold_in(key(seed), iteration)``; the
+    trainers seed ``generator`` from ``(seed, iteration)``
+    (:func:`render_seed`), so the draws differ from JAX's threefry ones."""
+    env_state = env.reset(1, generator)
+    net_state = networks.initialize_state(1)
+    device = env_state.done.device
+    total_reward = torch.zeros((), device=device)
+    already_done = torch.zeros((), dtype=torch.bool, device=device)
+    slims = []
+    for _ in range(max_episode_length):
+        out = networks(net_state, env_state.obs, None, generator)
+        next_env_state = env.step(env_state, out.output.actions, generator)
+        reward_sum = sum(tree_leaves(next_env_state.reward))[0]
+        total_reward = total_reward + torch.where(already_done, 0.0, reward_sum)
+        done = next_env_state.done != 0
+        already_done = already_done | done[0]
+        reset_env_state = env.reset(1, generator)
+        next_env_state = tree_where(done, reset_env_state, next_env_state)
+        net_state = tree_where(done, networks.reset_state(out.next_state), out.next_state)
+        slims.append(_slim(env_state))
+        env_state = next_env_state
+    slims.append(_slim(env_state))
+    host = tree_map(lambda x: x[:, 0].cpu(), tree_stack(slims))
+    stacked = tree_map(lambda x: x[:-1], host)
+    final = tree_map(lambda x: x[-1], host)
+    return stacked, final, total_reward.cpu()
+
+
+def unstack_trajectory(stacked_states: Any, final_state: Any, max_episode_length: int) -> list:
+    """The stacked render rollout as a per-step list for ``env.render``:
+    ``max_episode_length`` states, then the final one."""
+    trajectory = [tree_map(lambda x, i=i: x[i], stacked_states) for i in range(max_episode_length)]
+    trajectory.append(final_state)
+    return trajectory
+
+
+def render_seed(seed: int, iteration: int) -> int:
+    """The video generator's seed for a run's ``seed`` and ``iteration``,
+    the port's counterpart of JAX's ``fold_in(key(seed), iteration)``:
+    the two integers mixed by numpy's ``SeedSequence``."""
+    return int(np.random.SeedSequence([seed, iteration]).generate_state(1, np.uint64)[0] >> 1)

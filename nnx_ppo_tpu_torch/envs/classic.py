@@ -10,7 +10,8 @@ theta, sin theta, x_dot, theta_dot]``, smooth reward in [0, 1],
 termination at ``|x| > 2.4`` (and, for the balance task, ``|theta| >
 angle_limit = 0.8``). The pendulum's state is ``q = (theta,
 theta_dot)``, 3-D observation ``[cos theta, sin theta, theta_dot]``, no
-termination. ``done`` is float32. Each env draws only in ``reset``:
+termination. ``done`` is float32. The cart-pole tasks ``render`` a
+trajectory on the host with numpy (JAX ``classic.py:97-130``). Each env draws only in ``reset``:
 ``_draw_reset`` draws and ``_reset_from`` builds the state, so that a
 test can inject another package's draws; ``step`` ignores its generator.
 """
@@ -20,6 +21,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from nnx_ppo_tpu_torch.envs.types import State
@@ -99,6 +101,35 @@ class _Cartpole:
         # The cart-pole draws nothing in step; the generator is ignored.
         del generator
         return self._state(self._physics(state.data["q"], action))
+
+    def render(self, trajectory, height: int = 240, width: int = 320) -> list:
+        """Rasterize a trajectory of (Slim)States, one env each, into HWC
+        uint8 frames: the track, the cart and the pole, sampled along its
+        length."""
+        frames = []
+        scale = width / (2 * self.x_limit + 1.0)
+        pole_len = 2 * self.pole_half_length * scale
+        cart_y = int(height * 0.7)
+        for slim in trajectory:
+            q = np.asarray(slim.data["q"])
+            x, theta = float(q[0]), float(q[1])
+            frame = np.full((height, width, 3), 255, np.uint8)
+            frame[cart_y + 3, :, :] = 120  # track
+            cx = int(width / 2 + x * scale)
+            frame[
+                max(cart_y - 8, 0) : cart_y + 3,
+                max(cx - 14, 0) : min(cx + 14, width),
+                :,
+            ] = (40, 40, 200)
+            # Pole: sample points along its length.
+            tip_dx, tip_dy = np.sin(theta) * pole_len, np.cos(theta) * pole_len
+            for t in np.linspace(0.0, 1.0, int(pole_len) * 2):
+                px = int(cx + t * tip_dx)
+                py = int(cart_y - 8 - t * tip_dy)
+                if 0 <= px < width - 1 and 0 <= py < height - 1:
+                    frame[py : py + 2, px : px + 2, :] = (200, 60, 40)
+            frames.append(frame)
+        return frames
 
 
 class CartpoleBalance(_Cartpole):

@@ -41,8 +41,9 @@ device ``torch.Generator``, and every draw sits behind one small method
 per phase (``_draw_reset``, ``_draw_push``, ``_draw_resample``,
 ``_draw_obs_noise``), so that a test can inject another package's draws.
 
-Not ported yet (each raises ``NotImplementedError``): ``render`` and
-``depthwise=True``.
+``render`` rasterizes a trajectory on the host with numpy (JAX
+``legged.py:583-660``). Not ported yet: ``depthwise=True`` raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ import numpy as np
 import torch
 
 from nnx_ppo_tpu_torch.core.device import DeviceConstants
+from nnx_ppo_tpu_torch.envs.raster import body_frames, draw_line
 from nnx_ppo_tpu_torch.envs.types import State
 from nnx_ppo_tpu_torch.physics import soa
 from nnx_ppo_tpu_torch.physics.cuda_step import make_control_step_runner, make_substep_runner
@@ -510,10 +512,59 @@ class LeggedJoystick(DeviceConstants):
             },
         )
 
-    def render(self, trajectory, height: int = 240, width: int = 320):
-        """Rasterize a trajectory into frames
-        (``nnx_ppo_tpu/envs/legged.py:583``). Not ported yet."""
-        raise NotImplementedError("LeggedJoystick.render is not ported yet")
+    def render(self, trajectory, height: int = 240, width: int = 320) -> list:
+        """Rasterize a trajectory of (Slim)States, one env each, into HWC
+        uint8 frames (JAX ``legged.py:583-660``): side view, the camera
+        tracking the trunk; the flat ground line or the terrain's profile
+        along the camera plane, the bones, the contact geoms and a trunk
+        marker. The kinematics come from each frame's ``qpos``, all frames
+        in one ``fwd_kinematics`` call."""
+        model = self.model
+        frames = []
+        scale = height / 1.6  # ~1.6 m vertical field of view
+        ground_y = int(height * 0.92)
+        ps_all, Es_all = body_frames(model, [slim.data["qpos"] for slim in trajectory])
+        for ps, Es in zip(ps_all, Es_all):
+            cam_x = ps[0][0]
+
+            def to_px(x, z):
+                return (
+                    int(width / 2 + (x - cam_x) * scale),
+                    int(ground_y - z * scale),
+                )
+
+            frame = np.full((height, width, 3), 255, np.uint8)
+            if self.terrain is None:
+                frame[ground_y : ground_y + 2, :, :] = 110
+            else:
+                # Terrain profile along the camera plane (y = trunk y).
+                trunk_y = float(ps[0][1])
+                wxs = (cam_x + (np.arange(width) - width / 2) / scale).astype(np.float32)
+                xy = np.stack([wxs, np.full(width, trunk_y, np.float32)], axis=-1)
+                hs = self.terrain.height(torch.from_numpy(xy)).numpy()
+                pys = (ground_y - hs * scale).astype(int)
+                for px in range(width):
+                    py = pys[px]
+                    if 0 <= py < height - 2:
+                        frame[py : py + 2, px, :] = 110
+            for i in range(1, model.n_bodies):
+                a = ps[model.parent[i]]
+                b = ps[i]
+                draw_line(frame, to_px(a[0], a[2]), to_px(b[0], b[2]), (60, 60, 60))
+            for g, bidx in enumerate(model.geom_body):
+                x = ps[bidx] + Es[bidx] @ np.asarray(model.geom_offset[g], np.float32)
+                px, py = to_px(x[0], x[2])
+                r = max(int(model.geom_radius[g] * scale), 2)
+                y0, y1 = max(py - r, 0), min(py + r, height)
+                x0, x1 = max(px - r, 0), min(px + r, width)
+                if y0 < y1 and x0 < x1:
+                    frame[y0:y1, x0:x1, :] = (200, 80, 40)
+            # Trunk marker.
+            px, py = to_px(ps[0][0], ps[0][2])
+            if 0 <= px < width - 4 and 0 <= py < height - 4:
+                frame[py : py + 4, px : px + 4, :] = (40, 40, 200)
+            frames.append(frame)
+        return frames
 
     # -- protocol ------------------------------------------------------------
 

@@ -14,13 +14,17 @@ tensors: ``reset(batch_size, generator)`` and ``step(state, action)``
 (the generator is accepted and unused). Subclasses override the task
 hooks ``_obs`` / ``_reward`` / ``_done`` on batched data; the reset draws
 sit behind ``_draw_reset`` so that a test can inject another package's
-draws through ``_reset_from``. ``render`` is not ported yet.
+draws through ``_reset_from``. ``render`` draws a trajectory with
+MuJoCo's own renderer (JAX ``mjx.py:159-175``); it needs an OpenGL
+context, and where MuJoCo can make none it raises, as JAX's does. It is
+not verified.
 """
 
 from __future__ import annotations
 
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from nnx_ppo_tpu_torch.envs.mjc_backend import MJC_AVAILABLE, MJCBackend, mujoco
@@ -129,10 +133,25 @@ class MJXEnv:
         data = self._mjc.step(data, n_substeps=self.n_substeps)
         return self._state(data, action)
 
-    def render(self, trajectory: list, width: int = 320, height: int = 240):
-        """Render a trajectory with MuJoCo's renderer
-        (``nnx_ppo_tpu/envs/mjx.py:156``). Not ported yet."""
-        raise NotImplementedError("MJXEnv.render is not ported yet")
+    def render(self, trajectory: list, width: int = 320, height: int = 240) -> list:
+        """Render a trajectory of SlimStates, one env each, with
+        ``mujoco.Renderer`` (JAX ``mjx.py:159-175``): each frame's
+        ``qpos`` / ``qvel``, ``mj_forward``, then the scene. Not verified:
+        the renderer needs an OpenGL context (``MUJOCO_GL``), and where
+        none can be made it raises, as JAX's does."""
+        renderer = mujoco.Renderer(self._mj_model, height=height, width=width)
+        mj_data = mujoco.MjData(self._mj_model)
+        frames = []
+        try:
+            for slim in trajectory:
+                mj_data.qpos[:] = np.asarray(slim.data.qpos)
+                mj_data.qvel[:] = np.asarray(slim.data.qvel)
+                mujoco.mj_forward(self._mj_model, mj_data)
+                renderer.update_scene(mj_data)
+                frames.append(renderer.render())
+        finally:
+            renderer.close()
+        return frames
 
 
 _CARTPOLE_XML = """

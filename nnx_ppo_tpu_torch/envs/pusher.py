@@ -18,20 +18,23 @@ Randomness: ``reset`` takes the caller's device ``torch.Generator``; every
 draw sits behind ``_draw_reset`` so that a test can inject another
 package's draws through ``_reset_from``. ``step`` draws nothing.
 
-Not ported yet: ``render`` raises ``NotImplementedError``.
+``render`` rasterizes a trajectory on the host with numpy (JAX
+``pusher.py:163``).
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
+from nnx_ppo_tpu_torch.envs.raster import body_frames, draw_line
 from nnx_ppo_tpu_torch.envs.reacher import end_effector_position
 from nnx_ppo_tpu_torch.envs.types import State
 from nnx_ppo_tpu_torch.physics.cuda_scene_step import make_scene_control_step_runner
 from nnx_ppo_tpu_torch.physics.model import FREE, Model, ModelBuilder
-from nnx_ppo_tpu_torch.physics.models.arm import make_arm
+from nnx_ppo_tpu_torch.physics.models.arm import EE_OFFSET, make_arm
 from nnx_ppo_tpu_torch.physics.scene import Scene, scene_step
 from nnx_ppo_tpu_torch.physics.spatial import quat_integrate
 
@@ -180,10 +183,50 @@ class ArmPush:
             metrics={"ball_to_target": d_bt, "ee_to_ball": d_eb},
         )
 
-    def render(self, trajectory, height: int = 240, width: int = 320):
-        """Rasterize a trajectory into frames
-        (``nnx_ppo_tpu/envs/pusher.py:163``). Not ported yet."""
-        raise NotImplementedError("ArmPush.render is not ported yet")
+    def render(self, trajectory, height: int = 240, width: int = 320) -> list:
+        """Rasterize a trajectory of (Slim)States, one env each, into HWC
+        uint8 frames (JAX ``pusher.py:163-235``): top-down view centred on
+        the arm's base; the arm's segments projected to the ground plane,
+        the end effector, the ball (a disk, to scale) and the target as a
+        crosshair."""
+        scale = min(height, width) / 1.8  # ~0.9 m half-extent
+        cx, cy = width // 2, height // 2
+
+        def to_px(x, y):
+            # World xy -> screen: x right, y up.
+            return int(cx + x * scale), int(cy - y * scale)
+
+        arm = self.scene.models[0]
+        frames = []
+        ps_all, Es_all = body_frames(arm, [slim.data["arm_qpos"] for slim in trajectory])
+        for slim, ps, Es in zip(trajectory, ps_all, Es_all):
+            elbow = ps[1]
+            tip = ps[1] + Es[1] @ np.asarray(EE_OFFSET, np.float32)
+            ball = np.asarray(slim.data["ball_qpos"])[0:3]
+            target = np.asarray(slim.data["target"])
+
+            frame = np.full((height, width, 3), 255, np.uint8)
+            # Base mark.
+            frame[cy - 2 : cy + 3, cx - 2 : cx + 3, :] = (40, 40, 40)
+            draw_line(frame, to_px(0.0, 0.0), to_px(elbow[0], elbow[1]), (60, 60, 60))
+            draw_line(frame, to_px(elbow[0], elbow[1]), to_px(tip[0], tip[1]), (60, 60, 60))
+            px, py = to_px(tip[0], tip[1])
+            if 0 <= px < width - 4 and 0 <= py < height - 4:
+                frame[py : py + 4, px : px + 4, :] = (200, 80, 40)
+            # Ball, drawn to scale.
+            bx, by = to_px(ball[0], ball[1])
+            r = max(int(BALL_RADIUS * scale), 2)
+            yy, xx = np.ogrid[-r : r + 1, -r : r + 1]
+            for dy_i, dx_i in zip(*np.nonzero(yy * yy + xx * xx <= r * r)):
+                yq, xq = by - r + dy_i, bx - r + dx_i
+                if 0 <= yq < height and 0 <= xq < width:
+                    frame[yq, xq, :] = (80, 140, 60)
+            # Target crosshair.
+            tx, ty = to_px(target[0], target[1])
+            draw_line(frame, (tx - 5, ty), (tx + 5, ty), (40, 40, 200))
+            draw_line(frame, (tx, ty - 5), (tx, ty + 5), (40, 40, 200))
+            frames.append(frame)
+        return frames
 
     # -- protocol ------------------------------------------------------------
 

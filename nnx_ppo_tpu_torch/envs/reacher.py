@@ -15,13 +15,16 @@ Randomness: ``reset`` takes the caller's device ``torch.Generator``; every
 draw sits behind ``_draw_reset`` so that a test can inject another
 package's draws through ``_reset_from``. ``step`` draws nothing.
 
-Not ported yet: ``render`` raises ``NotImplementedError``.
+``render`` rasterizes a trajectory on the host with numpy (JAX
+``reacher.py:130``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from nnx_ppo_tpu_torch.envs.raster import body_frames, draw_line
 from nnx_ppo_tpu_torch.envs.types import State
 from nnx_ppo_tpu_torch.physics.cuda_scene_step import make_scene_control_step_runner
 from nnx_ppo_tpu_torch.physics.engine import fwd_kinematics, step
@@ -140,10 +143,40 @@ class ArmReacher:
             metrics={"ee_distance": dist},
         )
 
-    def render(self, trajectory, height: int = 240, width: int = 320):
-        """Rasterize a trajectory into frames
-        (``nnx_ppo_tpu/envs/reacher.py:130``). Not ported yet."""
-        raise NotImplementedError("ArmReacher.render is not ported yet")
+    def render(self, trajectory, height: int = 240, width: int = 320) -> list:
+        """Rasterize a trajectory of (Slim)States, one env each, into HWC
+        uint8 frames (JAX ``reacher.py:130-185``): side view, the camera
+        fixed at the shoulder; the arm's segments, the end effector and
+        the episode's target as a crosshair."""
+        scale = height / 1.6
+        cx, cy = width // 2, height // 2
+
+        def to_px(x, z):
+            # Shoulder-relative coords; x right, z up.
+            return int(cx + x * scale), int(cy - z * scale)
+
+        frames = []
+        anchor = np.array([0.0, 0.0, SHOULDER_HEIGHT], np.float32)
+        ps_all, Es_all = body_frames(self.model, [slim.data["qpos"] for slim in trajectory])
+        for slim, ps, Es in zip(trajectory, ps_all - anchor, Es_all):
+            target = np.asarray(slim.data["target"])
+            elbow = ps[1]
+            tip = ps[1] + Es[1] @ np.asarray(EE_OFFSET, np.float32)
+
+            frame = np.full((height, width, 3), 255, np.uint8)
+            # Pedestal mark at the shoulder.
+            frame[cy - 2 : cy + 3, cx - 2 : cx + 3, :] = (40, 40, 40)
+            draw_line(frame, to_px(0.0, 0.0), to_px(elbow[0], elbow[2]), (60, 60, 60))
+            draw_line(frame, to_px(elbow[0], elbow[2]), to_px(tip[0], tip[2]), (60, 60, 60))
+            px, py = to_px(tip[0], tip[2])
+            if 0 <= px < width - 4 and 0 <= py < height - 4:
+                frame[py : py + 4, px : px + 4, :] = (200, 80, 40)
+            # Target crosshair.
+            tx, ty = to_px(target[0], target[2])
+            draw_line(frame, (tx - 5, ty), (tx + 5, ty), (40, 40, 200))
+            draw_line(frame, (tx, ty - 5), (tx, ty + 5), (40, 40, 200))
+            frames.append(frame)
+        return frames
 
     # -- protocol ------------------------------------------------------------
 

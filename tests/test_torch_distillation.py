@@ -289,12 +289,14 @@ def test_train_distillation_full_loop():
     assert teacher.training is False  # the caller's teacher is left as it was
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(checkpoint_fn=lambda state, step: None),
-    dict(video_fn=lambda video: None),
-    dict(config=DistillationTrainConfig(video=VideoConfig(enabled=True))),
-], ids=["checkpoint_fn", "video_fn", "video_enabled"])
-def test_unported_options_raise(kwargs):
+def test_video_fn_is_ignored_while_video_is_off():
+    """As in JAX: a ``video_fn`` with ``config.video.enabled`` False is
+    never called (and no longer refused)."""
     env, teacher, student = _move_to_center()
-    with pytest.raises(NotImplementedError):
-        train_distillation(env, teacher, student, device="cpu", **kwargs)
+    videos = []
+    cfg = DistillationTrainConfig(
+        distillation=DistillationConfig(n_envs=8, rollout_length=4, total_steps=32),
+        eval=EvalConfig(enabled=False),
+    )
+    res = train_distillation(env, teacher, student, cfg, video_fn=videos.append, device="cpu")
+    assert res.total_steps == 32 and videos == []

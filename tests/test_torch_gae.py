@@ -6,6 +6,8 @@ uses between the JAX implementations themselves (a T-long recurrence in
 float32 rounds differently when XLA reorders or fuses the products).
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,8 +15,10 @@ import torch
 
 from nnx_ppo_tpu.ops.gae import gae_pallas as jax_gae_pallas
 from nnx_ppo_tpu.ops.gae import gae_scan as jax_gae_scan
-from nnx_ppo_tpu_torch.ops import gae as gae_mod
 from nnx_ppo_tpu_torch.ops.gae import gae, gae_cuda, gae_scan
+
+# The module (``nnx_ppo_tpu_torch.ops.gae`` is the function, as in JAX).
+gae_mod = importlib.import_module("nnx_ppo_tpu_torch.ops.gae")
 
 torch.set_num_threads(1)
 

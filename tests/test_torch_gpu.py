@@ -5,6 +5,7 @@ machine that has only PyTorch:
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 """
 
+import importlib
 import numpy as np
 import pytest
 import torch
@@ -13,7 +14,6 @@ from nnx_ppo_tpu_torch.algorithms import PPOConfig, make_optimizer, new_training
 from nnx_ppo_tpu_torch.envs import CartpoleBalance
 from nnx_ppo_tpu_torch.networks import make_mlp_actor_critic
 from nnx_ppo_tpu_torch.ops import cuda_build
-from nnx_ppo_tpu_torch.ops import gae as gae_module
 from nnx_ppo_tpu_torch.ops.gae import gae, gae_cuda, gae_per_key, gae_scan
 from nnx_ppo_tpu_torch.envs import ArmPush, ArmReacher, HumanoidJoystick, QuadrupedJoystick
 from nnx_ppo_tpu_torch.envs.pusher import SHOULDER_HEIGHT as PUSHER_SHOULDER_HEIGHT
@@ -46,6 +46,9 @@ from nnx_ppo_tpu_torch.physics.testing import (
     standing_states,
 )
 from nnx_ppo_tpu_torch.wrappers import EpisodeWrapper
+
+# The module (``nnx_ppo_tpu_torch.ops.gae`` is the function, as in JAX).
+gae_module = importlib.import_module("nnx_ppo_tpu_torch.ops.gae")
 
 
 @pytest.fixture
@@ -926,3 +929,98 @@ def test_generic_env_steps_on_the_card_launch_no_physics_kernel(cuda, kind):
         if isinstance(value, torch.Tensor):
             atol = 2e-3 if "qvel" in key else 2e-4
             torch.testing.assert_close(on_card.data[key].cpu(), value, rtol=0, atol=atol, msg=key)
+
+
+def _one_env_case(kind, device):
+    """(kernel call, plain call, launch counters) of one kernel at a batch
+    of one env, the batch of the video's render rollout: a lane-group
+    block with one env and 7 (control step, 8 envs per 128 threads) or 15
+    (scene, 16 per 64) empty env slots, whose lanes still reach every
+    barrier."""
+    if kind.startswith("control_step"):
+        plan, args = control_step_case("exact_full_ragged_1001" if kind.endswith("exact")
+                                       else "held_full_ragged_33", device)
+        args = [a[:1].contiguous() for a in args]
+        return lambda: plan(*args), lambda: plan.plain(*args), (control_step_cuda,)
+    if kind in ("plane_sampler", "control_step_on_planes"):
+        model = make_quadruped()
+        grid = HeightGrid.sample(rough_terrain(**ROUGH), extent=12.0, n=256)
+        arrays = standing_states(model, default_qpos(model), 1, seed=5,
+                                 terrain=rough_terrain(**ROUGH))
+        args = [torch.tensor(arrays[k], device=device) for k in ("qpos", "qvel", "target")]
+        plan = ControlStepPlan(model, 60.0, 0.002, 10, terrain=grid)
+        if kind == "plane_sampler":
+            return (lambda: (plan.sample_planes_cuda(args[0]),),
+                    lambda: (plane_sampler_plain(model, grid, args[0]),), (plane_sampler_cuda,))
+        run = make_control_step_runner(model, 60.0, 0.002, 10, terrain=grid)
+        return (lambda: run(*args), lambda: run.plain(*args),
+                (plane_sampler_cuda, control_step_cuda))
+    if kind == "substeps":
+        model = make_quadruped()
+        arrays = standing_states(model, default_qpos(model), 1, seed=3)
+        qpos, qvel, target = (torch.tensor(arrays[k], device=device)
+                              for k in ("qpos", "qvel", "target"))
+        chol = mass_matrix_factor(model, qpos, dt=0.002)
+        run = make_substep_runner(model, 60.0, 0.002, 10, substeps_per_kernel=-1)
+        return (lambda: run(qpos, qvel, target, chol),
+                lambda: substeps_plain(model, qpos, qvel, target, chol, 60.0, 0.002, 10),
+                (substeps_cuda,))
+    run, args = scene_case("pusher_ragged_33" if kind == "scene_pusher" else "reacher_4096",
+                           device)
+    args = [a[:1].contiguous() for a in args]
+    return lambda: run(*args), lambda: run.plain(*args), (scene_step_cuda,)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["control_step_held", "control_step_exact",
+                                  "control_step_on_planes", "plane_sampler", "substeps",
+                                  "scene_pusher", "scene_reacher"])
+def test_kernels_at_one_env_match_plain_version(cuda, kind):
+    """Each physics kernel launched for one env equals its plain version
+    to the bit, as at 33 envs and more: the empty env slots of its block
+    write nothing and leave no barrier short."""
+    run, plain, counters = _one_env_case(kind, cuda)
+    before = [c.launches for c in counters]
+    got = run()
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [b + 1 for b in before]
+    want = plain()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape[0] == 1 and torch.isfinite(g).all()
+        assert torch.equal(g, w), f"max abs error {(g - w).abs().max().item():.3g}"
+
+
+@pytest.mark.gpu
+def test_a_resumed_run_on_the_card_follows_the_uninterrupted_one(cuda, tmp_path):
+    """train_ppo on the card, 4 iterations, against 2, a checkpoint, a
+    load into a fresh template and 2 more: equal to the bit where two
+    uninterrupted runs are (else no further apart than they are from
+    each other)."""
+    from nnx_ppo_tpu_torch.algorithms import (
+        EvalConfig, TrainConfig, load_checkpoint, make_checkpoint_fn, train_ppo,
+    )
+
+    env = EpisodeWrapper(CartpoleBalance(), 50)
+    net = make_mlp_actor_critic(5, 1, [32, 32], [64], 0, normalize_obs=True)
+    ppo = PPOConfig(n_envs=64, rollout_length=8, n_epochs=2, n_minibatches=4, anneal_lr=True,
+                    total_steps=4 * 64 * 8)
+    cfg = TrainConfig(ppo=ppo, eval=EvalConfig(enabled=False), checkpoint_every_steps=2 * 64 * 8)
+    runs = [train_ppo(env, net, cfg, device="cuda",
+                      checkpoint_fn=make_checkpoint_fn(str(tmp_path / f"run{i}")))
+            for i in range(2)]
+    template = new_training_state(env, net, 64, seed=7, device="cuda")
+    restored = load_checkpoint(str(tmp_path / "run0" / f"step_{2 * 64 * 8:010d}"), template)
+    resumed = train_ppo(env, net, cfg, initial_state=restored["training_state"], device="cuda")
+
+    def leaves(res):
+        ts = res.training_state
+        return [ts.networks.state_dict()[k] for k in ts.networks.state_dict()] + [
+            ts.env_states.obs, ts.generator.get_state()]
+
+    a, b, r = (leaves(x) for x in (*runs, resumed))
+    spread = max((x.double() - y.double()).abs().max().item() for x, y in zip(a, b))
+    gap = max((x.double() - y.double()).abs().max().item() for x, y in zip(a, r))
+    assert gap <= spread, (gap, spread)
+    if spread == 0:
+        assert all(torch.equal(x, y) for x, y in zip(a, r))

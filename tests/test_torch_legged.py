@@ -280,9 +280,8 @@ def test_exact_mode_is_the_default_and_differs_from_held():
         # JAX's does).
         (lambda: QuadrupedJoystick(terrain=object(), substep_impl="pallas"), ValueError,
          "HeightGrid"),
-        (lambda: QuadrupedJoystick().render([]), NotImplementedError, "render"),
     ],
-    ids=["mjcf", "depthwise", "grid_terrain", "render"],
+    ids=["mjcf", "depthwise", "grid_terrain"],
 )
 def test_left_features_raise_not_implemented(build, error, match):
     with pytest.raises(error, match=match):

@@ -211,12 +211,6 @@ def test_envs_step_through_the_scene_runner_only():
         ArmPush(substep_impl="warp")
 
 
-@pytest.mark.parametrize("cls", [ArmReacher, ArmPush], ids=["reacher", "pusher"])
-def test_render_is_not_ported(cls):
-    with pytest.raises(NotImplementedError, match="render is not ported"):
-        cls(n_substeps=N_SUBSTEPS).render([])
-
-
 # -- the slice as a whole ------------------------------------------------------------
 
 

@@ -157,8 +157,6 @@ def test_impl_values():
         MJXCartpoleBalance(impl="mjx")
     with pytest.raises(ValueError, match="impl must be"):
         MJXCartpoleBalance(impl="warp")
-    with pytest.raises(NotImplementedError, match="render"):
-        MJXCartpoleBalance().render([])
 
 
 def test_the_port_imports_without_mujoco():

@@ -282,16 +282,15 @@ def test_train_ppo_cpu_smoke():
     assert res2.total_steps == 6 * N_ENVS * T
 
 
-@pytest.mark.parametrize(
-    "kwargs",
-    [
-        dict(checkpoint_fn=lambda ts, s: None),
-        dict(config=TrainConfig(video=dataclasses.replace(TrainConfig().video, enabled=True))),
-    ],
-)
-def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError):
-        train_ppo(_port_env(), make_mlp_actor_critic(5, 1, ACTOR, CRITIC, 0), device="cpu", **kwargs)
+def test_video_fn_is_ignored_while_video_is_off():
+    """As in JAX: a ``video_fn`` with ``config.video.enabled`` False is
+    never called (and no longer refused)."""
+    videos = []
+    config = TrainConfig(ppo=PPOConfig(n_envs=4, rollout_length=2, total_steps=16),
+                         eval=EvalConfig(enabled=False))
+    res = train_ppo(_port_env(), make_mlp_actor_critic(5, 1, ACTOR, CRITIC, 0), config,
+                    video_fn=videos.append, device="cpu")
+    assert res.total_steps == 16 and videos == []
 
 
 def test_cuda_device_raises_without_a_gpu(monkeypatch):
