@@ -69,9 +69,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    2048 envs, T=20; the control step at the imported model's sizes) and
    quadruped_2048_fastM_generic (QuadrupedJoystick on the generic engine,
    substep_impl="xla", depthwise=False, held factor: eager PyTorch, no
-   physics kernel; one checked and one timed step), each with one more
-   ppo_step under the profiler for its device kernels, busy time and idle
-   share. Every path prints the replay layout its config resolves to
+   physics kernel; one checked and one timed step), and
+   quadruped_2048_fastM_xla (the same on the depth-wise engine, which
+   depthwise=None takes: the explicit inverse held per control step; one
+   checked and two timed steps), each with one more ppo_step under the
+   profiler for its device kernels, busy time and idle share, the
+   depth-wise path's printed beside the generic one's. Every path prints the replay layout its config resolves to
    ("auto": batch-major for a fully replay-time-static network, as the
    JAX package resolves it);
 5. reference: for the flagship, the physics leg, the pusher, both
@@ -99,7 +102,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    qpos 2e-5 / qvel 2e-4 / normals 1e-4: the JAX package's tolerances
    for the same checks), each beside what a generic step of one substep
    fewer reads, and the generic engine's forward dynamics on the card
-   against the CPU on trees with slide and ball joints;
+   against the CPU on trees with slide and ball joints; and
+   forward_dynamics_dw against the generic engine on the card at 2048
+   envs of the quadruped and of the humanoid (qacc and normals as shares
+   of the JAX package's rtol 2e-4 / atol 2e-3), and two runs of the
+   depth-wise path from one seed, equal to the bit;
 6. one env: every physics kernel launched for a batch of one
    (the video's render rollout; the control step held, exact, on flat
    ground and on sampled planes, the plane sampler, the substeps kernel,
@@ -117,7 +124,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the pusher: the frames' shape, video_sps, and the kernels launched per
    env step (each rollout step one launch of each of its kernels at one
    env). Each of these runs has every kernel's count set to 0 just before
-   and read just after.
+   and read just after;
+7. data parallelism: train_ppo(mesh=make_mesh()) at world size 1
+   on NCCL against the same run without a mesh, 4 iterations each on the
+   flagship and the physics leg (equal to the bit, else the largest share
+   of rtol 1e-4 / atol 1e-5; the step ms of both; the mesh run's launches,
+   counts set to 0 just before); then two ranks on gloo sharing the card,
+   each a process of its own (``--rank-worker``, started here): the
+   physics leg at 2 x 1024 envs and the flagship at 2 x 512, 2 ppo_steps
+   each, every rank's GAE and control-step launches, the weights,
+   statistics and optimizer moments equal to the bit across the ranks,
+   and each rank's step ms (no scaling measured: both ranks share one
+   GPU and stage the collectives through the host). A rank that fails
+   fails the run.
 
 It prints a ``kernels`` JSON line (each kernel's design, and its
 registers, stack, spills and shared memory from ptxas and the launch), the
@@ -176,6 +195,9 @@ MJCF_STEPS_TIMED = 3
 # env step, so one checked and one timed ppo_step.
 GENERIC_STEPS_CHECKED = 1
 GENERIC_STEPS_TIMED = 1
+# The depth-wise engine, eager too: three ppo_steps, then one more profiled.
+DEPTHWISE_STEPS_CHECKED = 1
+DEPTHWISE_STEPS_TIMED = 2
 HEIGHTGRID_STEPS_CHECKED = 2
 HEIGHTGRID_STEPS_TIMED = 3
 XLAFACTOR_STEPS_CHECKED = 1
@@ -2774,6 +2796,263 @@ def engine_card_vs_cpu_phase(torch) -> dict:
     return rows
 
 
+def depthwise_quadruped_leg(torch):
+    """quadruped_2048_fastM_xla (benchmarks/suite.py:379-382): the quadruped
+    with the held factor on substep_impl="xla", where depthwise=None takes
+    the depth plan: the depth-wise engine with the explicit inverse held
+    over each control step, eager PyTorch, no physics kernel, GAE only;
+    flat ground, no randomization or pushes; the physics leg's net and
+    config."""
+    from nnx_ppo_tpu_torch.envs import QuadrupedJoystick
+
+    legged = QuadrupedJoystick(reuse_mass_matrix=True, substep_impl="xla")
+    check(legged._plan is not None and legged._control_runner is None,
+          "quadruped_2048_fastM_xla takes the depth plan")
+    return quadruped_leg(torch, legged)
+
+
+def repeat_runs_phase(torch, label: str, leg, n_steps: int, directory: str) -> dict:
+    """Two runs of a path from one seed, a fresh state each and
+    ``n_steps`` ppo_steps: whether every named tensor of the two states
+    (weights, optimizer, carries, env states, the generator) is equal to
+    the bit."""
+    from nnx_ppo_tpu_torch.algorithms import new_training_state, ppo_multi_step
+
+    leaves = []
+    for run in ("first", "second"):
+        env, networks, config, optimizer = leg(torch)
+        ts = new_training_state(env, networks, config.n_envs, seed=0, optimizer=optimizer,
+                                device="cuda")
+        ts, _ = ppo_multi_step(env, ts, config, optimizer, n_steps)
+        leaves.append(saved_tensors(torch, ts, os.path.join(directory, f"{label}_{run}"))[0])
+    spread = leaf_differences(torch, *leaves)
+    equal = max(spread.values()) == 0.0
+    print(f"{label}: two runs of {n_steps} ppo_steps from one seed equal to the bit: {equal} "
+          f"({sum(1 for d in spread.values() if d)} of {len(spread)} leaves differ)")
+    check(equal, f"{label}: two runs from one seed are equal to the bit")
+    return {"equal": equal, "leaves": len(spread)}
+
+
+def depthwise_vs_generic_phase(torch) -> dict:
+    """forward_dynamics_dw against the generic engine's forward_dynamics on
+    the card, 2048 states each of the quadruped and the humanoid (joint
+    angles, height, velocities and torques jittered around the standing
+    pose by numpy from a seed, as tests/test_torch_depthwise.py does), dt
+    2 ms: qacc and the contact normals as shares of the JAX package's
+    limit for the same check, rtol 2e-4 / atol 2e-3
+    (tests/test_physics_depthwise.py:39-62)."""
+    import numpy as np
+
+    from nnx_ppo_tpu_torch.physics import DepthPlan, forward_dynamics, forward_dynamics_dw
+    from nnx_ppo_tpu_torch.physics.models import humanoid, quadruped
+
+    rows = {}
+    B, dt = 2048, 0.002
+    for label, module in (("quadruped", quadruped), ("humanoid", humanoid)):
+        model = (module.make_quadruped if label == "quadruped" else module.make_humanoid)()
+        rng = np.random.RandomState(41)
+        qpos = np.tile(module.default_qpos(model), (B, 1)).astype(np.float32)
+        qpos[:, 7:] += 0.2 * rng.randn(B, model.nj).astype(np.float32)
+        qpos[:, 2] += 0.05 * rng.randn(B).astype(np.float32)
+        qvel = (0.5 * rng.randn(B, model.nv)).astype(np.float32)
+        tau = np.concatenate([np.zeros((B, 6)), 2.0 * rng.randn(B, model.nj)], -1)
+        args = [torch.tensor(x, dtype=torch.float32, device="cuda") for x in (qpos, qvel, tau)]
+        got = forward_dynamics_dw(model, DepthPlan.build(model), *args, dt=dt)
+        want = forward_dynamics(model, *args, dt=dt)
+        torch.cuda.synchronize()
+        row = {name: share_of_limit(g, w, 2e-4, 2e-3)
+               for name, g, w in zip(("qacc", "normals"), got, want)}
+        row["contacts"] = int((want[1] > 0).sum())
+        rows[label] = row
+        print(f"forward_dynamics_dw against the generic engine on the card, {label}, B={B}: qacc "
+              f"{row['qacc']:.3f}, normals {row['normals']:.3f} of rtol 2e-4 / atol 2e-3 "
+              f"({row['contacts']} feet in contact)")
+    check(all(v <= 1.0 for row in rows.values() for k, v in row.items() if k != "contacts"),
+          f"depth-wise engine within JAX's limits of the generic engine on the card: {rows}")
+    return rows
+
+
+PARALLEL_ITERATIONS = 4  # train_ppo iterations per world-size-1 run
+TWO_RANK_STEPS = 2  # ppo_steps per rank of the two-rank run
+
+
+def world_size_1_phase(torch, wrappers: list, per_step: dict) -> dict:
+    """``train_ppo(mesh=make_mesh())`` at world size 1 on NCCL (every
+    collective of the data-parallel step runs, over one rank) against the
+    same run without a mesh, PARALLEL_ITERATIONS iterations each from one
+    seed, on the flagship and the physics leg, in the order mesh, no
+    mesh, no mesh, mesh: whether every named tensor of the final states
+    is equal to the bit (else the largest share of rtol 1e-4 / atol
+    1e-5), the median step ms of each kind (every iteration's train_sps
+    but each run's first), and the mesh runs' kernel launches (counts set
+    to 0 just before each run)."""
+    import torch.distributed as dist
+
+    from nnx_ppo_tpu_torch.algorithms import EvalConfig, LoggingLevel, TrainConfig, train_ppo
+    from nnx_ppo_tpu_torch.parallel import distributed_initialize, make_mesh
+
+    store = os.path.join("build", "world_size_1_store")
+    if os.path.exists(store):
+        os.unlink(store)
+    distributed_initialize(backend="nccl", store=dist.FileStore(store, 1), rank=0, world_size=1)
+    rows = {}
+    try:
+        mesh = make_mesh()
+        check(mesh.world_size == 1 and mesh.backend == "nccl", f"world-size-1 mesh: {mesh}")
+        for label, leg in (("flagship", flagship), ("physics", physics_leg)):
+            env, networks, ppo, _ = leg(torch)
+            per_iter = ppo.n_envs * ppo.rollout_length
+            config = TrainConfig(
+                ppo=dataclasses.replace(ppo, total_steps=PARALLEL_ITERATIONS * per_iter,
+                                        logging_level=LoggingLevel.LOSSES | LoggingLevel.THROUGHPUT),
+                eval=EvalConfig(enabled=False), seed=0)
+            step_ms = {"mesh": [], "no_mesh": []}
+            tensors = {}
+            for i, run in enumerate(("mesh", "no_mesh", "no_mesh", "mesh")):
+                kwargs = {"mesh": mesh} if run == "mesh" else {"device": "cuda"}
+                sps = []
+                for w in wrappers:
+                    w.launches = 0
+                torch.cuda.synchronize()
+                res = train_ppo(env, networks, config,
+                                log_fn=lambda m, _: sps.append(m["throughput/train_sps"]), **kwargs)
+                torch.cuda.synchronize()
+                launches = {w.__name__: w.launches for w in wrappers}
+                if run == "mesh":
+                    for w in wrappers:
+                        check(launches[w.__name__]
+                              == per_step[label][w.__name__] * PARALLEL_ITERATIONS,
+                              f"world size 1 {label}: {w.__name__} launches {launches}")
+                step_ms[run] += [per_iter / v * 1e3 for v in sps[1:]]
+                tensors[(run, i)] = saved_tensors(
+                    torch, res.training_state, os.path.join("build", "world_size_1", label, str(i)))[0]
+            worst, equal, n_leaves = 0.0, True, 0
+            for (a_run, a_i), a in tensors.items():
+                for (b_run, b_i), b in tensors.items():
+                    if a_i >= b_i:
+                        continue
+                    spread = leaf_differences(torch, a, b)
+                    n_leaves = len(spread)
+                    equal = equal and max(spread.values()) == 0.0
+                    for name, d in spread.items():
+                        if d:
+                            worst = max(worst, share_of_limit(a[name].float(), b[name].float(),
+                                                              1e-4, 1e-5)
+                                        if a[name].is_floating_point() else float("inf"))
+            median = {run: sorted(v)[len(v) // 2] for run, v in step_ms.items()}
+            rows[label] = {"equal": equal, "largest_share": worst,
+                           "mesh_step_ms": median["mesh"], "no_mesh_step_ms": median["no_mesh"],
+                           "step_ms_runs": step_ms, "launches": launches}
+            print(f"world size 1 on NCCL, {label}: train_ppo(mesh=make_mesh()) equal to the run "
+                  f"without a mesh to the bit: {equal} (four runs, largest share of rtol 1e-4 / "
+                  f"atol 1e-5: {worst:.3f}, {n_leaves} leaves); median step "
+                  f"{median['mesh']:.2f} ms with the mesh, {median['no_mesh']:.2f} ms without "
+                  f"(ratio {median['mesh'] / median['no_mesh']:.3f}; runs in the order mesh, no "
+                  f"mesh, no mesh, mesh; iterations 2-{PARALLEL_ITERATIONS} of each); launches "
+                  f"per mesh run {launches}")
+            check(worst <= 1.0, f"world size 1 {label}: within the limit of the run without a mesh")
+    finally:
+        dist.destroy_process_group()
+    return rows
+
+
+def rank_worker(rank: int, store: str, out_dir: str) -> int:
+    """One rank of the two-rank run (``chip_smoke.py --rank-worker``): gloo
+    with CUDA tensors on the card's one GPU; the physics leg, then the
+    flagship, TWO_RANK_STEPS ppo_steps each at the paths' global env
+    counts (each rank half of them); writes its launches, step ms and
+    final weights, statistics and optimizer moments to ``out_dir``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from nnx_ppo_tpu_torch.algorithms import new_training_state, ppo_multi_step
+    from nnx_ppo_tpu_torch.ops.gae import gae_cuda
+    from nnx_ppo_tpu_torch.parallel import distributed_initialize, make_mesh
+    from nnx_ppo_tpu_torch.physics.cuda_step import control_step_cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed_initialize(backend="gloo", store=dist.FileStore(store, 2), rank=rank,
+                           world_size=2, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh(2, device="cuda:0")
+        out = {}
+        for label, leg in (("physics", physics_leg), ("flagship", flagship)):
+            env, networks, config, optimizer = leg(torch)
+            ts = new_training_state(env, networks, config.n_envs, seed=0, optimizer=optimizer,
+                                    mesh=mesh)
+            gae_cuda.launches = control_step_cuda.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ts, history = ppo_multi_step(env, ts, config, optimizer, TWO_RANK_STEPS,
+                                         return_history=True, mesh=mesh)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) / TWO_RANK_STEPS * 1e3
+            check_finite(history, torch)
+            state = {f"net.{k}": v.detach().cpu() for k, v in ts.networks.state_dict().items()}
+            for i, p in enumerate(ts.networks.parameters()):
+                for moment in ("exp_avg", "exp_avg_sq"):
+                    state[f"opt.{i}.{moment}"] = ts.opt_state.state[p][moment].cpu()
+            out[label] = {"launches": {"gae_cuda": gae_cuda.launches,
+                                       "control_step_cuda": control_step_cuda.launches},
+                          "step_ms": step_ms, "n_envs": int(ts.env_states.done.shape[0]),
+                          "global_n_envs": config.n_envs, "state": state,
+                          "actor_loss": float(history["losses/actor/mean"][-1])}
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def two_rank_phase(torch) -> dict:
+    """Two ranks on gloo on the one card, each a process of its own
+    (``rank_worker``): each rank's gae_cuda and control_step_cuda launches
+    (16 and 20 a step on the physics leg, predicted), whether every
+    weight, Normalizer statistic and optimizer moment is equal to the bit
+    on both ranks, and each rank's step ms. Both ranks share one GPU and
+    stage every collective through the host (NCCL refuses two ranks on
+    one GPU), so the step times measure no scaling. A rank that fails, or
+    outlives the timeout, fails the run."""
+    out_dir = os.path.join("build", "two_rank")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    store = os.path.join(out_dir, "store")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank-worker",
+                               str(rank), store, out_dir], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+    outputs = []
+    try:
+        for proc in procs:
+            outputs.append(proc.communicate(timeout=600)[0])
+    finally:
+        for proc in procs:
+            proc.kill()
+    for rank, (proc, text) in enumerate(zip(procs, outputs)):
+        check(proc.returncode == 0, f"rank {rank} of the two-rank run failed:\n{text[-3000:]}")
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=True) for r in range(2)]
+    rows = {}
+    for label in ("physics", "flagship"):
+        a, b = (r[label] for r in ranks)
+        differing = [k for k in a["state"] if not torch.equal(a["state"][k], b["state"][k])]
+        rows[label] = {"launches": [r[label]["launches"] for r in ranks],
+                       "step_ms": [r[label]["step_ms"] for r in ranks],
+                       "equal_across_ranks": not differing, "leaves": len(a["state"])}
+        per_rank = f"{a['n_envs']} of {a['global_n_envs']} envs each"
+        print(f"two ranks on gloo on one card, {label} ({per_rank}, {TWO_RANK_STEPS} ppo_steps): "
+              f"launches rank 0 {rows[label]['launches'][0]}, rank 1 {rows[label]['launches'][1]}; "
+              f"weights, statistics and optimizer moments equal to the bit on both ranks: "
+              f"{not differing} ({len(differing)} of {len(a['state'])} differ); step "
+              f"{rows[label]['step_ms'][0]:.2f} / {rows[label]['step_ms'][1]:.2f} ms (two "
+              "processes sharing one GPU, collectives through the host: no scaling measured)")
+        check(not differing, f"two ranks, {label}: equal to the bit across ranks {differing[:5]}")
+        want = {"gae_cuda": 16 * TWO_RANK_STEPS,
+                "control_step_cuda": (20 if label == "physics" else 0) * TWO_RANK_STEPS}
+        for r in ranks:
+            check(r[label]["launches"] == want, f"two ranks, {label}: launches {r[label]['launches']}")
+    return rows
+
+
 def manipulation_env_step_reference_phase(torch, label: str, env, scene_wrapper) -> None:
     """Two steps of a manipulation env on the card (the scene kernel)
     against the CPU (the plain version) from the same reset state and
@@ -3231,7 +3510,12 @@ def main() -> int:
     parser.add_argument("--phases", action="store_true")
     parser.add_argument("--ab-kernels", action="store_true")
     parser.add_argument("--package-root", metavar="DIR", default=None)
+    parser.add_argument("--rank-worker", nargs=3, metavar=("RANK", "STORE", "OUT_DIR"),
+                        default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.rank_worker:
+        rank, store, out_dir = args.rank_worker
+        return rank_worker(int(rank), store, out_dir)
     if args.package_root:
         # Import nnx_ppo_tpu_torch from another checkout (--ab-kernels).
         sys.path.insert(0, os.path.abspath(args.package_root))
@@ -3317,8 +3601,9 @@ def main() -> int:
         **{label: dict(none, gae_cuda=16) for label in NETWORK_PATHS},
         "quadruped_2048_pallas_bf16store": dict(none, gae_cuda=16, control_step_cuda=20),
         "mjcf_quadruped_2048": dict(none, gae_cuda=16, control_step_cuda=20),
-        # The generic engine: no physics kernel.
+        # The generic engine and the depth-wise engine: no physics kernel.
         "quadruped_2048_fastM_generic": dict(none, gae_cuda=16),
+        "quadruped_2048_fastM_xla": dict(none, gae_cuda=16),
         # Distillation: the dual rollout's 20 control steps, no GAE.
         **{label: dict(none, control_step_cuda=20) for label in DISTILL_PATHS},
     }
@@ -3372,6 +3657,8 @@ def main() -> int:
             ("mjcf_quadruped_2048", mjcf_quadruped_leg, MJCF_STEPS_CHECKED, MJCF_STEPS_TIMED),
             ("quadruped_2048_fastM_generic", generic_quadruped_leg, GENERIC_STEPS_CHECKED,
              GENERIC_STEPS_TIMED),
+            ("quadruped_2048_fastM_xla", depthwise_quadruped_leg, DEPTHWISE_STEPS_CHECKED,
+             DEPTHWISE_STEPS_TIMED),
         )
     }
     new_path_profiles = {}
@@ -3476,6 +3763,13 @@ def main() -> int:
                                  per_env_step(label))
     kernel_vs_generic = kernel_vs_generic_phase(torch)
     engine_card_vs_cpu = engine_card_vs_cpu_phase(torch)
+    # The depth-wise engine against the generic one on the card, and two
+    # runs of its path from one seed.
+    depthwise_vs_generic = depthwise_vs_generic_phase(torch)
+    depthwise_repeat = repeat_runs_phase(torch, "quadruped_2048_fastM_xla",
+                                         depthwise_quadruped_leg, 1,
+                                         os.path.join("build", "smoke_repeat"))
+    shutil.rmtree(os.path.join("build", "smoke_repeat"), ignore_errors=True)
     print(f"paths and references: {time.perf_counter() - t_paths:.1f} s")
 
     # Checkpoint and exact resume, the video pipeline, and
@@ -3506,6 +3800,17 @@ def main() -> int:
                                 for k, c in videos.items()},
                       "step_split": step_split}))
     print(f"checkpoint, video and profile phases: {time.perf_counter() - t_slice:.1f} s")
+
+    # Data parallelism: world size 1 on NCCL against no mesh, then two
+    # ranks on gloo sharing the card.
+    t_parallel = time.perf_counter()
+    world_size_1 = world_size_1_phase(torch, wrappers, per_step)
+    shutil.rmtree(os.path.join("build", "world_size_1"), ignore_errors=True)
+    two_rank = two_rank_phase(torch)
+    print(json.dumps({"depthwise_vs_generic": depthwise_vs_generic,
+                      "depthwise_repeat": depthwise_repeat,
+                      "world_size_1": world_size_1, "two_rank": two_rank}))
+    print(f"data-parallel phases: {time.perf_counter() - t_parallel:.1f} s")
     if args.learn:
         learning_phase(torch, args.learn)
     if args.phases:
@@ -3521,6 +3826,11 @@ def main() -> int:
     by_path.update({f"checkpoint_{label}": c["launches"] for label, c in checkpoints.items()
                     if "launches" in c})
     by_path.update({f"video_{label}": v["launches"] for label, v in videos.items()})
+    by_path.update({f"world_size_1_{label}": row["launches"]
+                    for label, row in world_size_1.items()})
+    for label, row in two_rank.items():
+        for rank, launches in enumerate(row["launches"]):
+            by_path[f"two_rank_{label}_rank{rank}"] = dict(none, **launches)
     kernel_rows = {
         "gae_cuda": gae_kernel, "control_step_cuda": control_kernel,
         "plane_sampler_cuda": sampler_kernel, "substeps_cuda": substeps_kernel,
@@ -3552,6 +3862,7 @@ def main() -> int:
              bf16store_label: PHYSICS_STEPS_TIMED,
              "mjcf_quadruped_2048": MJCF_STEPS_TIMED,
              "quadruped_2048_fastM_generic": GENERIC_STEPS_TIMED,
+             "quadruped_2048_fastM_xla": DEPTHWISE_STEPS_TIMED,
              **{label: timed for label, (_, _, timed) in DISTILL_PATHS.items()}}
     for label, path in training_paths.items():
         counts = ", ".join(f"{name} {n}" for name, n in by_path[label].items())
@@ -3586,7 +3897,15 @@ def main() -> int:
     )
     for label, prof in new_path_profiles.items():
         print(f"{label}: {prof['device_kernels']} device kernels per ppo_step, device busy "
-              f"{prof['busy_ms']:.2f} ms, idle share {prof['idle_share']:.3f} on {card}")
+              f"{prof['busy_ms']:.2f} ms, step {new_paths[label]['step_ms']:.2f} ms, idle share "
+              f"{prof['idle_share']:.3f} on {card}")
+    dw, gen = (new_path_profiles[k] for k in ("quadruped_2048_fastM_xla",
+                                              "quadruped_2048_fastM_generic"))
+    print(f"depth-wise against generic engine (one call): device kernels per ppo_step "
+          f"{dw['device_kernels']} / {gen['device_kernels']} = "
+          f"{dw['device_kernels'] / gen['device_kernels']:.3f}, step ms "
+          f"{new_paths['quadruped_2048_fastM_xla']['step_ms']:.2f} / "
+          f"{new_paths['quadruped_2048_fastM_generic']['step_ms']:.2f}")
     print(json.dumps({"kernel_vs_generic": kernel_vs_generic,
                       "engine_card_vs_cpu": engine_card_vs_cpu}))
     print(f"run: {time.perf_counter() - t_start:.1f} s")

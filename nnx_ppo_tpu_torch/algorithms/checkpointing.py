@@ -40,6 +40,14 @@ for a generator of the device type that saved it (a CUDA generator's
 seed and offset, a CPU one's Mersenne-Twister state), so loading one into
 a generator of another device type raises. The port never wrote JAX's
 v1 (integer-indexed) format and reads only v2.
+
+Under a data-parallel mesh (``mesh=``, ``parallel/mesh.py``) a checkpoint
+is the same file that one process writes: every rank gathers the batched
+leaves (the env states and per-env carries, this rank's block each) in
+rank order, and rank 0 writes; a load reads the whole file on every rank
+and keeps each batched leaf's block for the rank. So a run saved at one
+world size resumes at another (JAX ``tests/test_checkpoint_topology.py``).
+The generator is replicated on every rank, so rank 0's is the run's.
 """
 
 from __future__ import annotations
@@ -56,6 +64,10 @@ from nnx_ppo_tpu_torch.core.struct import named_leaves, path_name, tree_children
 
 CHECKPOINT_FORMAT_VERSION = 2
 TENSORS_FILE = "tensors.pt"
+# The state fields whose leaves are batched along the env axis under a
+# mesh (``parallel/mesh.py::training_state_shardings`` and the
+# distillation state's ``place_batched`` fields).
+BATCHED_FIELDS = ("env_states", "network_states", "student_states", "teacher_states")
 
 
 @runtime_checkable
@@ -129,20 +141,50 @@ def _flat(tree: Any) -> tuple[list[tuple[str, Any]], dict[str, str]]:
     return named_leaves(storable), generators
 
 
+def _is_batched(name: str, leaf: torch.Tensor, n_local: Optional[int]) -> bool:
+    """A leaf of a batched state field whose dim 0 is the env axis."""
+    return (n_local is not None and name.split(".")[0] in BATCHED_FIELDS
+            and leaf.ndim >= 1 and leaf.shape[0] == n_local)
+
+
+def _gathered(name: str, leaf: torch.Tensor, mesh: Any, n_local: Optional[int]) -> torch.Tensor:
+    """``leaf`` whole: every rank's block in rank order, if batched."""
+    leaf = leaf.detach()
+    if mesh is None or not _is_batched(name, leaf, n_local):
+        return leaf
+    # bool as bytes: not every backend reduces or gathers bool tensors.
+    parts = mesh.all_gather(leaf.view(torch.uint8) if leaf.dtype == torch.bool else leaf)
+    parts = parts.view(torch.bool) if leaf.dtype == torch.bool else parts
+    return parts.reshape((-1,) + tuple(leaf.shape[1:]))
+
+
+def _local_env_count(training_state: Any) -> Optional[int]:
+    env_states = getattr(training_state, "env_states", None)
+    return None if env_states is None else int(env_states.done.shape[0])
+
+
 def save_checkpoint(
     step_dir: str,
     training_state: Any,
     step: int,
     config: Optional[Any] = None,
+    mesh: Optional[Any] = None,
 ) -> None:
     """Write one checkpoint directory (``state/`` + ``metadata.pkl``).
     ``training_state`` is a TrainingState, a DistillationState, a module
     or any tree of those parts (the format is generic named-leaf
     storage). Each tensor is copied to the host once, compactly (a view
-    does not drag its whole storage into the file)."""
-    os.makedirs(os.path.join(step_dir, "state"), exist_ok=True)
+    does not drag its whole storage into the file). With a ``mesh`` every
+    rank must call it: the batched leaves are gathered and rank 0 writes
+    the file, which every rank can read when this returns."""
     named, generators = _flat(training_state)
-    tensors = {name: leaf.detach().to("cpu", copy=True) for name, leaf in named}
+    n_local = _local_env_count(training_state)
+    tensors = {name: _gathered(name, leaf, mesh, n_local).to("cpu", copy=True)
+               for name, leaf in named}
+    if mesh is not None and mesh.rank != 0:
+        mesh.barrier()
+        return
+    os.makedirs(os.path.join(step_dir, "state"), exist_ok=True)
     torch.save(tensors, os.path.join(step_dir, "state", TENSORS_FILE))
     metadata = {
         "format_version": CHECKPOINT_FORMAT_VERSION,
@@ -154,16 +196,21 @@ def save_checkpoint(
     }
     with open(os.path.join(step_dir, "metadata.pkl"), "wb") as f:
         pickle.dump(metadata, f)
+    if mesh is not None:
+        mesh.barrier()
 
 
-def make_checkpoint_fn(directory: str, config: Optional[Any] = None) -> CheckpointCallback:
-    """Checkpoint callback writing ``{directory}/step_{step:010d}/``.
+def make_checkpoint_fn(
+    directory: str, config: Optional[Any] = None, mesh: Optional[Any] = None
+) -> CheckpointCallback:
+    """Checkpoint callback writing ``{directory}/step_{step:010d}/``
+    (with a ``mesh``, by rank 0 after the gather, :func:`save_checkpoint`).
     Resume via :func:`load_checkpoint`."""
     abs_directory = os.path.abspath(directory)
 
     def checkpoint_fn(training_state: Any, step: int) -> None:
         step_dir = os.path.join(abs_directory, f"step_{step:010d}")
-        save_checkpoint(step_dir, training_state, step, config)
+        save_checkpoint(step_dir, training_state, step, config, mesh)
 
     return checkpoint_fn
 
@@ -208,14 +255,17 @@ def _restore(node: Any, path: tuple, flat: dict, names: dict[int, str]) -> Any:
     )
 
 
-def load_checkpoint(path: str, training_state: Any) -> dict[str, Any]:
+def load_checkpoint(path: str, training_state: Any, mesh: Optional[Any] = None) -> dict[str, Any]:
     """Load a checkpoint saved by :func:`make_checkpoint_fn` or
     :func:`save_checkpoint`.
 
     ``training_state`` is a structural template (for example from
     ``new_training_state`` with the same architecture and ``n_envs``):
     its values are irrelevant, its devices are kept, and its modules,
-    optimizers and generators are restored in place. Raises JAX's
+    optimizers and generators are restored in place. With a ``mesh`` the
+    template is this rank's (``new_training_state(..., mesh=mesh)``) and
+    each batched leaf of the file, written at any world size, gives the
+    rank its block. Raises JAX's
     ``ValueError("... mismatch ...")`` when the two name sets differ, a
     leaf's shape or dtype differs, or a generator's device type differs.
 
@@ -255,8 +305,11 @@ def load_checkpoint(path: str, training_state: Any) -> dict[str, Any]:
 
     flat = torch.load(os.path.join(path, "state", TENSORS_FILE), map_location="cpu",
                       weights_only=True)
+    n_local = _local_env_count(training_state)
     for name, leaf in named:
         got = flat[name]
+        if mesh is not None and _is_batched(name, leaf, n_local) and got.ndim >= 1:
+            got = flat[name] = got[mesh.block(got.shape[0])]
         if got.shape != leaf.shape or got.dtype != leaf.dtype:
             raise ValueError(
                 f"checkpoint/template leaf mismatch at {name!r}: "

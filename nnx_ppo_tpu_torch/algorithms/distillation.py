@@ -20,7 +20,11 @@ optimizer updated in place, the student's statistics folded in after the
 updates, the carries committed last. Every draw comes from the state's
 one ``generator``, through the networks, the env's ``step`` and
 ``reset`` and ``minibatch_plan`` (whose selectors a test can pin); no
-draw is made here.
+draw is made here. Data parallelism (``mesh=``) is ``ppo.py``'s: each
+rank holds its block of the envs and both carries, the plan is
+shard-local, the student's gradients are averaged over the ranks and its
+statistics and the metrics are global (JAX ``distillation.py:272-325``,
+``:385-447``, ``:465-514``).
 """
 
 from __future__ import annotations
@@ -39,16 +43,17 @@ from nnx_ppo_tpu_torch.algorithms.config import (
     DistillationTrainConfig,
     DistillationTrainResult,
 )
-from nnx_ppo_tpu_torch.algorithms.metrics import _log_metric
+from nnx_ppo_tpu_torch.algorithms.metrics import _flatten, summarize_metrics
 from nnx_ppo_tpu_torch.algorithms.ppo import (
     Optimizer,
     _should_run,
     _to_host,
     make_optimizer,
-    record_video,
     minibatch_updates,
+    record_video,
     resolve_batch_major,
     resolve_store_dtype,
+    state_device,
     store_sequence,
 )
 from nnx_ppo_tpu_torch.algorithms.types import (
@@ -56,13 +61,17 @@ from nnx_ppo_tpu_torch.algorithms.types import (
     DistillationTransition,
     LoggingLevel,
 )
-from nnx_ppo_tpu_torch.core.device import resolve_device
 from nnx_ppo_tpu_torch.core.struct import tree_leaves, tree_map, tree_stack, tree_where
 from nnx_ppo_tpu_torch.networks.types import (
     ModuleState,
     StatefulModule,
     replay_sequence_nd,
     scan_replay,
+)
+from nnx_ppo_tpu_torch.parallel.mesh import (
+    Mesh,
+    place_batched,
+    rank_generator,
 )
 
 
@@ -228,6 +237,7 @@ def distillation_update(
     *,
     generator: Optional[torch.Generator] = None,
     selectors: Optional[torch.Tensor] = None,
+    mesh: Optional[Mesh] = None,
 ) -> dict[str, Any]:
     """The update phase of :func:`distillation_step`
     (``distillation.py:303-345``): E·M minibatch gradient updates of
@@ -247,6 +257,7 @@ def distillation_update(
             fused_replay=config.fused_replay,
         ),
         config, optimizer, batch_major=batch_major, generator=generator, selectors=selectors,
+        mesh=mesh,
     )
 
 
@@ -256,6 +267,7 @@ def distillation_step(
     distillation_state: DistillationState,
     config: DistillationConfig,
     optimizer: Optimizer,
+    mesh: Optional[Mesh] = None,
 ) -> tuple[DistillationState, dict[str, Any]]:
     """One distillation iteration (``distillation.py:266-375``): dual
     rollout -> E·M minibatch updates -> student statistics fold ->
@@ -265,39 +277,39 @@ def distillation_step(
     profiler range named ``distillation_step``."""
     with record_function("distillation_step"):
         ds = distillation_state
-        if ds.env_states.done.shape[0] != config.n_envs:
+        n_local = config.n_envs // (1 if mesh is None else mesh.world_size)
+        if ds.env_states.done.shape[0] != n_local:
             raise ValueError(
                 f"distillation state holds {ds.env_states.done.shape[0]} envs, "
                 f"config.n_envs is {config.n_envs}"
+                + ("" if mesh is None else f" over {mesh.world_size} ranks")
             )
         with torch.no_grad():
             next_student_state, next_teacher_state, next_env_state, rollout_data = (
                 distillation_unroll_env(
                     env, ds.env_states, teacher, ds.student, ds.student_states,
-                    ds.teacher_states, config.rollout_length, ds.generator,
+                    ds.teacher_states, config.rollout_length,
+                    rank_generator(ds.generator, mesh),
                 )
             )
         loss_metrics = distillation_update(
             ds.student, ds.opt_state, ds.student_states, rollout_data, config, optimizer,
-            generator=ds.generator,
+            generator=ds.generator, mesh=mesh,
         )
         total_steps = ds.steps_taken + config.rollout_length * config.n_envs
         # Fold the student's own rollout extras into its running statistics.
-        ds.student.update_statistics(rollout_data.student_rollout_extras)
+        ds.student.update_statistics(rollout_data.student_rollout_extras, mesh=mesh)
 
-        metrics: dict[str, Any] = {}
-        for k, v in loss_metrics.items():
-            _log_metric(metrics, k, v, config.logging_percentiles)
+        samples: list[tuple[str, torch.Tensor]] = []
         if LoggingLevel.TRAIN_ROLLOUT_STATS in config.logging_level:
-            _log_metric(metrics, "rollout_batch/reward", rollout_data.rewards,
-                        config.logging_percentiles)
-            _log_metric(metrics, "rollout_batch/action", rollout_data.student_output.actions,
-                        config.logging_percentiles)
-            metrics["rollout_batch/done_rate"] = rollout_data.done.float().mean()
-            metrics["rollout_batch/truncation_rate"] = rollout_data.truncated.float().mean()
+            samples += _flatten("rollout_batch/reward", rollout_data.rewards)
+            samples += _flatten("rollout_batch/action", rollout_data.student_output.actions)
+            samples.append(("rollout_batch/done_rate", rollout_data.done != 0))
+            samples.append(("rollout_batch/truncation_rate", rollout_data.truncated != 0))
         if LoggingLevel.TRAINING_ENV_METRICS in config.logging_level:
             for k, v in rollout_data.metrics.items():
-                _log_metric(metrics, k, v, config.logging_percentiles)
+                samples += _flatten(k, v)
+        metrics = summarize_metrics(loss_metrics, samples, config.logging_percentiles, mesh)
         metrics["total_steps"] = total_steps
         return (
             ds.replace(
@@ -317,13 +329,14 @@ def distillation_multi_step(
     config: DistillationConfig,
     optimizer: Optimizer,
     n_steps: int,
+    mesh: Optional[Mesh] = None,
 ) -> tuple[DistillationState, dict[str, Any]]:
     """``n_steps`` distillation iterations; returns the last one's
     metrics (``distillation.py:378-400``)."""
     metrics: dict[str, Any] = {}
     for _ in range(n_steps):
         distillation_state, metrics = distillation_step(
-            env, teacher, distillation_state, config, optimizer
+            env, teacher, distillation_state, config, optimizer, mesh
         )
     return distillation_state, metrics
 
@@ -338,21 +351,24 @@ def new_distillation_state(
     gradient_clipping: Optional[float] = None,
     weight_decay: Union[None, bool, float] = None,
     optimizer: Optional[Optimizer] = None,
-    device: Union[str, torch.device] = "cuda",
+    device: Union[str, torch.device, None] = None,
+    mesh: Optional[Mesh] = None,
 ) -> DistillationState:
-    """Fresh DistillationState on ``device`` (``distillation.py:403-449``):
-    a copy of ``student`` (the caller's module is never trained in
-    place), ``n_envs`` reset envs, both per-env carries, and the optimizer
-    state over the student's parameters only. Every draw of the run comes
-    from one device generator seeded with ``seed``."""
-    device = resolve_device(device)
+    """Fresh DistillationState on ``device`` (default ``"cuda"``;
+    ``distillation.py:403-449``): a copy of ``student`` (the caller's
+    module is never trained in place), ``n_envs`` reset envs, both per-env
+    carries, and the optimizer state over the student's parameters only.
+    Every draw of the run comes from one device generator seeded with
+    ``seed``. With a ``mesh``, on the mesh's device, every rank builds the
+    same ``n_envs`` envs and carries and keeps its own block."""
+    device = state_device(device, mesh)
     student = copy.deepcopy(student).to(device)
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
     env_states = env.reset(n_envs, generator)
     if optimizer is None:
         optimizer = make_optimizer(learning_rate, gradient_clipping, weight_decay)
-    return DistillationState(
+    state = DistillationState(
         student=student,
         student_states=student.initialize_state(n_envs),
         teacher_states=tree_map(lambda x: x.to(device), teacher.initialize_state(n_envs)),
@@ -360,6 +376,13 @@ def new_distillation_state(
         opt_state=optimizer.init(student.parameters()),
         generator=generator,
         steps_taken=0,
+    )
+    if mesh is None:
+        return state
+    return state.replace(
+        student_states=place_batched(state.student_states, mesh),
+        teacher_states=place_batched(state.teacher_states, mesh),
+        env_states=place_batched(state.env_states, mesh),
     )
 
 
@@ -376,7 +399,8 @@ def train_distillation(
     checkpoint_fn: Optional[Callable] = None,
     eval_env: Any = None,
     initial_state: Optional[DistillationState] = None,
-    device: Union[str, torch.device] = "cuda",
+    device: Union[str, torch.device, None] = None,
+    mesh: Optional[Mesh] = None,
 ) -> DistillationTrainResult:
     """Train a student by distillation from a frozen teacher
     (``distillation.py:452-629``), with evaluation of the student every
@@ -386,7 +410,9 @@ def train_distillation(
     resume, or a state restored by ``checkpointing.load_checkpoint`` to
     resume exactly. Checkpoints and videos follow ``train_ppo``'s cadence
     (``distillation.py:527-619``), the video of the student in eval mode;
-    a ``video_fn`` with video disabled is ignored."""
+    a ``video_fn`` with video disabled is ignored. ``mesh``: data-parallel
+    training as ``train_ppo``'s (checkpoint with
+    ``make_checkpoint_fn(..., mesh=mesh)``)."""
     if config is None:
         config = default_distillation_config()
     if total_steps is not None:
@@ -406,7 +432,8 @@ def train_distillation(
     optimizer = make_optimizer(dcfg.learning_rate, dcfg.gradient_clipping, dcfg.weight_decay)
     if initial_state is None:
         state = new_distillation_state(
-            env, teacher, student, dcfg.n_envs, config.seed, optimizer=optimizer, device=device
+            env, teacher, student, dcfg.n_envs, config.seed, optimizer=optimizer, device=device,
+            mesh=mesh,
         )
     else:
         state = initial_state
@@ -450,7 +477,7 @@ def train_distillation(
         log_fn(metrics, steps)
 
     while steps < dcfg.total_steps:
-        state, metrics = distillation_step(env, teacher, state, dcfg, optimizer)
+        state, metrics = distillation_step(env, teacher, state, dcfg, optimizer, mesh)
         n_iterations += 1
         steps = state.steps_taken
         if config.eval.enabled and _should_run(steps, last_eval_step, config.eval.every_steps):

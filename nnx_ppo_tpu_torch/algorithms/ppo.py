@@ -36,6 +36,16 @@ Kept from the JAX package:
 
 The optimizer is adam (or adamw) as optax computes it, with PyTorch's
 plain per-tensor implementation (``foreach=False``, not fused).
+
+Data parallelism (``mesh=``, ``parallel/mesh.py``): one process per
+device, each holding ``n_envs / world_size`` envs. Every rank draws the
+same shard-local minibatch plan from the state's generator (replicated),
+rolls out its envs from a generator of its own
+(``parallel.mesh.rank_generator``), averages each minibatch's gradients
+over the ranks right after the backward, normalizes advantages with the
+global minibatch statistics, and folds the global history into the
+Normalizer; metrics and ``steps_taken`` are global. No rollout data
+crosses ranks, and the parameters stay the same on every rank to the bit.
 """
 
 from __future__ import annotations
@@ -58,7 +68,14 @@ from nnx_ppo_tpu_torch.core.device import resolve_device
 from nnx_ppo_tpu_torch.core.struct import tree_leaves, tree_map, tree_stack
 from nnx_ppo_tpu_torch.networks.types import StatefulModule, replay_sequence_nd, scan_replay
 from nnx_ppo_tpu_torch.ops.gae import gae, gae_per_key  # noqa: F401  (gae: exported here, as in JAX)
-from nnx_ppo_tpu_torch.parallel.permutation import minibatch_plan
+from nnx_ppo_tpu_torch.ops.welford import all_mean_var_std
+from nnx_ppo_tpu_torch.parallel.mesh import (
+    Mesh,
+    average_gradients,
+    rank_generator,
+    shard_training_state,
+)
+from nnx_ppo_tpu_torch.parallel.permutation import minibatch_plan, shard_local_selectors
 
 Schedule = Callable[[int], float]
 
@@ -150,6 +167,17 @@ def linear_schedule(init_value: float, end_value: float, transition_steps: int) 
     return schedule
 
 
+def state_device(device: Union[str, torch.device, None], mesh: Optional[Mesh]) -> torch.device:
+    """The device a run's state lives on: ``device`` (default ``"cuda"``)
+    without a mesh, the mesh's device with one (``device``, if given,
+    must agree)."""
+    if mesh is None:
+        return resolve_device("cuda" if device is None else device)
+    if device is not None and resolve_device(device) != mesh.device:
+        raise ValueError(f"device={str(device)!r} differs from the mesh's {mesh.device}")
+    return mesh.device
+
+
 def new_training_state(
     env: Any,
     networks: StatefulModule,
@@ -159,16 +187,23 @@ def new_training_state(
     gradient_clipping: Optional[float] = None,
     weight_decay: Union[None, bool, float] = None,
     optimizer: Optional[Optimizer] = None,
-    device: Union[str, torch.device] = "cuda",
+    device: Union[str, torch.device, None] = None,
+    mesh: Optional[Mesh] = None,
 ) -> TrainingState:
-    """Fresh TrainingState on ``device``: a copy of ``networks`` (the
-    caller's module is never trained in place), ``n_envs`` reset envs,
-    per-env network carries and the optimizer state. Every draw of the
-    run comes from one device generator seeded with ``seed``.
+    """Fresh TrainingState on ``device`` (default ``"cuda"``): a copy of
+    ``networks`` (the caller's module is never trained in place),
+    ``n_envs`` reset envs, per-env network carries and the optimizer
+    state. Every draw of the run comes from one device generator seeded
+    with ``seed``.
+
+    With a ``mesh`` (JAX ``ppo.py:140-171``) the state lives on the mesh's
+    device, and every rank builds the same ``n_envs`` envs from the seed
+    and keeps its own block (:func:`shard_training_state`), so the initial
+    env states equal the single-process ones row for row.
 
     Pass ``optimizer`` when not using the default adam; the same one
     must then be given to ``ppo_step``."""
-    device = resolve_device(device)
+    device = state_device(device, mesh)
     networks = copy.deepcopy(networks).to(device)
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
@@ -176,7 +211,7 @@ def new_training_state(
     network_states = networks.initialize_state(n_envs)
     if optimizer is None:
         optimizer = make_optimizer(learning_rate, gradient_clipping, weight_decay)
-    return TrainingState(
+    state = TrainingState(
         networks=networks,
         network_states=network_states,
         env_states=env_states,
@@ -184,6 +219,7 @@ def new_training_state(
         generator=generator,
         steps_taken=0,
     )
+    return state if mesh is None else shard_training_state(state, mesh)
 
 
 @dataclasses.dataclass
@@ -321,13 +357,16 @@ def ppo_update(
     *,
     generator: Optional[torch.Generator] = None,
     selectors: Optional[torch.Tensor] = None,
+    mesh: Optional[Mesh] = None,
 ) -> dict[str, Any]:
     """The update phase of :func:`ppo_step`: E·M minibatch gradient
     updates of ``networks`` (in place) on one rollout, replayed from the
     pre-rollout ``network_states``, in the layout and store dtype the
     config resolves to. Minibatches come from ``generator`` unless
     ``selectors`` pins them (or ``config.shuffle_minibatches`` is off:
-    then they are fixed contiguous env blocks). Returns the loss metrics
+    then they are fixed contiguous env blocks). With a ``mesh`` the
+    rollout and carries are this rank's block and ``selectors`` (if
+    given) the global shard-local plan. Returns the loss metrics
     stacked over the updates (leading dim E·M). Runs inside a profiler
     range named ``ppo_update``."""
     with record_function("ppo_update"):
@@ -347,12 +386,13 @@ def ppo_update(
                 critic_loss_weight=config.critic_loss_weight,
                 logging_level=config.logging_level,
                 fused_replay=config.fused_replay,
+                mesh=mesh,
             )
 
         return minibatch_updates(
             networks, opt_state, network_states, view, loss_fn, config, optimizer,
             batch_major=batch_major, generator=generator, selectors=selectors,
-            log_grad_norm=LoggingLevel.GRAD_NORM in config.logging_level,
+            log_grad_norm=LoggingLevel.GRAD_NORM in config.logging_level, mesh=mesh,
         )
 
 
@@ -369,6 +409,7 @@ def minibatch_updates(
     generator: Optional[torch.Generator] = None,
     selectors: Optional[torch.Tensor] = None,
     log_grad_norm: bool = False,
+    mesh: Optional[Mesh] = None,
 ) -> dict[str, Any]:
     """The minibatch loop of :func:`ppo_update` and of
     ``distillation.distillation_update``: for each of the E·M minibatches
@@ -377,16 +418,35 @@ def minibatch_updates(
     ``optimizer`` on ``loss_fn(carries, minibatch)``'s gradients.
     ``config`` gives ``n_envs``, ``n_epochs``, ``n_minibatches`` and
     ``shuffle_minibatches``. Returns the loss metrics stacked over the
-    updates (leading dim E·M), with ``grad_norm`` if ``log_grad_norm``."""
-    selectors, take_seq, take_batch = minibatch_plan(
-        config.n_envs,
-        config.n_epochs,
-        config.n_minibatches,
-        shuffle=config.shuffle_minibatches,
-        generator=generator,
-        selectors=selectors,
-        batch_major=batch_major,
-    )
+    updates (leading dim E·M), with ``grad_norm`` if ``log_grad_norm``.
+
+    With a ``mesh`` (``view`` and ``network_states`` this rank's block):
+    the plan is JAX's shard-local one over the global ``n_envs``, drawn
+    alike on every rank, each rank keeping its block's indices; each
+    minibatch's gradients are averaged over the ranks right after the
+    backward, so the gradient norm and the optimizer's clipping see the
+    global gradient, as optax does under GSPMD (JAX ``ppo.py:404-438``)."""
+    if mesh is not None and not config.shuffle_minibatches:
+        # Contiguous shard-local blocks: minibatch m is rows [m·k, (m+1)·k)
+        # of every rank's block, the one-shard plan over the local envs.
+        selectors, take_seq, take_batch = minibatch_plan(
+            config.n_envs // mesh.world_size, config.n_epochs, config.n_minibatches,
+            shuffle=False, batch_major=batch_major,
+        )
+    else:
+        selectors, take_seq, take_batch = minibatch_plan(
+            config.n_envs,
+            config.n_epochs,
+            config.n_minibatches,
+            1 if mesh is None else mesh.world_size,
+            shuffle=config.shuffle_minibatches,
+            generator=generator,
+            selectors=selectors,
+            batch_major=batch_major,
+        )
+        if mesh is not None:
+            selectors = shard_local_selectors(selectors, config.n_envs, mesh.world_size,
+                                              mesh.rank)
     per_update = []
     for sel in selectors:
         minibatch = view.gather(sel, take_seq, take_batch)
@@ -394,6 +454,7 @@ def minibatch_updates(
         opt_state.zero_grad(set_to_none=True)
         loss, loss_metrics = loss_fn(net_state_subset, minibatch)
         loss.backward()
+        average_gradients(networks.parameters(), mesh)
         if log_grad_norm:
             grads = [p.grad for p in networks.parameters() if p.grad is not None]
             loss_metrics["grad_norm"] = global_norm(grads)
@@ -407,20 +468,25 @@ def ppo_step(
     training_state: TrainingState,
     config: PPOConfig,
     optimizer: Optimizer,
+    mesh: Optional[Mesh] = None,
 ) -> tuple[TrainingState, dict[str, Any]]:
     """One PPO iteration: rollout -> E·M shuffled minibatch updates ->
     metrics -> ``update_statistics`` -> commit the next env/net carries.
 
     ``training_state.networks`` and ``.opt_state`` are updated in place;
-    the returned state holds the advanced carries and step count. Runs
-    inside a profiler range named ``ppo_step`` (JAX's trace shows the
-    jitted function by that name)."""
+    the returned state holds the advanced carries and step count. With a
+    ``mesh`` the state is this rank's (``new_training_state(mesh=)``),
+    ``config.n_envs`` the global env count, and metrics and step count
+    global. Runs inside a profiler range named ``ppo_step`` (JAX's trace
+    shows the jitted function by that name)."""
     with record_function("ppo_step"):
         ts = training_state
-        if ts.env_states.done.shape[0] != config.n_envs:
+        n_local = config.n_envs // (1 if mesh is None else mesh.world_size)
+        if ts.env_states.done.shape[0] != n_local:
             raise ValueError(
                 f"training state holds {ts.env_states.done.shape[0]} envs, "
                 f"config.n_envs is {config.n_envs}"
+                + ("" if mesh is None else f" over {mesh.world_size} ranks")
             )
         with torch.no_grad():
             next_net_state, next_env_state, rollout_data = rollout.unroll_env(
@@ -429,7 +495,7 @@ def ppo_step(
                 ts.networks,
                 ts.network_states,
                 config.rollout_length,
-                ts.generator,
+                rank_generator(ts.generator, mesh),
             )
         loss_metrics = ppo_update(
             ts.networks,
@@ -439,17 +505,19 @@ def ppo_step(
             config,
             optimizer,
             generator=ts.generator,
+            mesh=mesh,
         )
         total_steps = ts.steps_taken + config.rollout_length * config.n_envs
         metrics = compute_metrics(
-            loss_metrics, rollout_data, config.logging_level, config.logging_percentiles
+            loss_metrics, rollout_data, config.logging_level, config.logging_percentiles,
+            mesh=mesh,
         )
         metrics["total_steps"] = total_steps
         if LoggingLevel.WEIGHTS in config.logging_level:
             log_weight_stats(metrics, ts.networks, config.logging_percentiles)
 
         # Fold rollout statistics only now, after the updates.
-        ts.networks.update_statistics(rollout_data.rollout_extras)
+        ts.networks.update_statistics(rollout_data.rollout_extras, mesh=mesh)
         # Commit the env/net advance only now: the minibatches above replayed
         # from the pre-rollout carries.
         return (
@@ -469,13 +537,14 @@ def ppo_multi_step(
     optimizer: Optimizer,
     n_steps: int,
     return_history: bool = False,
+    mesh: Optional[Mesh] = None,
 ) -> tuple[TrainingState, dict[str, Any]]:
     """``n_steps`` PPO iterations. ``return_history=True`` returns every
     iteration's metrics stacked (leading dim ``n_steps``); otherwise the
     last iteration's."""
     history = []
     for _ in range(n_steps):
-        training_state, metrics = ppo_step(env, training_state, config, optimizer)
+        training_state, metrics = ppo_step(env, training_state, config, optimizer, mesh)
         history.append(metrics)
     if return_history:
         return training_state, {
@@ -496,6 +565,7 @@ def ppo_loss(
     critic_loss_weight: float,
     logging_level: LoggingLevel,
     fused_replay: bool = True,
+    mesh: Optional[Mesh] = None,
 ) -> tuple[torch.Tensor, dict[str, Any]]:
     """Clipped-surrogate PPO loss with replay: re-run the network over
     the stored sequence with its ``rollout_extras`` (a batch-major view:
@@ -506,7 +576,10 @@ def ppo_loss(
     fused form that ``PPOConfig`` selects); bootstrap
     the T+1 value with no extras and no generator; per-reward-key GAE;
     optional team-summed advantages; advantage normalization with the
-    population std; 0.5·MSE critic; module regularization losses.
+    population std; 0.5·MSE critic; module regularization losses. With a
+    ``mesh`` (the minibatch is this rank's block of the global one) the
+    advantage statistics and the critic R² are the global minibatch's,
+    from one all-gather (JAX ``ppo.py:643-646``, where GSPMD reduces).
 
     Returns ``(total_loss, loss_metrics)``; gradients come from
     ``total_loss.backward()``."""
@@ -546,7 +619,21 @@ def ppo_loss(
         else:
             advantages = tree_map(lambda _: summed_advantage, network_output.loglikelihoods)
 
-    if normalize_advantages:
+    r2_pairs = (list(zip(tree_leaves(values), tree_leaves(target_values)))
+                if mesh is not None and LoggingLevel.CRITIC_EXTRA in logging_level else [])
+    if mesh is not None and (normalize_advantages or r2_pairs):
+        # The global minibatch's statistics, every rank's share merged.
+        adv_leaves = tree_leaves(advantages) if normalize_advantages else []
+        stats = all_mean_var_std(
+            adv_leaves + [x for v, t in r2_pairs for x in ((v.detach() - t) ** 2, t)], mesh
+        )
+        adv_stats = iter(stats[: len(adv_leaves)])
+        r2_stats = stats[len(adv_leaves):]
+        if normalize_advantages:
+            advantages = tree_map(
+                lambda a: (a - (s := next(adv_stats))[0]) / (s[2] + 1e-8), advantages
+            )
+    elif normalize_advantages:
         # Population std, as jnp.std (torch's default is unbiased).
         advantages = tree_map(
             lambda a: (a - a.mean()) / (a.std(correction=0) + 1e-8), advantages
@@ -585,11 +672,19 @@ def ppo_loss(
         )
     if LoggingLevel.CRITIC_EXTRA in logging_level:
         loss_metrics["losses/advantages"] = advantages
-        loss_metrics["losses/critic_R^2"] = tree_map(
-            lambda l, tv: 1.0 - 2 * l / (tv.var(correction=0) + 1e-8),
-            critic_losses,
-            target_values,
-        )
+        if mesh is None:
+            loss_metrics["losses/critic_R^2"] = tree_map(
+                lambda l, tv: 1.0 - 2 * l / (tv.var(correction=0) + 1e-8),
+                critic_losses,
+                target_values,
+            )
+        else:
+            # Global critic loss (0.5 · mean squared error) over global var.
+            r2 = iter(
+                1.0 - 2 * (0.5 * sq[0]) / (tv[1] + 1e-8)
+                for sq, tv in zip(r2_stats[0::2], r2_stats[1::2])
+            )
+            loss_metrics["losses/critic_R^2"] = tree_map(lambda _: next(r2), critic_losses)
     total_loss = actor_loss + critic_loss_weight * critic_loss + regularization_loss
     return total_loss, loss_metrics
 
@@ -651,7 +746,8 @@ def train_ppo(
     eval_env: Any = None,
     initial_state: Optional[TrainingState] = None,
     optimizer: Optional[Optimizer] = None,
-    device: Union[str, torch.device] = "cuda",
+    device: Union[str, torch.device, None] = None,
+    mesh: Optional[Mesh] = None,
 ) -> TrainResult:
     """Train a PPO agent, with evaluation every ``config.eval.every_steps``
     (JAX ``ppo.py:707-963``).
@@ -665,6 +761,12 @@ def train_ppo(
     ``config.video.every_steps`` (none without a ``video_fn`` or where the
     eval env has no ``render``); ``video_fn`` alone, with video disabled,
     is ignored, as in JAX.
+
+    ``mesh`` (JAX ``ppo.py:719-810``): data-parallel training, one
+    process per device (``parallel/mesh.py``); every rank calls
+    ``train_ppo`` alike, holds ``config.ppo.n_envs / world_size`` envs,
+    and sees the same parameters, metrics and evaluations. Checkpoint
+    under a mesh with ``make_checkpoint_fn(..., mesh=mesh)``.
     """
     if config is None:
         config = TrainConfig()
@@ -692,7 +794,8 @@ def train_ppo(
 
     if initial_state is None:
         training_state = new_training_state(
-            env, networks, ppo.n_envs, config.seed, optimizer=optimizer, device=device
+            env, networks, ppo.n_envs, config.seed, optimizer=optimizer, device=device,
+            mesh=mesh,
         )
     else:
         training_state = initial_state
@@ -764,7 +867,8 @@ def train_ppo(
         t0 = time.perf_counter()
         prev_steps = steps
         training_state, metrics = ppo_multi_step(
-            env, training_state, ppo, optimizer, spc, return_history=log_fn is not None
+            env, training_state, ppo, optimizer, spc, return_history=log_fn is not None,
+            mesh=mesh,
         )
         n_iterations += 1
         steps = training_state.steps_taken

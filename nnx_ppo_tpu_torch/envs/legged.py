@@ -20,20 +20,24 @@ construction by ``substep_impl`` (JAX's values):
   (``physics/engine.py::mass_matrix_factor``) once per control step and
   handed to the substeps kernel, ``pallas_substeps_per_kernel`` substeps
   per launch. Flat ground, no randomization, no pushes, held factor only;
-* the generic engine (``physics/engine.py::forward_dynamics`` and
-  ``integrate``, eager PyTorch; JAX ``legged.py:760-810``): PD recomputed
-  every substep, the push as an ``external_forces`` point force at the
-  trunk origin, the factor held over the control step under
-  ``reuse_mass_matrix``, domain-randomization ``params`` and terrain.
+* eager PyTorch where no runner is taken (JAX ``legged.py:757-810``):
+  the depth-wise engine (``physics/engine_depthwise.py``; the held
+  explicit inverse ``mass_matrix_inverse_dw`` under
+  ``reuse_mass_matrix``) where the env holds a depth plan, else the
+  generic engine (``physics/engine.py``; the held factor). Either way PD
+  is recomputed every substep, the push is an ``external_forces`` point
+  force at the trunk origin, and domain-randomization ``params`` and
+  terrain apply.
 
 ``substep_impl="auto"`` takes a runner when the model and its features
-are supported (``engine_soa.soa_unsupported_reason``) and otherwise the
-generic engine; ``"pallas"`` takes a runner or raises JAX's
-``ValueError``; ``"xla"`` always takes the generic engine. JAX's
-``depthwise=None`` picks its depth-wise engine on ``"xla"`` where the
-model allows; the port has no depth-wise engine, so ``None`` and
-``False`` both give the generic one (JAX tests the two equal up to
-rounding).
+are supported (``engine_soa.soa_unsupported_reason``) and otherwise
+eager PyTorch; ``"pallas"`` takes a runner or raises JAX's
+``ValueError``; ``"xla"`` always takes eager PyTorch. ``depthwise``
+(JAX ``legged.py:284-300``) picks the eager engine: ``None`` builds the
+depth plan and falls back to the generic engine when the model is
+outside the plan's family (free base, hinges only); ``True`` requires
+the plan (JAX's ``ValueError`` otherwise); ``False`` always takes the
+generic engine.
 
 Randomness: the JAX env carries a key per env in ``State.data`` and
 splits it in ``step``. Here ``reset`` and ``step`` take the caller's one
@@ -42,8 +46,7 @@ per phase (``_draw_reset``, ``_draw_push``, ``_draw_resample``,
 ``_draw_obs_noise``), so that a test can inject another package's draws.
 
 ``render`` rasterizes a trajectory on the host with numpy (JAX
-``legged.py:583-660``). Not ported yet: ``depthwise=True`` raises
-``NotImplementedError``.
+``legged.py:583-660``).
 """
 
 from __future__ import annotations
@@ -61,6 +64,11 @@ from nnx_ppo_tpu_torch.envs.types import State
 from nnx_ppo_tpu_torch.physics import soa
 from nnx_ppo_tpu_torch.physics.cuda_step import make_control_step_runner, make_substep_runner
 from nnx_ppo_tpu_torch.physics.engine import forward_dynamics, integrate, mass_matrix_factor
+from nnx_ppo_tpu_torch.physics.engine_depthwise import (
+    DepthPlan,
+    forward_dynamics_dw,
+    mass_matrix_inverse_dw,
+)
 from nnx_ppo_tpu_torch.physics.engine_soa import (
     soa_features_unsupported_reason,
     soa_unsupported_reason,
@@ -240,11 +248,6 @@ class LeggedJoystick(DeviceConstants):
         pallas_substeps_per_kernel: int = 1,
         pallas_in_kernel_factor: bool = True,
     ):
-        if depthwise:
-            raise NotImplementedError(
-                "depthwise dynamics are not ported yet; depthwise=None or False "
-                "steps the generic engine (or the SoA runners)"
-            )
         if substep_impl not in ("auto", "xla", "pallas"):
             raise ValueError(
                 f"substep_impl must be 'auto'|'xla'|'pallas', got {substep_impl!r}"
@@ -293,6 +296,18 @@ class LeggedJoystick(DeviceConstants):
         # the trunk origin for the whole control step.
         self.push_prob = push_prob
         self.push_force = push_force
+        # The eager engine where no runner is taken: the depth plan
+        # (bodies at equal depth as one batched op) when asked for or
+        # (None) when the model allows, else the generic engine.
+        if depthwise is False:
+            self._plan = None
+        elif depthwise:
+            self._plan = DepthPlan.build(model)
+        else:
+            try:
+                self._plan = DepthPlan.build(model)
+            except ValueError:
+                self._plan = None
 
         self._dr_fields: tuple = ()
         self._kernel_push = False
@@ -652,12 +667,20 @@ class LeggedJoystick(DeviceConstants):
 
     def _generic_substeps(self, q: dict, target: torch.Tensor, dr: Optional[DomainParams],
                           f_push: Optional[list]) -> tuple:
-        """The control step on the generic engine (JAX ``legged.py:760-
-        810``): ``(qpos, qvel, the last substep's foot normal forces)``."""
+        """The control step in eager PyTorch (JAX ``legged.py:757-810``):
+        ``(qpos, qvel, the last substep's foot normal forces)``, on the
+        depth-wise engine where the env holds a plan (with
+        ``reuse_mass_matrix`` the explicit inverse held over the control
+        step, one matvec per substep), else on the generic engine (the
+        held factor)."""
         gain = 1.0 if dr is None or dr.gain_scale is None else dr.gain_scale[:, None]
-        chol = None
+        chol = minv = None
         if self.reuse_mass_matrix:
-            chol = mass_matrix_factor(self.model, q["qpos"], dt=self.physics_dt, params=dr)
+            if self._plan is not None:
+                minv = mass_matrix_inverse_dw(self.model, self._plan, q["qpos"],
+                                              dt=self.physics_dt, params=dr)
+            else:
+                chol = mass_matrix_factor(self.model, q["qpos"], dt=self.physics_dt, params=dr)
         if f_push is not None:
             f_push = torch.stack(f_push, dim=-1)
         qp, qv = q["qpos"], q["qvel"]
@@ -668,10 +691,16 @@ class LeggedJoystick(DeviceConstants):
             # explicit; D implicit via the model's joint damping).
             tau = torch.cat([base, gain * self.kp * (target - qp[:, 7:])], dim=-1)
             ext = [(0, qp[:, 0:3], f_push)] if f_push is not None else None
-            qacc, normals = forward_dynamics(
-                self.model, qp, qv, tau, dt=self.physics_dt, chol=chol, terrain=self.terrain,
-                params=dr, external_forces=ext,
-            )
+            if self._plan is not None:
+                qacc, normals = forward_dynamics_dw(
+                    self.model, self._plan, qp, qv, tau, dt=self.physics_dt, minv=minv,
+                    terrain=self.terrain, params=dr, external_forces=ext,
+                )
+            else:
+                qacc, normals = forward_dynamics(
+                    self.model, qp, qv, tau, dt=self.physics_dt, chol=chol,
+                    terrain=self.terrain, params=dr, external_forces=ext,
+                )
             qp, qv = integrate(self.model, qp, qv, qacc, self.physics_dt)
         return qp, qv, normals[:, : self.n_feet]
 

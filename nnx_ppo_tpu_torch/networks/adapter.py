@@ -86,9 +86,9 @@ class PPOAdapter(StatefulModule):
             "value": self.value.reset_state(prev_state["value"]),
         }
 
-    def update_statistics(self, rollout_extras) -> "PPOAdapter":
-        self.action.update_statistics(rollout_extras["action"])
-        self.value.update_statistics(rollout_extras["value"])
+    def update_statistics(self, rollout_extras, mesh=None) -> "PPOAdapter":
+        self.action.update_statistics(rollout_extras["action"], mesh=mesh)
+        self.value.update_statistics(rollout_extras["value"], mesh=mesh)
         return self
 
     @property

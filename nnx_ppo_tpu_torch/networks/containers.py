@@ -69,9 +69,9 @@ class Sequential(StatefulModule):
             layer.reset_state(s) for layer, s in zip(self.layers, prev_state)
         )
 
-    def update_statistics(self, rollout_extras) -> "Sequential":
+    def update_statistics(self, rollout_extras, mesh=None) -> "Sequential":
         for layer, extras in zip(self.layers, rollout_extras):
-            layer.update_statistics(extras)
+            layer.update_statistics(extras, mesh=mesh)
         return self
 
     def __getitem__(self, ind: int) -> StatefulModule:
@@ -149,9 +149,9 @@ class _NamedContainer(StatefulModule):
     def reset_state(self, prev_state) -> ModuleState:
         return {k: c.reset_state(prev_state[k]) for k, c in self.components.items()}
 
-    def update_statistics(self, rollout_extras) -> "_NamedContainer":
+    def update_statistics(self, rollout_extras, mesh=None) -> "_NamedContainer":
         for k, c in self.components.items():
-            c.update_statistics(rollout_extras[k])
+            c.update_statistics(rollout_extras[k], mesh=mesh)
         return self
 
     def __getitem__(self, key: str) -> StatefulModule:

@@ -505,9 +505,9 @@ class PopulationGraph(StatefulModule):
         final_state = {"populations": final_pop_state, "connections": tuple(new_conn_state)}
         return outputs, reg_total, final_state
 
-    def update_statistics(self, rollout_extras: Any) -> "PopulationGraph":
+    def update_statistics(self, rollout_extras: Any, mesh: Any = None) -> "PopulationGraph":
         for transform, extras in zip(self.transforms, rollout_extras["connections"]):
-            transform.update_statistics(extras)
+            transform.update_statistics(extras, mesh=mesh)
         return self
 
     def initialize_state(self, batch_size: int) -> ModuleState:

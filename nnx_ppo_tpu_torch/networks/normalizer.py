@@ -25,7 +25,7 @@ from torch import nn
 
 from nnx_ppo_tpu_torch.core.struct import tree_leaves, tree_map
 from nnx_ppo_tpu_torch.networks.types import ModuleOutput, StatefulModule
-from nnx_ppo_tpu_torch.ops.welford import batch_moments, merge_moments
+from nnx_ppo_tpu_torch.ops.welford import all_merge_moments, batch_moments, merge_moments
 
 
 def _zeros(shape: Any) -> Any:
@@ -100,18 +100,21 @@ class Normalizer(StatefulModule):
         return True
 
     @torch.no_grad()
-    def update_statistics(self, rollout_extras: Any) -> "Normalizer":
+    def update_statistics(self, rollout_extras: Any, mesh: Optional[Any] = None) -> "Normalizer":
         """Fold the ``[T, B, *feat]`` history of every leaf into its
-        running moments; the shared counter advances by ``T * B``."""
-
-        def fold(mean: torch.Tensor, m2: torch.Tensor, history: torch.Tensor):
-            total, new_mean, new_m2 = merge_moments(
-                (self.counter, mean, m2), batch_moments(history, n_batch_axes=2)
-            )
+        running moments; the shared counter advances by ``T * B``. Under a
+        data-parallel ``mesh`` each rank holds ``[T, B / world_size]`` of
+        the history: the ranks' batch moments are merged in rank order
+        (one all-gather for every leaf) before the fold, so that every
+        rank folds the global history into the same statistics
+        (``normalizer.py:83-117``, where GSPMD merges them)."""
+        means, m2s = self._stats()
+        # The histories in the statistics' leaf order.
+        histories = tree_leaves(tree_map(lambda _, h: h, means, rollout_extras))
+        batches = all_merge_moments([batch_moments(h, n_batch_axes=2) for h in histories], mesh)
+        for mean, m2, batch in zip(tree_leaves(means), tree_leaves(m2s), batches):
+            total, new_mean, new_m2 = merge_moments((self.counter, mean, m2), batch)
             mean.copy_(new_mean)
             m2.copy_(new_m2)
-            return total
-
-        totals = tree_leaves(tree_map(fold, *self._stats(), rollout_extras))
-        self.counter.copy_(totals[0])
+        self.counter.copy_(total)
         return self

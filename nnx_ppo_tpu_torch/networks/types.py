@@ -93,10 +93,12 @@ class StatefulModule(nn.Module):
         """Carry after an episode reset."""
         return prev_state
 
-    def update_statistics(self, rollout_extras: Any) -> "StatefulModule":
+    def update_statistics(self, rollout_extras: Any, mesh: Any = None) -> "StatefulModule":
         """Fold a rollout's ``[T, B, ...]`` snapshots into running
-        statistics, in place. Default: no statistics."""
-        del rollout_extras
+        statistics, in place; under a data-parallel ``mesh``
+        (``parallel/mesh.py``) the statistics of the global history, the
+        same on every rank. Default: no statistics."""
+        del rollout_extras, mesh
         return self
 
     @property

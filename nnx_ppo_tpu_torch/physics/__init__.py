@@ -3,8 +3,8 @@ the model description, the generic engine (CRBA + RNEA + penalty
 contacts) and multi-tree scenes on it, MJCF import, terrain (analytic and
 data), domain randomization, the SoA substep, the control-step,
 plane-sampler and substeps kernels, the general-tree SoA dynamics with
-the scene control-step kernel and spatial algebra. The depth-wise engine
-is not ported yet."""
+the scene control-step kernel, the depth-wise engine and spatial
+algebra."""
 
 from nnx_ppo_tpu_torch.physics.engine import (
     bias_forces,
@@ -14,6 +14,13 @@ from nnx_ppo_tpu_torch.physics.engine import (
     limit_torques,
     mass_matrix,
     step,
+)
+from nnx_ppo_tpu_torch.physics.engine_depthwise import (
+    DepthPlan,
+    forward_dynamics_dw,
+    mass_matrix_dw,
+    mass_matrix_factor_dw,
+    mass_matrix_inverse_dw,
 )
 from nnx_ppo_tpu_torch.physics.mjcf import (
     ActuatorSpec,
@@ -34,6 +41,7 @@ from nnx_ppo_tpu_torch.physics.terrain import HeightGrid, Terrain, rough_terrain
 __all__ = [
     "ActuatorSpec",
     "BALL",
+    "DepthPlan",
     "DomainParams",
     "DomainRandomization",
     "FREE",
@@ -48,12 +56,16 @@ __all__ = [
     "Terrain",
     "bias_forces",
     "forward_dynamics",
+    "forward_dynamics_dw",
     "from_mjcf",
     "from_mjcf_scene",
     "fwd_kinematics",
     "integrate",
     "limit_torques",
     "mass_matrix",
+    "mass_matrix_dw",
+    "mass_matrix_factor_dw",
+    "mass_matrix_inverse_dw",
     "privileged_vector",
     "rough_terrain",
     "scene_forward",

@@ -1,6 +1,7 @@
 """Every public name of the JAX package's subpackages has its
 counterpart in the port, or stands below as an absence by design or as
-one still pending, with its reason. Any other absence fails."""
+one still pending (none now), with its reason. Any other absence
+fails."""
 
 import importlib
 
@@ -23,16 +24,9 @@ BY_DESIGN = {
                            "(csrc/gae.cu)",
 }
 
-# Names still to port, against their ROADMAP Queue 1 item.
-PENDING = {
-    **{("parallel", name): "Queue 1 item 16 (data parallelism)"
-       for name in ("DATA_AXIS", "batch_sharded", "constrain_batch", "constrain_time_batch",
-                    "distributed_initialize", "global_device_put", "make_mesh", "replicated",
-                    "shard_training_state", "training_state_shardings")},
-    **{("physics", name): "Queue 1 item 18 (the depth-wise engine)"
-       for name in ("DepthPlan", "forward_dynamics_dw", "mass_matrix_dw",
-                    "mass_matrix_factor_dw", "mass_matrix_inverse_dw")},
-}
+# Names still to port, against their ROADMAP Queue 1 item: none (the
+# parallel and physics names came with Queue 1 items 16 and 18).
+PENDING: dict = {}
 
 
 def test_the_root_imports_every_subpackage_of_jaxs_and_utils():

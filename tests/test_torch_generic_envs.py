@@ -102,7 +102,7 @@ def legged_xla():
     draws = stack_np([jax_legged_draws(env, k) for k in keys])
     port = QuadrupedJoystick(
         randomize=DomainRandomization(**DR_RANGES), terrain=rough_terrain(**ROUGH),
-        reuse_mass_matrix=True, substep_impl="xla", **LEGGED_KW,
+        reuse_mass_matrix=True, depthwise=False, substep_impl="xla", **LEGGED_KW,
     )
     as_np = lambda s: jax.tree.map(np.asarray, dict(
         data={k: v for k, v in s.data.items() if k != "key"}, obs=s.obs, reward=s.reward,
@@ -223,13 +223,17 @@ def test_manipulation_xla_steps_match_jax(name):
 
 def test_substep_impl_values_pick_the_dynamics_path():
     """"auto" takes a runner where the model and features are supported and
-    the generic engine otherwise; "pallas" takes a runner or raises JAX's
-    ValueError; "xla" always takes the generic engine; anything else is
-    refused as in JAX (nnx_ppo_tpu/envs/legged.py:309-316)."""
+    eager PyTorch otherwise; "pallas" takes a runner or raises JAX's
+    ValueError; "xla" always takes eager PyTorch, on the depth-wise engine
+    (depthwise None or True) or the generic one (False); anything else is
+    refused as in JAX (nnx_ppo_tpu/envs/legged.py:284-316)."""
     assert QuadrupedJoystick()._control_runner is not None
     assert QuadrupedJoystick(substep_impl="pallas")._control_runner is not None
     xla = QuadrupedJoystick(substep_impl="xla", depthwise=False)
-    assert xla._control_runner is None and xla._substep_runner is None
+    assert xla._control_runner is None and xla._substep_runner is None and xla._plan is None
+    for depthwise in (None, True):
+        dw = QuadrupedJoystick(substep_impl="xla", depthwise=depthwise)
+        assert dw._control_runner is None and dw._plan is not None
     # The factor passed in needs the held factor and bare features: on
     # "auto" the env takes the generic engine instead.
     auto = QuadrupedJoystick(pallas_in_kernel_factor=False, terrain=rough_terrain(**ROUGH),
@@ -244,8 +248,10 @@ def test_substep_impl_values_pick_the_dynamics_path():
     for bad in ("triton", "XLA"):
         with pytest.raises(ValueError, match="substep_impl must be"):
             QuadrupedJoystick(substep_impl=bad)
-    with pytest.raises(NotImplementedError, match="depthwise"):
-        QuadrupedJoystick(substep_impl="xla", depthwise=True)
+    # depthwise=True on a model outside the depth plan's family raises
+    # JAX's ValueError (the fixed-base model has no free root).
+    with pytest.raises(ValueError, match="free-base"):
+        LeggedJoystick(fixed, np.zeros(12), 0.3, kp=60.0, action_scale=0.5, depthwise=True)
 
 
 def test_a_model_the_runner_refuses_steps_on_the_generic_engine():

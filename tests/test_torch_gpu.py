@@ -1024,3 +1024,102 @@ def test_a_resumed_run_on_the_card_follows_the_uninterrupted_one(cuda, tmp_path)
     assert gap <= spread, (gap, spread)
     if spread == 0:
         assert all(torch.equal(x, y) for x, y in zip(a, r))
+
+
+# -- the depth-wise engine and world size 1 (data parallelism) ---------------
+
+
+def _dw_states(model, default, B, device):
+    rng = np.random.RandomState(41)
+    qpos = np.tile(default(model), (B, 1)).astype(np.float32)
+    qpos[:, 7:] += 0.2 * rng.randn(B, model.nj).astype(np.float32)
+    qpos[:, 2] += 0.05 * rng.randn(B).astype(np.float32)
+    qvel = (0.5 * rng.randn(B, model.nv)).astype(np.float32)
+    tau = np.concatenate([np.zeros((B, 6)), 2.0 * rng.randn(B, model.nj)], -1)
+    return [torch.tensor(x, dtype=torch.float32, device=device) for x in (qpos, qvel, tau)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["quadruped", "humanoid"])
+def test_depthwise_engine_matches_the_generic_one_on_the_card(cuda, kind):
+    """forward_dynamics_dw on the card against the generic engine on the
+    card at 1024 envs: qacc and normals within the JAX package's rtol
+    2e-4 / atol 2e-3 (tests/test_physics_depthwise.py:39-62); and, with
+    the held inverse, within 5e-4 / 5e-3 of the held factor."""
+    from nnx_ppo_tpu_torch.physics import (
+        DepthPlan, forward_dynamics, forward_dynamics_dw, mass_matrix_factor_dw,
+        mass_matrix_inverse_dw,
+    )
+    from nnx_ppo_tpu_torch.physics.models import humanoid as hu
+
+    model = make_quadruped() if kind == "quadruped" else make_humanoid()
+    args = _dw_states(model, default_qpos if kind == "quadruped" else hu.default_qpos, 1024, cuda)
+    plan = DepthPlan.build(model)
+    got = forward_dynamics_dw(model, plan, *args, dt=0.002)
+    want = forward_dynamics(model, *args, dt=0.002)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-3)
+    held = forward_dynamics_dw(model, plan, *args, dt=0.002,
+                               chol=mass_matrix_factor_dw(model, plan, args[0], dt=0.002))[0]
+    inverse = forward_dynamics_dw(model, plan, *args, dt=0.002,
+                                  minv=mass_matrix_inverse_dw(model, plan, args[0], dt=0.002))[0]
+    torch.testing.assert_close(inverse, held, rtol=5e-4, atol=5e-3)
+
+
+@pytest.mark.gpu
+def test_two_depthwise_runs_on_the_card_are_equal_to_the_bit(cuda):
+    """The quadruped on the depth-wise engine (substep_impl="xla", held
+    inverse, randomization, pushes, rough terrain), two control steps of
+    256 envs from one seed, twice: equal to the bit (the upward sums are
+    fixed gathers, no atomics)."""
+    from nnx_ppo_tpu_torch.physics import DomainRandomization
+
+    def run():
+        env = QuadrupedJoystick(reuse_mass_matrix=True, substep_impl="xla",
+                                randomize=DomainRandomization(), push_prob=0.5,
+                                push_force=50.0, terrain=rough_terrain(seed=2, amplitude=0.03))
+        assert env._plan is not None
+        g = torch.Generator(device=cuda).manual_seed(3)
+        state = env.reset(256, g)
+        for _ in range(2):
+            state = env.step(state, torch.rand((256, 12), generator=g, device=cuda) * 2 - 1, g)
+        return state.data
+
+    a, b = run(), run()
+    for key in ("qpos", "qvel"):
+        assert torch.equal(a[key], b[key]), key
+
+
+@pytest.mark.gpu
+def test_world_size_1_on_nccl_equals_the_run_without_a_mesh(cuda, tmp_path):
+    """ppo_step with make_mesh() at world size 1 on NCCL (every collective
+    runs, over one rank) equals the step without a mesh to the bit, two
+    steps of the flagship-shaped config at 256 envs."""
+    import torch.distributed as dist
+
+    from nnx_ppo_tpu_torch.parallel import distributed_initialize, make_mesh
+
+    def run(mesh):
+        env = EpisodeWrapper(CartpoleBalance(), 500)
+        net = make_mlp_actor_critic(5, 1, [64] * 2, [256], 0, normalize_obs=True)
+        cfg = PPOConfig(n_envs=256, rollout_length=16, n_epochs=2, n_minibatches=4)
+        opt = make_optimizer(cfg.learning_rate)
+        ts = new_training_state(env, net, 256, seed=0, optimizer=opt,
+                                device=None if mesh else cuda, mesh=mesh)
+        for _ in range(2):
+            ts, metrics = ppo_step(env, ts, cfg, opt, mesh)
+        return ts, metrics
+
+    assert not dist.is_initialized()
+    distributed_initialize(backend="nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                           rank=0, world_size=1)
+    try:
+        got, got_metrics = run(make_mesh())
+    finally:
+        dist.destroy_process_group()
+    want, want_metrics = run(None)
+    for (name, a), b in zip(got.networks.state_dict().items(), want.networks.state_dict().values()):
+        assert torch.equal(a, b), name
+    for key in want_metrics:
+        assert torch.equal(torch.as_tensor(got_metrics[key]), torch.as_tensor(want_metrics[key])), key
+    assert torch.equal(got.env_states.obs, want.env_states.obs)

@@ -55,6 +55,7 @@ from nnx_ppo_tpu_torch.physics.cuda_step import (
     plane_sampler_cuda,
     substeps_cuda,
 )
+from nnx_ppo_tpu_torch.physics.models import make_quadruped
 from nnx_ppo_tpu_torch.physics.terrain import rough_terrain
 from nnx_ppo_tpu_torch.wrappers import EpisodeWrapper
 
@@ -274,7 +275,11 @@ def test_exact_mode_is_the_default_and_differs_from_held():
         # The importer is ported: an MJCF without a jointed body is
         # refused as in JAX (nnx_ppo_tpu/physics/mjcf.py:487).
         (lambda: legged_from_mjcf("<mujoco/>"), ValueError, "no jointed bodies"),
-        (lambda: QuadrupedJoystick(depthwise=True), NotImplementedError, "depthwise"),
+        # depthwise=True on a model outside the depth plan's family (a
+        # slide joint) raises JAX's ValueError; on the quadruped it builds.
+        (lambda: LeggedJoystick(dataclasses.replace(make_quadruped(), joint_type=(
+            ("free",) + ("slide",) * 12)), np.zeros(12), 0.35, kp=40.0, action_scale=0.1,
+            depthwise=True), ValueError, "hinge joints only"),
         # A terrain that is neither analytic nor a HeightGrid is refused by
         # the kernel path (on "auto" the env takes the generic engine, as
         # JAX's does).
