@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--profile DIR] [--learn N] [--variants] [--phases]
     python3 chip_smoke.py --ab-kernels [--package-root DIR]
+    python3 chip_smoke.py --learn-examples [NAME ...]
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -136,7 +137,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    statistics and optimizer moments equal to the bit across the ranks,
    and each rank's step ms (no scaling measured: both ranks share one
    GPU and stage the collectives through the host). A rank that fails
-   fails the run.
+   fails the run;
+8. examples: every script of nnx_ppo_tpu_torch/examples/ through its
+   main (build, then train_ppo / train_distillation) at its own n_envs
+   and widths, 2 steps per training call and one eval (at step 0, the
+   script's eval n_envs, 50 steps); legged_training.py as four variants
+   (the exact-factor quadruped; --env humanoid --full-contact; --rough
+   --hfield --randomize --privileged --push --obs-noise 0.05
+   --fast-mass-matrix; --stairs); mjcf_import.py --from-saved;
+   multihost_dp.py under torchrun --standalone --nproc_per_node=1
+   --distributed, its exit code checked. Each training call's launches,
+   counts set to 0 just before and read just after: GAE once per
+   minibatch update, the example's physics kernels once per env step of
+   rollout and eval, every other kernel 0; each script's CSV holds the
+   JAX script's columns and finite values.
 
 It prints a ``kernels`` JSON line (each kernel's design, and its
 registers, stack, spills and shared memory from ptxas and the launch), the
@@ -157,9 +171,20 @@ version and timed with CUDA events, in one order and then the reverse;
 ``--phases`` also builds copies of the control-step and scene kernels that
 read the SM's clock at every barrier of the first env's lanes (under
 build/phase_csrc/) and prints the cycles of each phase at the paths'
-shapes. ``--ab-kernels`` runs only the device line and the timing of GAE
-and the plane sampler at the paths' shapes (wrapper, profiler, CUDA
-graph), printing an ``ab_kernels`` JSON line; ``--package-root DIR``
+shapes. ``--learn-examples [NAME ...]`` runs only the device line and the
+learning runs of the example scripts (all six without a NAME; not in the
+default run): learning_curves (seed 17, 1,003,520 steps), quadruped
+(legged_training.py, exact factor, seed 0, 10,035,200), humanoid (the
+same with --env humanoid), reacher (arm_reaching.py, 6,553,600), each
+gated on the JAX package's recorded curve in benchmarks/results/ (the
+port's rise from its step-0 eval to its eval at the budget at least half
+the JAX curve's rise at the same step; where the first seed fails, two more
+seeds and the median of three), and pusher (arm_pushing.py, 9,625,600)
+and distill (distill_quadruped.py, teacher 10,035,200, student
+2,048,000), reported; curves and a JSON summary under
+chiprun_out/learn_examples/. ``--ab-kernels`` runs only the device line
+and the timing of GAE and the plane sampler at the paths' shapes
+(wrapper, profiler, CUDA graph), printing an ``ab_kernels`` JSON line; ``--package-root DIR``
 imports nnx_ppo_tpu_torch from DIR instead, so that another checkout (the
 parent commit's, unpacked with ``git archive``) is timed by the same
 script in the same chip call.
@@ -169,15 +194,19 @@ from __future__ import annotations
 
 import argparse
 import copy
+import csv
 import dataclasses
+import functools
 import importlib
 import json
+import math
 import os
 import re
 import shutil
 import subprocess
 import sys
 import time
+from unittest import mock
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -3502,6 +3531,420 @@ def step_split_phase(torch, label: str, env, config, state, profile_dir: str) ->
     return out
 
 
+# -- the example scripts (nnx_ppo_tpu_torch/examples/) ---------------------------------
+
+EXAMPLE_PPO_STEPS = 2  # PPO (or distillation) steps per training call in examples_phase
+EXAMPLE_EVAL_LENGTH = 50  # the step-0 eval's episode length in examples_phase
+# label -> (script, argv): every script of nnx_ppo_tpu_torch/examples/ at its own
+# n_envs and widths, legged_training.py as four variants; multihost_dp.py runs
+# under torchrun (--distributed).
+EXAMPLES = {
+    "learning_curves": ("learning_curves", []),
+    "legged_training": ("legged_training", []),
+    "legged_training_humanoid_full": ("legged_training", ["--env", "humanoid", "--full-contact"]),
+    "legged_training_rough_hfield": ("legged_training", [
+        "--rough", "--hfield", "--randomize", "--privileged", "--push", "--obs-noise", "0.05",
+        "--fast-mass-matrix"]),
+    "legged_training_stairs": ("legged_training", ["--stairs"]),
+    "arm_reaching": ("arm_reaching", []),
+    "arm_pushing": ("arm_pushing", []),
+    "distill_quadruped": ("distill_quadruped", []),
+    "mjcf_import": ("mjcf_import", ["--from-saved"]),
+    "joystick_locomotion": ("joystick_locomotion", []),
+    "multihost_dp": ("multihost_dp", ["--distributed"]),
+    "wandb_logging": ("wandb_logging", []),
+}
+# The physics kernels each example launches once per env step (rollout and
+# eval); every other kernel but GAE must stay at 0.
+EXAMPLE_PHYSICS = {
+    "legged_training": ("control_step_cuda",),
+    "legged_training_humanoid_full": ("control_step_cuda",),
+    "legged_training_rough_hfield": ("control_step_cuda", "plane_sampler_cuda"),
+    "legged_training_stairs": ("control_step_cuda",),
+    "arm_reaching": ("scene_step_cuda",),
+    "arm_pushing": ("scene_step_cuda",),
+    "distill_quadruped": ("control_step_cuda",),
+    "mjcf_import": ("control_step_cuda",),
+}
+# The CSV columns of the JAX scripts that write one.
+EXAMPLE_CSV_COLUMNS = {
+    "learning_curves": ["impl", "step", "reward_mean", "reward_std"],
+    "legged_training": ["step", "tracking", "penalty", "lifespan"],
+    "arm_reaching": ["step", "reward"],
+    "arm_pushing": ["step", "reward"],
+}
+
+
+def example_kernel_specs(names: list | None = None) -> set:
+    """The kernel libraries of the examples' envs (built on the CPU here,
+    their runners' specs read): those of examples_phase, or of the
+    ``--learn-examples`` runs ``names``."""
+    if names is None:
+        runs = [EXAMPLES[label] for label in EXAMPLE_PHYSICS]
+    else:
+        runs = [(LEARN_EXAMPLES[n]["script"], LEARN_EXAMPLES[n]["argv"]) for n in names]
+    specs = set()
+    for script, argv in runs:
+        module = importlib.import_module(f"nnx_ppo_tpu_torch.examples.{script}")
+        env = module.build(module.make_parser().parse_args(argv), "cpu")[0].env
+        for runner in (getattr(env, "_control_runner", None), getattr(env, "_scene_runner", None)):
+            if runner is not None:
+                specs.update(getattr(runner, "kernel_specs", [runner.kernel_spec]))
+    return specs
+
+
+def example_out_argv(script: str, path: str) -> list:
+    """The argv that sends a script's curve to ``path`` (none for the
+    scripts that write no CSV)."""
+    if script == "learning_curves":
+        return [path]
+    return ["--out", path] if script in EXAMPLE_CSV_COLUMNS else []
+
+
+def shrink_example_config(cfg):
+    """``cfg`` (a TrainConfig or a DistillationTrainConfig) cut to
+    EXAMPLE_PPO_STEPS steps at its own n_envs and rollout length, with one
+    eval (at step 0) of EXAMPLE_EVAL_LENGTH steps at its own eval n_envs."""
+    key = "ppo" if hasattr(cfg, "ppo") else "distillation"
+    inner = getattr(cfg, key)
+    total = EXAMPLE_PPO_STEPS * inner.n_envs * inner.rollout_length
+    changes = {"total_steps": total}
+    if hasattr(inner, "steps_per_call"):
+        changes["steps_per_call"] = min(inner.steps_per_call, EXAMPLE_PPO_STEPS)
+    evaluation = dataclasses.replace(cfg.eval, max_episode_length=EXAMPLE_EVAL_LENGTH,
+                                     every_steps=total + 1)
+    return dataclasses.replace(cfg, **{key: dataclasses.replace(inner, **changes),
+                                       "eval": evaluation})
+
+
+def counted_training(torch, fn, wrappers: list, calls: list, count_nonfinite: bool = False):
+    """``fn`` (train_ppo or train_distillation) with every kernel's launch
+    count set to 0 just before the call and read just after; appends the
+    call's launches, wall, env steps, eval steps and the count of
+    non-finite losses (``count_nonfinite``: through a log_fn, where the
+    caller passed none) to ``calls``."""
+
+    def run(env, *args, **kwargs):
+        config = args[-1]
+        inner = config.ppo if hasattr(config, "ppo") else config.distillation
+        nonfinite = [0]
+        if count_nonfinite and kwargs.get("log_fn") is None:
+            def log_fn(metrics, step):
+                nonfinite[0] += sum(
+                    1 for k, v in metrics.items()
+                    if k.startswith("losses/") and not bool(torch.isfinite(torch.as_tensor(v)).all()))
+            kwargs["log_fn"] = log_fn
+        for w in wrappers:
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn(env, *args, **kwargs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        eval_steps = len(result.eval_history) * config.eval.max_episode_length
+        calls.append({
+            "fn": fn.__name__, "launches": {w.__name__: w.launches for w in wrappers},
+            "wall_s": wall, "env_steps": int(result.total_steps), "eval_steps": eval_steps,
+            "sps": result.total_steps / wall, "steps": result.total_steps
+            // (inner.n_envs * inner.rollout_length),
+            "rollout_length": inner.rollout_length,
+            "updates_per_step": (inner.n_epochs * inner.n_minibatches
+                                 if fn.__name__ == "train_ppo" else 0),
+            "nonfinite_losses": nonfinite[0],
+            "eval_history": [{k: float(v) for k, v in row.items()} for row in result.eval_history],
+        })
+        return result
+
+    return run
+
+
+def run_example(torch, label: str, script: str, argv: list, wrappers: list, adjust,
+                count_nonfinite: bool = False, build_kwargs: dict | None = None) -> dict:
+    """``main(argv)`` of ``nnx_ppo_tpu_torch.examples.<script>`` on the card,
+    its ``build`` wrapped so that ``adjust`` rewrites the config(s) it
+    returns, each training call counted (``counted_training``); the
+    distillation example's ``eval_tracking`` cut to EXAMPLE_EVAL_LENGTH
+    steps where ``adjust`` is the examples phase's. Returns the calls and
+    what ``main`` returned."""
+    module = importlib.import_module(f"nnx_ppo_tpu_torch.examples.{script}")
+    calls: list = []
+    build = module.build
+
+    def adjusted_build(args, device):
+        env, nets, cfg = build(args, device, **(build_kwargs or {}))
+        cfg = tuple(map(adjust, cfg)) if isinstance(cfg, tuple) else adjust(cfg)
+        return env, nets, cfg
+
+    patches = {"build": adjusted_build}
+    for name in ("train_ppo", "train_distillation"):
+        if hasattr(module, name):
+            patches[name] = counted_training(torch, getattr(module, name), wrappers, calls,
+                                             count_nonfinite)
+    if hasattr(module, "eval_tracking") and adjust is shrink_example_config:
+        patches["eval_tracking"] = functools.partial(module.eval_tracking,
+                                                     length=EXAMPLE_EVAL_LENGTH)
+    t0 = time.perf_counter()
+    with mock.patch.multiple(module, **patches):
+        returned = module.main(argv)
+    return {"label": label, "argv": argv, "calls": calls, "returned": returned,
+            "wall_s": time.perf_counter() - t0}
+
+
+def expected_example_launches(label: str, call: dict, wrappers: list) -> dict:
+    """Each kernel's launches in one training call of example ``label``:
+    GAE once per minibatch update (all reward keys in one launch), each of
+    the example's physics kernels once per env step of the rollout and of
+    the eval, every other kernel 0."""
+    physics = EXAMPLE_PHYSICS.get(label, ())
+    env_steps = call["steps"] * call["rollout_length"] + call["eval_steps"]
+    want = {w.__name__: 0 for w in wrappers}
+    want["gae_cuda"] = call["steps"] * call["updates_per_step"]
+    for name in physics:
+        want[name] = env_steps
+    return want
+
+
+def example_worker(label: str, out_path: str) -> int:
+    """One example under torchrun (``chip_smoke.py --example-worker``):
+    ``run_example`` as in examples_phase, its calls written to
+    ``out_path`` as JSON."""
+    import torch
+
+    from nnx_ppo_tpu_torch.ops.gae import gae_cuda
+    from nnx_ppo_tpu_torch.physics.cuda_scene_step import scene_step_cuda
+    from nnx_ppo_tpu_torch.physics.cuda_step import (
+        control_step_cuda,
+        plane_sampler_cuda,
+        substeps_cuda,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wrappers = [gae_cuda, control_step_cuda, plane_sampler_cuda, substeps_cuda, scene_step_cuda]
+    script, argv = EXAMPLES[label]
+    row = run_example(torch, label, script, argv, wrappers, shrink_example_config)
+    with open(out_path, "w") as f:
+        json.dump({"calls": row["calls"], "wall_s": row["wall_s"]}, f)
+    return 0
+
+
+def torchrun_command() -> list:
+    """torchrun, or the same launcher as a module where no script is on PATH."""
+    launcher = shutil.which("torchrun")
+    return [launcher] if launcher else [sys.executable, "-m", "torch.distributed.run"]
+
+
+def examples_phase(torch, wrappers: list, card: str) -> dict:
+    """Every example script on the card through its ``main`` (``build``,
+    then train_ppo / train_distillation): at its own n_envs and widths,
+    EXAMPLE_PPO_STEPS steps per training call, one eval at its eval n_envs
+    cut to EXAMPLE_EVAL_LENGTH steps; each training call's launches held
+    to ``expected_example_launches`` (a physics example that never reaches
+    its kernel, or steps the eager engine instead, fails); the CSV of each
+    script that writes one holds the JAX script's columns and finite
+    values. multihost_dp.py runs under ``torchrun --standalone
+    --nproc_per_node=1`` (``--example-worker``), its exit code checked."""
+    out_dir = os.path.join("build", "examples")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t_phase = time.perf_counter()
+    rows = {}
+    for label, (script, argv) in EXAMPLES.items():
+        csv_path = os.path.join(out_dir, f"{label}.csv")
+        if label == "multihost_dp":
+            out_json = os.path.join(out_dir, f"{label}.json")
+            command = torchrun_command() + ["--standalone", "--nproc_per_node=1",
+                                            os.path.abspath(__file__), "--example-worker",
+                                            label, out_json]
+            t0 = time.perf_counter()
+            proc = subprocess.run(command, capture_output=True, text=True, timeout=600)
+            check(proc.returncode == 0,
+                  f"example {label} under torchrun exited {proc.returncode}:\n"
+                  f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+            with open(out_json) as f:
+                row = dict(json.load(f), label=label, argv=argv, returned=None)
+            row["wall_s"] = time.perf_counter() - t0
+            row["exit_code"] = proc.returncode
+        else:
+            argv = argv + example_out_argv(script, csv_path)
+            # The GPU machine has wandb installed but no network, and no
+            # API key: hidden here, so that wandb_logging.py takes the
+            # stdout path it takes where wandb is not installed (a real
+            # wandb.init would try to reach the wandb server).
+            with mock.patch.dict(sys.modules, {"wandb": None} if script == "wandb_logging"
+                                 else {}):
+                row = run_example(torch, label, script, argv, wrappers, shrink_example_config)
+        check(len(row["calls"]) == (2 if script == "distill_quadruped" else 1),
+              f"example {label}: training calls {[c['fn'] for c in row['calls']]}")
+        for call in row["calls"]:
+            want = expected_example_launches(label, call, wrappers)
+            check(call["launches"] == want,
+                  f"example {label}, {call['fn']}: launches {call['launches']}, want {want}")
+            check(call["steps"] == EXAMPLE_PPO_STEPS, f"example {label}: {call['steps']} steps")
+            for entry in call["eval_history"]:
+                check(all(math.isfinite(v) for v in entry.values()),
+                      f"example {label}: eval {entry}")
+        if script in EXAMPLE_CSV_COLUMNS:
+            with open(csv_path, newline="") as f:
+                table = list(csv.reader(f))
+            check(table[0] == EXAMPLE_CSV_COLUMNS[script], f"example {label}: CSV header {table[0]}")
+            check(len(table) - 1 == len(row["calls"][0]["eval_history"]),
+                  f"example {label}: {len(table) - 1} CSV rows")
+            values = [x for r in table[1:] for x in r if x != "nnx_ppo_tpu_torch"]
+            check(all(math.isfinite(float(x)) for x in values), f"example {label}: CSV values")
+        if script == "distill_quadruped":
+            check(all(math.isfinite(v) for v in row["returned"].values()),
+                  f"example {label}: {row['returned']}")
+        steps = sum(c["env_steps"] for c in row["calls"])
+        wall = sum(c["wall_s"] for c in row["calls"])
+        launches = {w.__name__: sum(c["launches"][w.__name__] for c in row["calls"])
+                    for w in wrappers}
+        rows[label] = {"argv": row["argv"], "env_steps": steps, "training_wall_s": wall,
+                       "sps": steps / wall, "script_wall_s": row["wall_s"],
+                       "launches": launches,
+                       "calls": [{k: v for k, v in c.items() if k != "eval_history"}
+                                 for c in row["calls"]]}
+        print(f"example {label}: argv {' '.join(row['argv'])!r}; {steps} env steps in "
+              f"{wall:.2f} s of training calls (the step-0 eval and set-up inside), sps "
+              f"{steps / wall:.1f}; script {row['wall_s']:.2f} s; launches {launches} on {card}")
+    total = time.perf_counter() - t_phase
+    print(f"examples phase: {total:.1f} s for {len(EXAMPLES)} example runs on {card}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"rows": rows, "seconds": total}
+
+
+# --learn-examples: name -> the run, its env-step budget, the eval cadence
+# (env steps; each curve's last eval lands at the budget), the seeds (the
+# first, then two more where a gate fails), the JAX package's recorded curve
+# in benchmarks/results/ and the columns gated on it (none: reported only).
+LEARN_EXAMPLES = {
+    "learning_curves": dict(script="learning_curves", argv=[], budget=1_003_520,
+                            every=143_360, seeds=(17, 18, 19),
+                            jax_curve="cartpole_learning_curve.csv", columns=("reward_mean",)),
+    "quadruped": dict(script="legged_training", argv=[], budget=10_035_200, every=1_433_600,
+                      seeds=(0, 1, 2), jax_curve="quadruped_curve.csv", columns=("tracking",)),
+    "humanoid": dict(script="legged_training", argv=["--env", "humanoid"], budget=10_035_200,
+                     every=1_433_600, seeds=(0, 1, 2), jax_curve="humanoid_curve.csv",
+                     columns=("lifespan", "tracking")),
+    "reacher": dict(script="arm_reaching", argv=[], budget=6_553_600, every=1_638_400,
+                    seeds=(0, 1, 2), jax_curve="reacher_curve.csv", columns=("reward",)),
+    "pusher": dict(script="arm_pushing", argv=[], budget=9_625_600, every=9_625_600,
+                   seeds=(0,), jax_curve="pusher_curve.csv", columns=("reward",),
+                   gated=False),
+    "distill": dict(script="distill_quadruped", argv=["--teacher-steps", "10035200",
+                                                      "--distill-steps", "2048000"],
+                    budget=2_048_000, every=2_048_000, seeds=(None,), jax_curve=None,
+                    columns=(), gated=False),
+}
+LEARN_GATE_SHARE = 0.5  # the port's rise must reach this share of the JAX curve's
+
+
+def jax_curve_rise(name: str, budget: int, column: str) -> tuple[float, float]:
+    """The JAX package's recorded value of ``column`` at step 0 and at
+    ``budget`` (``benchmarks/results/<name>``; the cart-pole file's own
+    rows, impl ``nnx_ppo_tpu``)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmarks", "results", name)
+    with open(path, newline="") as f:
+        rows = [r for r in csv.DictReader(f) if r.get("impl", "nnx_ppo_tpu") == "nnx_ppo_tpu"]
+    at = {int(r["step"]): float(r[column]) for r in rows}
+    return at[0], at[budget]
+
+
+def learn_run(torch, name: str, seed, wrappers: list, out_dir: str, card: str) -> dict:
+    """One learning run of ``--learn-examples``: the script's ``main`` at
+    its full configuration for the run's budget, its evals every
+    ``every`` env steps; the curve it writes is read back."""
+    spec = LEARN_EXAMPLES[name]
+    script, budget, every = spec["script"], spec["budget"], spec["every"]
+    csv_path = os.path.join(out_dir, f"{name}_seed{seed}.csv")
+    argv = list(spec["argv"]) + example_out_argv(script, csv_path)
+    build_kwargs = None
+    if script == "learning_curves":
+        build_kwargs = {"total_steps": budget, "seed": seed}
+    elif seed is not None:
+        argv += ["--total-steps", str(budget), "--seed", str(seed)]
+
+    def adjust(cfg):
+        # The run with evals: the teacher of the distillation has none.
+        if cfg.eval.enabled:
+            inner = cfg.ppo if hasattr(cfg, "ppo") else cfg.distillation
+            check(inner.total_steps == budget, f"{name}: budget")
+            cfg = dataclasses.replace(cfg, eval=dataclasses.replace(cfg.eval, every_steps=every))
+        return cfg
+
+    row = run_example(torch, name, script, argv, wrappers, adjust, count_nonfinite=True,
+                      build_kwargs=build_kwargs)
+    curve = []
+    if spec["columns"]:
+        with open(csv_path, newline="") as f:
+            curve = list(csv.DictReader(f))
+    for entry in curve:
+        print(f"learn {name} seed {seed} eval: {dict(entry)}")
+    for call in row["calls"]:
+        print(f"learn {name} seed {seed}: {call['fn']} {call['env_steps']} env steps in "
+              f"{call['wall_s']:.1f} s, sps {call['sps']:.1f} (evals inside), launches "
+              f"{call['launches']}, non-finite losses {call['nonfinite_losses']} on {card}")
+        check(call["nonfinite_losses"] == 0, f"learn {name}: non-finite losses")
+    return {"seed": seed, "curve": curve, "calls": [
+        {k: v for k, v in c.items() if k != "eval_history"} for c in row["calls"]],
+        "returned": row["returned"], "csv": csv_path if curve else None}
+
+
+def learn_examples_phase(torch, names: list, wrappers: list, card: str) -> dict:
+    """The learning runs of the example scripts (``--learn-examples``), each
+    held to the JAX package's recorded curve where gated: the port's rise
+    from its step-0 eval to its eval at the budget at least LEARN_GATE_SHARE
+    of the JAX curve's rise at the same step, on the first seed, or on the
+    median rise of three seeds where the first fails. Every run is made
+    before a failed gate fails the phase."""
+    out_dir = os.path.join("chiprun_out", "learn_examples")
+    os.makedirs(out_dir, exist_ok=True)
+    results, failed = {}, []
+    for name in names:
+        spec = LEARN_EXAMPLES[name]
+        runs = [learn_run(torch, name, spec["seeds"][0], wrappers, out_dir, card)]
+        gates = {}
+        for column in spec["columns"]:
+            j0, j1 = jax_curve_rise(spec["jax_curve"], spec["budget"], column)
+            gates[column] = {"jax_first": j0, "jax_at_budget": j1, "jax_rise": j1 - j0,
+                             "needed": LEARN_GATE_SHARE * (j1 - j0)}
+
+        def rises(run):
+            curve = run["curve"]
+            check(int(curve[-1]["step"]) == spec["budget"] and int(curve[0]["step"]) == 0,
+                  f"learn {name}: evals at steps {[r['step'] for r in curve]}")
+            return {c: float(curve[-1][c]) - float(curve[0][c]) for c in spec["columns"]}
+
+        if spec["columns"]:
+            first = rises(runs[0])
+            passed = all(first[c] >= g["needed"] for c, g in gates.items())
+            if spec.get("gated", True) and not passed:
+                runs += [learn_run(torch, name, s, wrappers, out_dir, card)
+                         for s in spec["seeds"][1:]]
+            per_seed = [rises(r) for r in runs]
+            for column, gate in gates.items():
+                values = sorted(r[column] for r in per_seed)
+                gate["port_rises"] = [r[column] for r in per_seed]
+                gate["port_rise"] = values[len(values) // 2]
+                gate["passed"] = gate["port_rise"] >= gate["needed"]
+                print(f"learn {name} {column}: port rise {gate['port_rise']:.3f} "
+                      f"({'median of seeds ' if len(runs) > 1 else 'seed '}"
+                      f"{[r['seed'] for r in runs]}: {gate['port_rises']}) against the JAX "
+                      f"curve's {gate['jax_first']} -> {gate['jax_at_budget']} at step "
+                      f"{spec['budget']} (rise {gate['jax_rise']:.3f}); gate "
+                      f"{'>=' if spec.get('gated', True) else 'reported, no gate;'} "
+                      f"{gate['needed']:.3f}: "
+                      f"{'passed' if gate['passed'] else 'FAILED'}")
+                if spec.get("gated", True) and not gate["passed"]:
+                    failed.append(f"{name} {column}")
+        if spec["script"] == "distill_quadruped":
+            print(f"learn {name}: {runs[0]['returned']}")
+        results[name] = {"runs": runs, "gates": gates}
+    with open(os.path.join(out_dir, "learn_examples.json"), "w") as f:
+        json.dump(results, f, indent=1, default=str)
+    check(not failed, f"learn-examples gates failed: {failed}")
+    return results
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR", default=None)
@@ -3510,12 +3953,18 @@ def main() -> int:
     parser.add_argument("--phases", action="store_true")
     parser.add_argument("--ab-kernels", action="store_true")
     parser.add_argument("--package-root", metavar="DIR", default=None)
+    parser.add_argument("--learn-examples", metavar="NAME", nargs="*", default=None,
+                        choices=sorted(LEARN_EXAMPLES))
     parser.add_argument("--rank-worker", nargs=3, metavar=("RANK", "STORE", "OUT_DIR"),
+                        default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--example-worker", nargs=2, metavar=("LABEL", "OUT_JSON"),
                         default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.rank_worker:
         rank, store, out_dir = args.rank_worker
         return rank_worker(int(rank), store, out_dir)
+    if args.example_worker:
+        return example_worker(*args.example_worker)
     if args.package_root:
         # Import nnx_ppo_tpu_torch from another checkout (--ab-kernels).
         sys.path.insert(0, os.path.abspath(args.package_root))
@@ -3541,6 +3990,20 @@ def main() -> int:
 
     card = card_line()
     print(f"card: {card}")
+    if args.learn_examples is not None:
+        wrappers = [gae_cuda, control_step_cuda, plane_sampler_cuda, substeps_cuda,
+                    scene_step_cuda]
+        t0 = time.perf_counter()
+        names = args.learn_examples or list(LEARN_EXAMPLES)
+        cuda_build.build(sorted(example_kernel_specs(names=names)))
+        print(f"build: {time.perf_counter() - t0:.2f} s")
+        learn_examples_phase(torch, names, wrappers, card)
+        print(f"run: {time.perf_counter() - t_start:.1f} s")
+        print(f"card: {card}")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                   "kind": torch.cuda.get_device_name(0),
+                                                   "count": torch.cuda.device_count()}}))
+        return 0
     if args.ab_kernels:
         print(json.dumps({"ab_kernels": ab_kernels_phase(torch)}))
         print(f"card: {card}")
@@ -3560,6 +4023,9 @@ def main() -> int:
     specs.update(sampler_variant(sampler_plan, group, 128).sampler_spec for group in SAMPLER_GROUPS)
     # The scene kernel at the pusher's and at the reacher's sizes.
     specs.update(scene_step_case(name, torch)[0].kernel_spec for name in SCENE_STEP_CASES)
+    # The example scripts' envs at their own sizes (the humanoid with foot
+    # pairs and limits, the stairs, the randomized data terrain).
+    specs.update(example_kernel_specs())
     # With --profile, also print what ptxas says of each kernel
     # (registers, stack, spills).
     cuda_build.build(["gae", *sorted(specs)], verbose=bool(args.profile))
@@ -3811,6 +4277,8 @@ def main() -> int:
                       "depthwise_repeat": depthwise_repeat,
                       "world_size_1": world_size_1, "two_rank": two_rank}))
     print(f"data-parallel phases: {time.perf_counter() - t_parallel:.1f} s")
+    examples = examples_phase(torch, wrappers, card)
+    print(json.dumps({"examples": examples}))
     if args.learn:
         learning_phase(torch, args.learn)
     if args.phases:
@@ -3831,6 +4299,8 @@ def main() -> int:
     for label, row in two_rank.items():
         for rank, launches in enumerate(row["launches"]):
             by_path[f"two_rank_{label}_rank{rank}"] = dict(none, **launches)
+    by_path.update({f"example_{label}": row["launches"]
+                    for label, row in examples["rows"].items()})
     kernel_rows = {
         "gae_cuda": gae_kernel, "control_step_cuda": control_kernel,
         "plane_sampler_cuda": sampler_kernel, "substeps_cuda": substeps_kernel,
