@@ -149,8 +149,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    --distributed, its exit code checked. Each training call's launches,
    counts set to 0 just before and read just after: GAE once per
    minibatch update, the example's physics kernels once per env step of
-   rollout and eval, every other kernel 0; each script's CSV holds the
-   JAX script's columns and finite values.
+   rollout and eval, every other kernel 0; each call's evals timed apart
+   from its PPO steps; each script's CSV holds its own columns
+   (``CSV_FIELDS``) and finite values; wandb_logging.py, where wandb is
+   installed, takes its wandb path in offline mode (no network: the run's
+   summary must hold every metric logged as a 0-d CUDA tensor, and its run
+   file must be written). Every control-step and scene-step build these
+   scripts launch is held to its plain version to the bit at the script's
+   n_envs in the kernels phase.
 
 It prints a ``kernels`` JSON line (each kernel's design, and its
 registers, stack, spills and shared memory from ptxas and the launch), the
@@ -193,6 +199,7 @@ script in the same chip call.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import csv
 import dataclasses
@@ -206,6 +213,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 from unittest import mock
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
@@ -724,48 +732,83 @@ MAX_BLOCK_SMEM_BYTES = 232448
 
 def control_step_case(name: str, torch, batch: int | None = None):
     """(plan, args on the card) of one control-step configuration, 10
-    substeps of 2 ms: the quadruped at kp=60 from states near the standing
-    pose with some feet in contact; the humanoid at kp=350 from states near
-    the standing pose with some feet on the ground and, in every other env,
-    the two feet's spheres pressed together
-    (``physics/testing.py::humanoid_states``); the MJCF quadruped at its
-    imported kp (60) from states near its crouch (``DEFAULT_POSE`` at
-    0.312 m), built from the saved import, with its own sizes (4 ground
-    geoms where the native quadruped has 8)."""
-    import numpy as np
-
+    substeps of 2 ms: the quadruped at kp=60; the humanoid at kp=350; the
+    MJCF quadruped at its imported kp (60), built from the saved import,
+    with its own sizes (4 ground geoms where the native quadruped has 8);
+    each on the states of :func:`control_step_args`."""
     from nnx_ppo_tpu_torch.physics.cuda_step import ControlStepPlan
     from nnx_ppo_tpu_torch.physics.models import make_humanoid, mjcf_quadruped
-    from nnx_ppo_tpu_torch.physics.models.quadruped import default_qpos, make_quadruped
+    from nnx_ppo_tpu_torch.physics.models.quadruped import make_quadruped
     from nnx_ppo_tpu_torch.physics.terrain import rough_terrain
-    from nnx_ppo_tpu_torch.physics.testing import humanoid_states, standing_states
 
     model_name, B, exact, full = CONTROL_STEP_CASES[name]
     B = batch or B
-    keys = ("qpos", "qvel", "target")
     if model_name == "mjcf_quadruped":
         env = mjcf_quadruped.make_env(reuse_mass_matrix=not exact)
         plan = ControlStepPlan(env.model, env.kp, 0.002, 10, exact)
-        pose = np.concatenate([[0.0, 0.0, mjcf_quadruped.STAND_HEIGHT, 1.0, 0.0, 0.0, 0.0],
-                               mjcf_quadruped.DEFAULT_POSE])
-        arrays = standing_states(env.model, pose, B, seed=3)
     elif model_name == "humanoid":
         model = make_humanoid(self_collision=full, joint_limits=full)
         plan = ControlStepPlan(model, 350.0, 0.002, 10, exact)
-        arrays = humanoid_states(model, B, seed=3)
     else:
-        model = make_quadruped()
         terrain = rough_terrain(**ROUGH) if full else None
         plan = ControlStepPlan(
-            model, 60.0, 0.002, 10, exact, terrain=terrain,
+            make_quadruped(), 60.0, 0.002, 10, exact, terrain=terrain,
             dr_fields=tuple(DR_RANGES) if full else (), has_push=full,
         )
+    return plan, control_step_args(model_name, plan, B, torch)
+
+
+def control_step_args(model_name: str, plan, B: int, torch, ground=None) -> list:
+    """Seeded states on the card for ``plan`` (qpos, qvel, target, and the
+    DR and push lanes where the plan takes them): the quadruped near the
+    standing pose on ``plan``'s analytic terrain (or on ``ground``, the
+    terrain a HeightGrid was sampled from) with some feet in contact; the
+    humanoid near the standing pose with some feet on the ground and, in
+    every other env, the two feet's spheres pressed together
+    (``physics/testing.py::humanoid_states``); the MJCF quadruped near its
+    crouch (``DEFAULT_POSE`` at 0.312 m)."""
+    import numpy as np
+
+    from nnx_ppo_tpu_torch.physics.models import mjcf_quadruped
+    from nnx_ppo_tpu_torch.physics.models.quadruped import default_qpos
+    from nnx_ppo_tpu_torch.physics.testing import humanoid_states, standing_states
+
+    if model_name == "mjcf_quadruped":
+        pose = np.concatenate([[0.0, 0.0, mjcf_quadruped.STAND_HEIGHT, 1.0, 0.0, 0.0, 0.0],
+                               mjcf_quadruped.DEFAULT_POSE])
+        arrays = standing_states(plan.model, pose, B, seed=3)
+    elif model_name == "humanoid":
+        arrays = humanoid_states(plan.model, B, seed=3)
+    else:
         arrays = standing_states(
-            model, default_qpos(model), B, seed=3, terrain=terrain,
-            n_extra_dr=4 if full else 0, has_push=full,
+            plan.model, default_qpos(plan.model), B, seed=3,
+            terrain=ground if plan.heightgrid is not None else plan.terrain,
+            n_extra_dr=len(plan.dr_fields), has_push=plan.has_push,
         )
-        keys += ("extra",) if full else ()
-    return plan, [torch.tensor(arrays[k], device="cuda") for k in keys]
+    keys = ("qpos", "qvel", "target") + (("extra",) if plan.n_caller_extra else ())
+    return [torch.tensor(arrays[k], device="cuda") for k in keys]
+
+
+def example_control_step_cases(torch) -> dict:
+    """The control-step runner of every example env that has one, each at
+    its script's n_envs (examples_phase launches each of these builds):
+    case name -> (plan, args on the card) on :func:`control_step_args`'
+    states. The data terrain of ``--rough --hfield`` is sampled from the
+    rough ground ROUGH, on which its quadrupeds stand."""
+    from nnx_ppo_tpu_torch.physics.terrain import rough_terrain
+
+    cases = {}
+    for label, env, configs in example_envs():
+        plan = getattr(env, "_control_runner", None)
+        if plan is None:
+            continue
+        model_name = ("humanoid" if "humanoid" in label
+                      else "mjcf_quadruped" if label == "mjcf_import" else "quadruped")
+        argv = " ".join(EXAMPLES[label][1]) or "defaults"
+        for B in sorted({inner_config(cfg).n_envs for cfg in configs}):
+            cases[f"example {label} ({argv}), B={B}"] = (plan, control_step_args(
+                model_name, plan, B, torch, ground=rough_terrain(**ROUGH)))
+    return cases
 
 
 OUTPUTS = ("qpos", "qvel", "normals")
@@ -916,8 +959,9 @@ def control_step_row(plan, args, torch) -> dict:
 
 
 def control_step_kernel_phase(torch, variants: bool) -> dict:
-    """Every case of :data:`CONTROL_STEP_CASES` against the plain version,
-    then the shapes of :data:`CONTROL_STEP_TIMED` timed (wrapper by CUDA
+    """Every case of :data:`CONTROL_STEP_CASES` and every example script's
+    control-step build at its own n_envs (:func:`example_control_step_cases`)
+    against the plain version, then the shapes of :data:`CONTROL_STEP_TIMED` timed (wrapper by CUDA
     events, device time by the profiler and in a CUDA graph) beside their
     bound, the plain version, ptxas's row and the shared memory per block
     (the humanoid: 11 bodies, nv = 16, one row of the forward solve per
@@ -928,8 +972,9 @@ def control_step_kernel_phase(torch, variants: bool) -> dict:
 
     max_err = 0.0
     cases, checked = {}, {}
-    for name in CONTROL_STEP_CASES:
-        plan, args = control_step_case(name, torch)
+    built = {name: control_step_case(name, torch) for name in CONTROL_STEP_CASES}
+    examples = example_control_step_cases(torch)
+    for name, (plan, args) in {**built, **examples}.items():
         before = cuda_step.control_step_cuda.launches
         errs, equal = control_step_errors(plan, args, torch)
         check(cuda_step.control_step_cuda.launches == before + 1, "the wrapper counted its launch")
@@ -939,8 +984,9 @@ def control_step_kernel_phase(torch, variants: bool) -> dict:
         print(f"control_step {name}: max_abs_err qpos {errs['qpos']:.3g} (atol 2e-4) "
               f"qvel {errs['qvel']:.3g} (atol 2e-3) normals {errs['normals']:.3g} "
               f"(rtol 5e-3, atol 5e-2); {describe_equal(equal)}")
-        if CONTROL_STEP_CASES[name][0] == "mjcf_quadruped":
-            # A third model's -D sizes: held to the plain version to the bit.
+        if name in examples or CONTROL_STEP_CASES[name][0] == "mjcf_quadruped":
+            # A third model's -D sizes, and each build an example script
+            # launches at its own shape: held to the plain version to the bit.
             check(all(equal.values()), f"control_step {name}: torch.equal with the plain version")
     rows = {}
     for label, name in CONTROL_STEP_TIMED.items():
@@ -1386,11 +1432,15 @@ def substeps_kernel_phase(torch, profile: bool) -> dict:
 # The scene control-step configurations checked against the plain version:
 # name -> (scene, batch). "trees" is the five-body tree with every joint
 # type and a pair inside it, beside a slider tree, with two cross pairs.
+# The cases named after a script are its env's runner at its n_envs, held
+# to the bit.
 SCENE_STEP_CASES = {
     "pusher, B=4096": ("pusher", 4096),
     "reacher, B=4096": ("reacher", 4096),
     "pusher, B=1000": ("pusher", 1000),
     "pusher, B=33": ("pusher", 33),
+    "pusher, B=2048 (arm_pushing.py)": ("pusher", 2048),
+    "reacher, B=2048 (arm_reaching.py)": ("reacher", 2048),
     "general and slider trees, B=1001": ("trees", 1001),
 }
 
@@ -1459,10 +1509,13 @@ def scene_step_kernel_phase(torch, variants: bool) -> dict:
         torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=1e-4)
         max_err = max(max_err, *errs.values())
         cases[name] = (plan, args)
+        equal = equal_to_the_bit(got, want, torch)
         print(f"scene_step {name}, {plan.n_substeps} substeps: max_abs_err qpos {errs['qpos']:.3g} "
               f"(2e-5) qvel {errs['qvel']:.3g} (5e-4) normals {errs['normals']:.3g} (1e-4), "
-              f"normals max {want[2].max().item():.3g}; "
-              f"{describe_equal(equal_to_the_bit(got, want, torch))}")
+              f"normals max {want[2].max().item():.3g}; {describe_equal(equal)}")
+        if name.endswith(".py)"):
+            # An example script's build at its own shape: held to the bit.
+            check(all(equal.values()), f"scene_step {name}: torch.equal with the plain version")
 
     timed = {}
     for name in ("pusher, B=4096", "reacher, B=4096"):
@@ -3566,39 +3619,59 @@ EXAMPLE_PHYSICS = {
     "distill_quadruped": ("control_step_cuda",),
     "mjcf_import": ("control_step_cuda",),
 }
-# The CSV columns of the JAX scripts that write one.
-EXAMPLE_CSV_COLUMNS = {
-    "learning_curves": ["impl", "step", "reward_mean", "reward_std"],
-    "legged_training": ["step", "tracking", "penalty", "lifespan"],
-    "arm_reaching": ["step", "reward"],
-    "arm_pushing": ["step", "reward"],
-}
+
+
+@functools.lru_cache(maxsize=None)
+def example_env(script: str, argv: tuple) -> tuple:
+    """(inner env, configs) that ``build`` of example ``script`` makes
+    from ``argv`` on the CPU (the physics runners are device-free plans)."""
+    module = example_module(script)
+    env, _, cfg = module.build(module.make_parser().parse_args(list(argv)), "cpu")
+    return env.env, cfg if isinstance(cfg, tuple) else (cfg,)
+
+
+def example_envs() -> list:
+    """(label, inner env, configs) of every examples_phase run that steps a
+    physics kernel."""
+    return [(label, *example_env(EXAMPLES[label][0], tuple(EXAMPLES[label][1])))
+            for label in EXAMPLE_PHYSICS]
+
+
+def inner_config(cfg):
+    """The PPOConfig or DistillationConfig of a TrainConfig or a
+    DistillationTrainConfig."""
+    return cfg.ppo if hasattr(cfg, "ppo") else cfg.distillation
 
 
 def example_kernel_specs(names: list | None = None) -> set:
-    """The kernel libraries of the examples' envs (built on the CPU here,
-    their runners' specs read): those of examples_phase, or of the
-    ``--learn-examples`` runs ``names``."""
+    """The kernel libraries of the examples' envs (their runners' specs):
+    those of examples_phase, or of the ``--learn-examples`` runs
+    ``names``."""
     if names is None:
-        runs = [EXAMPLES[label] for label in EXAMPLE_PHYSICS]
+        envs = [env for _, env, _ in example_envs()]
     else:
-        runs = [(LEARN_EXAMPLES[n]["script"], LEARN_EXAMPLES[n]["argv"]) for n in names]
+        envs = [example_env(LEARN_EXAMPLES[n]["script"], tuple(LEARN_EXAMPLES[n]["argv"]))[0]
+                for n in names]
     specs = set()
-    for script, argv in runs:
-        module = importlib.import_module(f"nnx_ppo_tpu_torch.examples.{script}")
-        env = module.build(module.make_parser().parse_args(argv), "cpu")[0].env
+    for env in envs:
         for runner in (getattr(env, "_control_runner", None), getattr(env, "_scene_runner", None)):
             if runner is not None:
                 specs.update(getattr(runner, "kernel_specs", [runner.kernel_spec]))
     return specs
 
 
+def example_module(script: str):
+    return importlib.import_module(f"nnx_ppo_tpu_torch.examples.{script}")
+
+
 def example_out_argv(script: str, path: str) -> list:
-    """The argv that sends a script's curve to ``path`` (none for the
-    scripts that write no CSV)."""
-    if script == "learning_curves":
-        return [path]
-    return ["--out", path] if script in EXAMPLE_CSV_COLUMNS else []
+    """The argv that sends a script's curve to ``path``: its parser's
+    ``out`` argument, positional or ``--out`` (none for the scripts that
+    write no CSV)."""
+    for action in example_module(script).make_parser()._actions:
+        if action.dest == "out":
+            return [*action.option_strings[:1], path]
+    return []
 
 
 def shrink_example_config(cfg):
@@ -3620,37 +3693,64 @@ def shrink_example_config(cfg):
 def counted_training(torch, fn, wrappers: list, calls: list, count_nonfinite: bool = False):
     """``fn`` (train_ppo or train_distillation) with every kernel's launch
     count set to 0 just before the call and read just after; appends the
-    call's launches, wall, env steps, eval steps and the count of
-    non-finite losses (``count_nonfinite``: through a log_fn, where the
-    caller passed none) to ``calls``."""
+    call's launches, wall, the wall of its evals (each ``eval_rollout``
+    timed between two synchronizations), env steps, eval steps, the
+    caller's log_fn calls and the keys they logged as 0-d CUDA tensors,
+    and the count of non-finite losses (``count_nonfinite``: through a
+    log_fn, where the caller passed none) to ``calls``."""
+    from nnx_ppo_tpu_torch.algorithms import rollout
 
     def run(env, *args, **kwargs):
         config = args[-1]
-        inner = config.ppo if hasattr(config, "ppo") else config.distillation
-        nonfinite = [0]
-        if count_nonfinite and kwargs.get("log_fn") is None:
+        inner = inner_config(config)
+        nonfinite, logged, eval_wall = [0], {"calls": 0, "cuda_keys": set()}, [0.0]
+        user_log_fn = kwargs.get("log_fn")
+        if user_log_fn is not None:
+            def log_fn(metrics, step):
+                logged["calls"] += 1
+                logged["cuda_keys"].update(
+                    k for k, v in metrics.items()
+                    if torch.is_tensor(v) and v.is_cuda and v.dim() == 0)
+                return user_log_fn(metrics, step)
+            kwargs["log_fn"] = log_fn
+        elif count_nonfinite:
             def log_fn(metrics, step):
                 nonfinite[0] += sum(
                     1 for k, v in metrics.items()
                     if k.startswith("losses/") and not bool(torch.isfinite(torch.as_tensor(v)).all()))
             kwargs["log_fn"] = log_fn
+        real_eval = rollout.eval_rollout
+
+        def timed_eval(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real_eval(*a, **k)
+            torch.cuda.synchronize()
+            eval_wall[0] += time.perf_counter() - t
+            return out
+
         for w in wrappers:
             w.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        result = fn(env, *args, **kwargs)
+        with mock.patch.object(rollout, "eval_rollout", timed_eval):
+            result = fn(env, *args, **kwargs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         eval_steps = len(result.eval_history) * config.eval.max_episode_length
+        steps = result.total_steps // (inner.n_envs * inner.rollout_length)
+        train_wall = wall - eval_wall[0]
         calls.append({
             "fn": fn.__name__, "launches": {w.__name__: w.launches for w in wrappers},
             "wall_s": wall, "env_steps": int(result.total_steps), "eval_steps": eval_steps,
-            "sps": result.total_steps / wall, "steps": result.total_steps
-            // (inner.n_envs * inner.rollout_length),
+            "sps": result.total_steps / wall, "steps": steps,
+            "eval_wall_s": eval_wall[0], "train_wall_s": train_wall,
+            "train_sps": result.total_steps / train_wall, "step_ms": 1e3 * train_wall / steps,
             "rollout_length": inner.rollout_length,
             "updates_per_step": (inner.n_epochs * inner.n_minibatches
                                  if fn.__name__ == "train_ppo" else 0),
             "nonfinite_losses": nonfinite[0],
+            "log_calls": logged["calls"], "logged_cuda_keys": sorted(logged["cuda_keys"]),
             "eval_history": [{k: float(v) for k, v in row.items()} for row in result.eval_history],
         })
         return result
@@ -3666,7 +3766,7 @@ def run_example(torch, label: str, script: str, argv: list, wrappers: list, adju
     distillation example's ``eval_tracking`` cut to EXAMPLE_EVAL_LENGTH
     steps where ``adjust`` is the examples phase's. Returns the calls and
     what ``main`` returned."""
-    module = importlib.import_module(f"nnx_ppo_tpu_torch.examples.{script}")
+    module = example_module(script)
     calls: list = []
     build = module.build
 
@@ -3675,16 +3775,23 @@ def run_example(torch, label: str, script: str, argv: list, wrappers: list, adju
         cfg = tuple(map(adjust, cfg)) if isinstance(cfg, tuple) else adjust(cfg)
         return env, nets, cfg
 
-    patches = {"build": adjusted_build}
-    for name in ("train_ppo", "train_distillation"):
-        if hasattr(module, name):
-            patches[name] = counted_training(torch, getattr(module, name), wrappers, calls,
-                                             count_nonfinite)
+    patches = {module: {"build": adjusted_build}}
     if hasattr(module, "eval_tracking") and adjust is shrink_example_config:
-        patches["eval_tracking"] = functools.partial(module.eval_tracking,
-                                                     length=EXAMPLE_EVAL_LENGTH)
+        patches[module]["eval_tracking"] = functools.partial(module.eval_tracking,
+                                                             length=EXAMPLE_EVAL_LENGTH)
+    # The training calls are made by the script, or by the example module
+    # whose run it calls (arm_pushing trains through arm_reaching.run).
+    owners = [module] + [v for v in vars(module).values() if isinstance(v, types.ModuleType)
+                         and v.__name__.startswith("nnx_ppo_tpu_torch.examples.")]
+    for owner in owners:
+        for name in ("train_ppo", "train_distillation"):
+            if hasattr(owner, name):
+                patches.setdefault(owner, {})[name] = counted_training(
+                    torch, getattr(owner, name), wrappers, calls, count_nonfinite)
     t0 = time.perf_counter()
-    with mock.patch.multiple(module, **patches):
+    with contextlib.ExitStack() as stack:
+        for owner, names in patches.items():
+            stack.enter_context(mock.patch.multiple(owner, **names))
         returned = module.main(argv)
     return {"label": label, "argv": argv, "calls": calls, "returned": returned,
             "wall_s": time.perf_counter() - t0}
@@ -3727,6 +3834,97 @@ def example_worker(label: str, out_path: str) -> int:
     return 0
 
 
+@contextlib.contextmanager
+def refuse_outside_hosts():
+    """For the body: every name lookup and socket connection made from
+    Python to a host other than this one raises."""
+    import socket
+
+    local = {None, "", "localhost", "127.0.0.1", "::1"}
+    real_connect, real_getaddrinfo = socket.socket.connect, socket.getaddrinfo
+
+    def connect(sock, address):
+        if isinstance(address, tuple) and address[0] not in local:
+            raise OSError(f"refused: a connection to {address[0]}")
+        return real_connect(sock, address)
+
+    def getaddrinfo(host, *args, **kwargs):
+        if host not in local:
+            raise socket.gaierror(f"refused: a lookup of {host}")
+        return real_getaddrinfo(host, *args, **kwargs)
+
+    with mock.patch.object(socket.socket, "connect", connect), \
+            mock.patch.object(socket, "getaddrinfo", getaddrinfo):
+        yield
+
+
+@contextlib.contextmanager
+def offline_wandb(directory: str):
+    """wandb, where it is installed, in offline mode for the body, so that
+    ``wandb_logging.py`` takes its wandb path with no network: the run is
+    written under ``directory``, with no login, no upload, no system or
+    machine metadata, no error reports; HTTP(S) proxies point at a closed
+    port of this host, and Python's own lookups and connections to other
+    hosts raise. Yields a dict that receives, on exit, whether the run
+    was offline, the keys of its summary and its run files; then the run
+    is finished and wandb's service stopped. Where wandb is not installed
+    the script logs to stdout, and the dict stays empty."""
+    import importlib.util
+
+    if importlib.util.find_spec("wandb") is None:
+        print("wandb_logging: wandb is not installed here; the script logs to stdout")
+        yield {}
+        return
+    import wandb
+
+    shutil.rmtree(directory, ignore_errors=True)
+    os.makedirs(directory)
+    closed_port = "http://127.0.0.1:9"
+    environ = {"WANDB_MODE": "offline", "WANDB_DIR": directory, "WANDB_ERROR_REPORTING": "false",
+               "WANDB_DISABLE_GIT": "true", "WANDB_DISABLE_CODE": "true", "WANDB_SILENT": "true",
+               **{f"WANDB_{k}_DIR": os.path.join(directory, k.lower())
+                  for k in ("CONFIG", "CACHE", "DATA", "ARTIFACT")},
+               **{k: closed_port for k in ("HTTP_PROXY", "HTTPS_PROXY", "http_proxy",
+                                           "https_proxy")},
+               "NO_PROXY": "", "no_proxy": ""}
+    found: dict = {}
+    with mock.patch.dict(os.environ, environ), refuse_outside_hosts():
+        try:
+            wandb.setup(settings=wandb.Settings(
+                mode="offline", x_disable_stats=True, x_disable_meta=True,
+                x_disable_machine_info=True, disable_git=True, disable_code=True,
+                disable_job_creation=True))
+            yield found
+            run = wandb.run
+            check(run is not None, "wandb_logging: wandb.init made a run")
+            found["offline"] = run.settings.mode == "offline"
+            found["summary_keys"] = sorted(run.summary.keys())
+            wandb.finish()
+            found["files"] = sorted(
+                os.path.relpath(os.path.join(root, f), directory)
+                for root, _, files in os.walk(directory) for f in files if f.endswith(".wandb")
+                and os.path.getsize(os.path.join(root, f)) > 0)
+        finally:
+            wandb.finish()
+            wandb.teardown()
+
+
+def check_wandb_run(label: str, found: dict, call: dict) -> None:
+    """The wandb path of ``wandb_logging.py`` ran: an offline run, whose
+    summary holds every metric its log_fn passed as a 0-d CUDA tensor,
+    written to a non-empty run file."""
+    check(found["offline"], f"example {label}: the wandb run is offline")
+    check(call["log_calls"] > 0 and call["logged_cuda_keys"],
+          f"example {label}: {call['log_calls']} wandb.log calls, CUDA metrics "
+          f"{call['logged_cuda_keys']}")
+    missing = sorted(set(call["logged_cuda_keys"]) - set(found["summary_keys"]))
+    check(not missing, f"example {label}: metrics not in the wandb summary: {missing}")
+    check(bool(found["files"]), f"example {label}: no offline run file")
+    print(f"example {label}: offline wandb run, {call['log_calls']} wandb.log calls, "
+          f"{len(call['logged_cuda_keys'])} metrics logged as 0-d CUDA tensors, all in the "
+          f"summary; run files {found['files']}")
+
+
 def torchrun_command() -> list:
     """torchrun, or the same launcher as a module where no script is on PATH."""
     launcher = shutil.which("torchrun")
@@ -3766,13 +3964,12 @@ def examples_phase(torch, wrappers: list, card: str) -> dict:
             row["exit_code"] = proc.returncode
         else:
             argv = argv + example_out_argv(script, csv_path)
-            # The GPU machine has wandb installed but no network, and no
-            # API key: hidden here, so that wandb_logging.py takes the
-            # stdout path it takes where wandb is not installed (a real
-            # wandb.init would try to reach the wandb server).
-            with mock.patch.dict(sys.modules, {"wandb": None} if script == "wandb_logging"
-                                 else {}):
+            with (offline_wandb(os.path.join(out_dir, "wandb")) if script == "wandb_logging"
+                  else contextlib.nullcontext({})) as wandb_run:
                 row = run_example(torch, label, script, argv, wrappers, shrink_example_config)
+            if wandb_run:
+                row["wandb"] = wandb_run
+                check_wandb_run(label, wandb_run, row["calls"][0])
         check(len(row["calls"]) == (2 if script == "distill_quadruped" else 1),
               f"example {label}: training calls {[c['fn'] for c in row['calls']]}")
         for call in row["calls"]:
@@ -3783,10 +3980,11 @@ def examples_phase(torch, wrappers: list, card: str) -> dict:
             for entry in call["eval_history"]:
                 check(all(math.isfinite(v) for v in entry.values()),
                       f"example {label}: eval {entry}")
-        if script in EXAMPLE_CSV_COLUMNS:
+        if example_out_argv(script, csv_path):
             with open(csv_path, newline="") as f:
                 table = list(csv.reader(f))
-            check(table[0] == EXAMPLE_CSV_COLUMNS[script], f"example {label}: CSV header {table[0]}")
+            fields = list(example_module(script).CSV_FIELDS)
+            check(table[0] == fields, f"example {label}: CSV header {table[0]}, want {fields}")
             check(len(table) - 1 == len(row["calls"][0]["eval_history"]),
                   f"example {label}: {len(table) - 1} CSV rows")
             values = [x for r in table[1:] for x in r if x != "nnx_ppo_tpu_torch"]
@@ -3796,16 +3994,21 @@ def examples_phase(torch, wrappers: list, card: str) -> dict:
                   f"example {label}: {row['returned']}")
         steps = sum(c["env_steps"] for c in row["calls"])
         wall = sum(c["wall_s"] for c in row["calls"])
+        eval_wall = sum(c["eval_wall_s"] for c in row["calls"])
         launches = {w.__name__: sum(c["launches"][w.__name__] for c in row["calls"])
                     for w in wrappers}
         rows[label] = {"argv": row["argv"], "env_steps": steps, "training_wall_s": wall,
-                       "sps": steps / wall, "script_wall_s": row["wall_s"],
+                       "sps": steps / wall, "eval_wall_s": eval_wall,
+                       "train_sps": steps / (wall - eval_wall), "script_wall_s": row["wall_s"],
                        "launches": launches,
                        "calls": [{k: v for k, v in c.items() if k != "eval_history"}
                                  for c in row["calls"]]}
+        step_ms = ", ".join(f"{c['step_ms']:.1f}" for c in row["calls"])
         print(f"example {label}: argv {' '.join(row['argv'])!r}; {steps} env steps in "
-              f"{wall:.2f} s of training calls (the step-0 eval and set-up inside), sps "
-              f"{steps / wall:.1f}; script {row['wall_s']:.2f} s; launches {launches} on {card}")
+              f"{wall:.2f} s of training calls (set-up inside), sps {steps / wall:.1f}; the "
+              f"step-0 eval {eval_wall:.2f} s, without it sps {steps / (wall - eval_wall):.1f}, "
+              f"{step_ms} ms a PPO step; script {row['wall_s']:.2f} s; launches {launches} on "
+              f"{card}")
     total = time.perf_counter() - t_phase
     print(f"examples phase: {total:.1f} s for {len(EXAMPLES)} example runs on {card}")
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -3866,7 +4069,7 @@ def learn_run(torch, name: str, seed, wrappers: list, out_dir: str, card: str) -
     def adjust(cfg):
         # The run with evals: the teacher of the distillation has none.
         if cfg.eval.enabled:
-            inner = cfg.ppo if hasattr(cfg, "ppo") else cfg.distillation
+            inner = inner_config(cfg)
             check(inner.total_steps == budget, f"{name}: budget")
             cfg = dataclasses.replace(cfg, eval=dataclasses.replace(cfg.eval, every_steps=every))
         return cfg
@@ -3881,8 +4084,10 @@ def learn_run(torch, name: str, seed, wrappers: list, out_dir: str, card: str) -
         print(f"learn {name} seed {seed} eval: {dict(entry)}")
     for call in row["calls"]:
         print(f"learn {name} seed {seed}: {call['fn']} {call['env_steps']} env steps in "
-              f"{call['wall_s']:.1f} s, sps {call['sps']:.1f} (evals inside), launches "
-              f"{call['launches']}, non-finite losses {call['nonfinite_losses']} on {card}")
+              f"{call['wall_s']:.1f} s, sps {call['sps']:.1f} (evals inside); evals "
+              f"{call['eval_wall_s']:.1f} s, without them sps {call['train_sps']:.1f}, "
+              f"{call['step_ms']:.2f} ms a PPO step; launches {call['launches']}, non-finite "
+              f"losses {call['nonfinite_losses']} on {card}")
         check(call["nonfinite_losses"] == 0, f"learn {name}: non-finite losses")
     return {"seed": seed, "curve": curve, "calls": [
         {k: v for k, v in c.items() if k != "eval_history"} for c in row["calls"]],

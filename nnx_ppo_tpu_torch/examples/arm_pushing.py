@@ -12,12 +12,12 @@ learning curve to ``nnx_ppo_tpu_torch/examples/results/pusher_curve.csv``.
 from __future__ import annotations
 
 import argparse
-import sys
 from typing import Optional, Sequence
 
-from nnx_ppo_tpu_torch.algorithms import train_ppo  # noqa: F401  (arm_reaching.run trains by it)
 from nnx_ppo_tpu_torch.envs import ArmPush
 from nnx_ppo_tpu_torch.examples import arm_reaching
+
+CSV_FIELDS = arm_reaching.CSV_FIELDS
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -34,7 +34,7 @@ def build(args: argparse.Namespace, device):
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
-    arm_reaching.run(sys.modules[__name__], argv)
+    arm_reaching.run(make_parser(), build, argv)
 
 
 if __name__ == "__main__":

@@ -12,12 +12,10 @@ kernel, ``csrc/scene_step.cu``). Writes the eval learning curve to
 from __future__ import annotations
 
 import argparse
-import sys
 import time
 from typing import Optional, Sequence
 
-# run() trains by each arm script's own ``train_ppo`` name.
-from nnx_ppo_tpu_torch.algorithms import EvalConfig, PPOConfig, TrainConfig, train_ppo  # noqa: F401
+from nnx_ppo_tpu_torch.algorithms import EvalConfig, PPOConfig, TrainConfig, train_ppo
 from nnx_ppo_tpu_torch.core.device import resolve_device
 from nnx_ppo_tpu_torch.envs import ArmReacher
 from nnx_ppo_tpu_torch.examples import results_path, write_csv
@@ -88,16 +86,16 @@ def curve_rows(eval_history) -> list[dict]:
     ]
 
 
-def run(module, argv: Optional[Sequence[str]]) -> None:
-    """``main`` of an arm script ``module``: its ``make_parser`` and
-    ``build``, training by its ``train_ppo``, then the curve printed and
-    written."""
-    args = module.make_parser().parse_args(argv)
+def run(parser: argparse.ArgumentParser, build_fn, argv: Optional[Sequence[str]]) -> None:
+    """``main`` of an arm script: ``argv`` parsed by its ``parser``, its
+    run built by ``build_fn`` and trained, then the curve printed and
+    written (shared with ``arm_pushing``)."""
+    args = parser.parse_args(argv)
     device = "cpu" if args.cpu else "cuda"
-    env, net, cfg = module.build(args, device)
+    env, net, cfg = build_fn(args, device)
 
     t0 = time.perf_counter()
-    result = module.train_ppo(env, net, cfg, device=device)
+    result = train_ppo(env, net, cfg, device=device)
     wall = time.perf_counter() - t0
 
     rows = curve_rows(result.eval_history)
@@ -109,7 +107,7 @@ def run(module, argv: Optional[Sequence[str]]) -> None:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
-    run(sys.modules[__name__], argv)
+    run(make_parser(), build, argv)
 
 
 if __name__ == "__main__":

@@ -35,7 +35,7 @@ from nnx_ppo_tpu_torch.physics.cuda_step import (
 from nnx_ppo_tpu_torch.physics.engine import mass_matrix_factor
 from nnx_ppo_tpu_torch.physics.models.humanoid import make_humanoid
 from nnx_ppo_tpu_torch.physics.models.quadruped import default_qpos, make_quadruped
-from nnx_ppo_tpu_torch.physics.terrain import HeightGrid, rough_terrain
+from nnx_ppo_tpu_torch.physics.terrain import HeightGrid, rough_terrain, stairs
 from nnx_ppo_tpu_torch.physics.testing import (
     general_tree,
     general_tree_states,
@@ -227,23 +227,31 @@ CONTROL_STEP_CASES = {
     "held_full_ragged_33": (33, 10, False, True),
     "exact_full_ragged_1001": (1001, 10, True, True),
     "held_full_one_env": (1, 10, False, True),
+    # legged_training.py's quadruped: exact factor on flat ground, and
+    # under --stairs on the staircase (one wave and a slope), no lanes.
+    "exact_flat_2048": (2048, 10, True, False),
+    "exact_stairs_2048": (2048, 10, True, "stairs"),
 }
 DR_FIELDS = ("mass_scale", "friction", "damping_scale", "gain_scale")
 
 
 def control_step_case(name, device):
     B, n_substeps, exact, full = CONTROL_STEP_CASES[name]
-    planes = full == "planes"
+    planes, on_stairs = full == "planes", full == "stairs"
+    lanes = bool(full) and not on_stairs
     model = make_quadruped(self_collision=planes, joint_limits=planes)
-    terrain = rough_terrain(seed=2, amplitude=0.03, wavelength=1.5) if full and not planes else None
+    if on_stairs:
+        terrain = stairs(step_height=0.06, step_length=0.4)
+    else:
+        terrain = rough_terrain(seed=2, amplitude=0.03, wavelength=1.5) if lanes and not planes else None
     plan = ControlStepPlan(
         model, 60.0, 0.002, n_substeps, exact, terrain=terrain,
-        dr_fields=DR_FIELDS if full else (), has_push=bool(full),
+        dr_fields=DR_FIELDS if lanes else (), has_push=lanes,
         n_terrain_planes=8 if planes else 0,
     )
     arrays = standing_states(
         model, default_qpos(model), B, seed=3, terrain=terrain,
-        n_extra_dr=4 if full else 0, has_push=bool(full),
+        n_extra_dr=4 if lanes else 0, has_push=lanes,
     )
     if planes:
         # Front feet overlapping and pressed together by the PD targets (a
@@ -261,7 +269,7 @@ def control_step_case(name, device):
         ).reshape(B, 24)
         arrays["extra"] = np.concatenate([arrays["extra"], plane_lanes], axis=1).astype(np.float32)
     args = [torch.tensor(arrays[k], device=device) for k in ("qpos", "qvel", "target")]
-    if full:
+    if lanes:
         args.append(torch.tensor(arrays["extra"], device=device))
     return plan, args
 
