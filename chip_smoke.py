@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--profile DIR] [--learn N] [--variants] [--phases]
     python3 chip_smoke.py --ab-kernels [--package-root DIR]
     python3 chip_smoke.py --learn-examples [NAME ...]
+    python3 chip_smoke.py --cards N
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -131,7 +132,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    flagship and the physics leg (equal to the bit, else the largest share
    of rtol 1e-4 / atol 1e-5; the step ms of both; the mesh run's launches,
    counts set to 0 just before); then two ranks on gloo sharing the card,
-   each a process of its own (``--rank-worker``, started here): the
+   each a process of its own (``--card-worker two_rank``, started here): the
    physics leg at 2 x 1024 envs and the flagship at 2 x 512, 2 ppo_steps
    each, every rank's GAE and control-step launches, the weights,
    statistics and optimizer moments equal to the bit across the ranks,
@@ -157,6 +158,34 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    file must be written). Every control-step and scene-step build these
    scripts launch is held to its plain version to the bit at the script's
    n_envs in the kernels phase.
+
+``--cards N`` (N >= 2; not in the default run, which prints one line
+saying so) runs only the device line and the multi-card phase: data-
+parallel PPO over N cards, one process per card, NCCL, each rank started
+with RANK / LOCAL_RANK / WORLD_SIZE (``--card-worker``) and building the
+kernels it needs under cuda_build's lock (each library once over the
+ranks). Every rank drives the flagship (1024 envs per rank), the dry run's
+LSTM program (__graft_entry__.py:79-99 at 1024 envs per rank, T=30) and
+the physics leg (2048 per rank), 3 ppo_steps each: its device, memory
+allocated and primary CUDA context per card (its own only; nvidia-smi's
+compute processes beside them), its GAE and control-step launches per step
+and the card of each (16 and 20 on its own card), its kernels torch.equal
+to their plain versions on its card at its shapes, the collectives per step
+(calls, bytes, host ms), every weight, Normalizer statistic and adam moment
+equal to the bit on all ranks; one more step of the flagship and of the
+physics leg taken apart, the rollouts saved and the update run again in one
+process on the blocks concatenated with the same N-shard plan (within rtol
+1e-4 / atol 1e-5, on the physics leg the atol widened per tensor by the
+one process's own reduction-order spread; one wrong GAE column and
+advantage statistics left unmerged must each read above the limit); a profiled
+physics step (NCCL kernels' device ms, host ms waiting); checkpoint at N,
+resume at N equal to the bit, the physics checkpoint loaded at world size
+1; weak and strong train_sps over 10 ppo_steps at world sizes 1, 2 and N
+in the order 1, 2, N, N, 2, 1 with sps(N) / (N sps(1)) and the range the
+two runs of each size allow; and multihost_dp.py --distributed and
+joystick_locomotion.py under torchrun --nproc_per_node=N (exit code,
+launches per rank). With fewer than N cards visible it exits 1 and names
+the count. A rank that fails, or outlives its timeout, fails the run.
 
 It prints a ``kernels`` JSON line (each kernel's design, and its
 registers, stack, spills and shared memory from ptxas and the launch), the
@@ -266,12 +295,23 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def card_line() -> str:
+def sync(torch) -> None:
+    """Wait for the current card, where there is one (no-op on the CPU)."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def card_lines() -> list:
+    """Name and power limit of every visible card, as nvidia-smi gives them."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
-    return out.stdout.strip().splitlines()[0]
+    return out.stdout.strip().splitlines()
+
+
+def card_line() -> str:
+    return card_lines()[0]
 
 
 def time_ms(fn, n: int, torch, warmup: int = 3) -> float:
@@ -3038,81 +3078,19 @@ def world_size_1_phase(torch, wrappers: list, per_step: dict) -> dict:
     return rows
 
 
-def rank_worker(rank: int, store: str, out_dir: str) -> int:
-    """One rank of the two-rank run (``chip_smoke.py --rank-worker``): gloo
-    with CUDA tensors on the card's one GPU; the physics leg, then the
-    flagship, TWO_RANK_STEPS ppo_steps each at the paths' global env
-    counts (each rank half of them); writes its launches, step ms and
-    final weights, statistics and optimizer moments to ``out_dir``."""
-    import datetime
-
-    import torch
-    import torch.distributed as dist
-
-    from nnx_ppo_tpu_torch.algorithms import new_training_state, ppo_multi_step
-    from nnx_ppo_tpu_torch.ops.gae import gae_cuda
-    from nnx_ppo_tpu_torch.parallel import distributed_initialize, make_mesh
-    from nnx_ppo_tpu_torch.physics.cuda_step import control_step_cuda
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    distributed_initialize(backend="gloo", store=dist.FileStore(store, 2), rank=rank,
-                           world_size=2, timeout=datetime.timedelta(seconds=300))
-    try:
-        mesh = make_mesh(2, device="cuda:0")
-        out = {}
-        for label, leg in (("physics", physics_leg), ("flagship", flagship)):
-            env, networks, config, optimizer = leg(torch)
-            ts = new_training_state(env, networks, config.n_envs, seed=0, optimizer=optimizer,
-                                    mesh=mesh)
-            gae_cuda.launches = control_step_cuda.launches = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            ts, history = ppo_multi_step(env, ts, config, optimizer, TWO_RANK_STEPS,
-                                         return_history=True, mesh=mesh)
-            torch.cuda.synchronize()
-            step_ms = (time.perf_counter() - t0) / TWO_RANK_STEPS * 1e3
-            check_finite(history, torch)
-            state = {f"net.{k}": v.detach().cpu() for k, v in ts.networks.state_dict().items()}
-            for i, p in enumerate(ts.networks.parameters()):
-                for moment in ("exp_avg", "exp_avg_sq"):
-                    state[f"opt.{i}.{moment}"] = ts.opt_state.state[p][moment].cpu()
-            out[label] = {"launches": {"gae_cuda": gae_cuda.launches,
-                                       "control_step_cuda": control_step_cuda.launches},
-                          "step_ms": step_ms, "n_envs": int(ts.env_states.done.shape[0]),
-                          "global_n_envs": config.n_envs, "state": state,
-                          "actor_loss": float(history["losses/actor/mean"][-1])}
-        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
-    finally:
-        dist.destroy_process_group()
-    return 0
-
-
 def two_rank_phase(torch) -> dict:
     """Two ranks on gloo on the one card, each a process of its own
-    (``rank_worker``): each rank's gae_cuda and control_step_cuda launches
+    (``two_rank_worker``): each rank's gae_cuda and control_step_cuda launches
     (16 and 20 a step on the physics leg, predicted), whether every
     weight, Normalizer statistic and optimizer moment is equal to the bit
     on both ranks, and each rank's step ms. Both ranks share one GPU and
     stage every collective through the host (NCCL refuses two ranks on
     one GPU), so the step times measure no scaling. A rank that fails, or
     outlives the timeout, fails the run."""
-    out_dir = os.path.join("build", "two_rank")
+    out_dir = os.path.abspath(os.path.join("build", "two_rank"))
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
-    store = os.path.join(out_dir, "store")
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank-worker",
-                               str(rank), store, out_dir], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for rank in range(2)]
-    outputs = []
-    try:
-        for proc in procs:
-            outputs.append(proc.communicate(timeout=600)[0])
-    finally:
-        for proc in procs:
-            proc.kill()
-    for rank, (proc, text) in enumerate(zip(procs, outputs)):
-        check(proc.returncode == 0, f"rank {rank} of the two-rank run failed:\n{text[-3000:]}")
-    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=True) for r in range(2)]
+    ranks = run_card_ranks(torch, "two_rank", 2, 1, out_dir, timeout=600)
     rows = {}
     for label in ("physics", "flagship"):
         a, b = (r[label] for r in ranks)
@@ -3319,7 +3297,7 @@ def saved_tensors(torch, state, directory: str) -> tuple[dict, float]:
     from nnx_ppo_tpu_torch.algorithms import save_checkpoint
     from nnx_ppo_tpu_torch.algorithms.checkpointing import TENSORS_FILE
 
-    torch.cuda.synchronize()
+    sync(torch)
     t0 = time.perf_counter()
     save_checkpoint(directory, state, 0)
     save_ms = (time.perf_counter() - t0) * 1e3
@@ -3722,20 +3700,20 @@ def counted_training(torch, fn, wrappers: list, calls: list, count_nonfinite: bo
         real_eval = rollout.eval_rollout
 
         def timed_eval(*a, **k):
-            torch.cuda.synchronize()
+            sync(torch)
             t = time.perf_counter()
             out = real_eval(*a, **k)
-            torch.cuda.synchronize()
+            sync(torch)
             eval_wall[0] += time.perf_counter() - t
             return out
 
         for w in wrappers:
             w.launches = 0
-        torch.cuda.synchronize()
+        sync(torch)
         t0 = time.perf_counter()
         with mock.patch.object(rollout, "eval_rollout", timed_eval):
             result = fn(env, *args, **kwargs)
-        torch.cuda.synchronize()
+        sync(torch)
         wall = time.perf_counter() - t0
         eval_steps = len(result.eval_history) * config.eval.max_episode_length
         steps = result.total_steps // (inner.n_envs * inner.rollout_length)
@@ -3811,10 +3789,15 @@ def expected_example_launches(label: str, call: dict, wrappers: list) -> dict:
     return want
 
 
+def example_worker_path(out_path: str, rank: int) -> str:
+    """Where rank ``rank`` of an example under torchrun writes its calls."""
+    return out_path if rank == 0 else f"{out_path}.rank{rank}"
+
+
 def example_worker(label: str, out_path: str) -> int:
-    """One example under torchrun (``chip_smoke.py --example-worker``):
-    ``run_example`` as in examples_phase, its calls written to
-    ``out_path`` as JSON."""
+    """One example under torchrun (``chip_smoke.py --example-worker``), one
+    rank of it: ``run_example`` as in examples_phase, its calls written as
+    JSON to ``example_worker_path``."""
     import torch
 
     from nnx_ppo_tpu_torch.ops.gae import gae_cuda
@@ -3829,7 +3812,7 @@ def example_worker(label: str, out_path: str) -> int:
     wrappers = [gae_cuda, control_step_cuda, plane_sampler_cuda, substeps_cuda, scene_step_cuda]
     script, argv = EXAMPLES[label]
     row = run_example(torch, label, script, argv, wrappers, shrink_example_config)
-    with open(out_path, "w") as f:
+    with open(example_worker_path(out_path, int(os.environ.get("RANK", "0"))), "w") as f:
         json.dump({"calls": row["calls"], "wall_s": row["wall_s"]}, f)
     return 0
 
@@ -4150,6 +4133,864 @@ def learn_examples_phase(torch, names: list, wrappers: list, card: str) -> dict:
     return results
 
 
+# -- data parallelism across cards (--cards N) ------------------------------------------
+
+
+def lstm_dry_run_leg(torch):
+    """The multi-chip dry run's first program (__graft_entry__.py:79-99) at
+    the flagship's width: CartpoleBalance with a 500-step limit,
+    Normalizer, then an actor Dense(obs, 32, relu) -> LSTM(32, 32) ->
+    Dense(32, 2A) -> NormalTanhSampler (entropy 1e-2) and a critic MLP
+    [obs, 32, 1]; the fused replay, 1024 envs, T=30, 4 epochs x 4
+    minibatches (16 GAE launches a step)."""
+    from nnx_ppo_tpu_torch.algorithms import PPOConfig, make_optimizer
+    from nnx_ppo_tpu_torch.envs import CartpoleBalance
+    from nnx_ppo_tpu_torch.networks import (
+        LSTM, Dense, NormalTanhSampler, Normalizer, PPOAdapter, Sequential, make_mlp,
+    )
+    from nnx_ppo_tpu_torch.wrappers import EpisodeWrapper
+
+    env = EpisodeWrapper(CartpoleBalance(), max_len=500)
+    obs, n_act = env.observation_size, env.action_size
+    g = torch.Generator().manual_seed(0)
+    actor = Sequential.create([
+        Dense.create(obs, 32, g, torch.relu), LSTM.create(32, 32, g),
+        Dense.create(32, 2 * n_act, g), NormalTanhSampler.create(entropy_weight=1e-2),
+    ])
+    networks = Sequential.create([
+        Normalizer.create(obs),
+        PPOAdapter.create(action=actor, value=make_mlp([obs, 32, 1], g, activation_last_layer=False)),
+    ])
+    config = PPOConfig(n_envs=1024, rollout_length=30, n_epochs=4, n_minibatches=4,
+                       learning_rate=3e-4, fused_replay=True)
+    return env, networks, config, make_optimizer(config.learning_rate)
+
+
+# The paths every rank drives at world size N: label -> (leg, envs per rank).
+CARD_PATHS = {"flagship": (flagship, 1024), "lstm_dry_run": (lstm_dry_run_leg, 1024),
+              "physics": (physics_leg, 2048)}
+# Launches per rank per ppo_step: one GAE per minibatch update (4 x 4), one
+# control step per rollout step of the physics leg (T = 20).
+CARD_PER_STEP = {"flagship": {"gae_cuda": 16, "control_step_cuda": 0},
+                 "lstm_dry_run": {"gae_cuda": 16, "control_step_cuda": 0},
+                 "physics": {"gae_cuda": 16, "control_step_cuda": 20}}
+CARD_STEPS = 3  # ppo_steps of each path per rank; the last two timed
+CARD_PARITY_PATHS = ("flagship", "physics")  # the update held to one process's
+# The four-rank update against one process's on the same blocks and plan:
+# float32 sums in another order (each rank reduces its quarter of a
+# minibatch and the gradients are averaged; the advantage statistics are
+# Welford-merged over the ranks; the one process reduces the whole
+# minibatch at once), through 16 adam steps. The limit per tensor is rtol
+# 1e-4 / atol 1e-5 (what this script holds the card's loss and gradients
+# to against the CPU's, LOSS_LIMITS), on the physics leg widened by the
+# largest difference of that tensor between the one-process update and the
+# same update with each minibatch's rows reordered (reversed, and rolled by
+# half): the reduction-order spread of this very update, once. The
+# flagship keeps the fixed limit (H100 at 700 W: 0.002 of it). The physics
+# leg's four-rank update lies above it (4.15): adam's normalized steps
+# amplify the float32 rounding of small gradients, and the replay's
+# log-likelihood of a stored sample amplifies it where the policy's std
+# nears its floor (as LOSS_LIMITS' float64 witness showed).
+CARD_PARITY_RTOL, CARD_PARITY_ATOL = 1e-4, 1e-5
+CARD_PARITY_SPREADS = {"flagship": 0.0, "physics": 1.0}  # times the spread added to atol
+CARD_CHECKPOINT_ITERATIONS = 2  # k: resumed after k of 2k iterations, at world size N
+CARD_STRONG_ENVS = 8192  # the physics leg's global envs, fixed, in the strong scaling
+CARD_SCALE_STEPS = 10  # timed ppo_steps per scaling row, after one untimed
+# Host calls that wait for the device, read from a rank's profile.
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaMemcpyAsync", "cudaMemcpy")
+
+
+def card_leg(torch, label: str, world: int):
+    """(env, networks, config, optimizer) of CARD_PATHS[label] at ``world``
+    ranks: the leg's config at its envs per rank times ``world``."""
+    leg, per_rank = CARD_PATHS[label]
+    env, networks, config, optimizer = leg(torch)
+    return env, networks, dataclasses.replace(config, n_envs=per_rank * world), optimizer
+
+
+class CollectiveCounter:
+    """``torch.distributed.all_reduce`` / ``all_gather`` (what the mesh's
+    collectives call) counted from now on: calls, bytes of this rank's
+    input and host ms inside the calls (NCCL returns once the collective
+    is enqueued on the stream)."""
+
+    def __init__(self, dist):
+        self.reset()
+        for name, arg in (("all_reduce", 0), ("all_gather", 1)):
+            setattr(dist, name, self._wrap(name, getattr(dist, name), arg))
+
+    def _wrap(self, name: str, fn, arg: int):
+        def counted(*args, **kwargs):
+            x = args[arg]
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.host_ms += (time.perf_counter() - t0) * 1e3
+            self.calls[name] = self.calls.get(name, 0) + 1
+            self.bytes[name] = self.bytes.get(name, 0) + x.numel() * x.element_size()
+            return out
+
+        return counted
+
+    def reset(self) -> None:
+        self.calls, self.bytes, self.host_ms = {}, {}, 0.0
+
+    def read(self, per: int) -> dict:
+        return {"calls": {k: v / per for k, v in self.calls.items()},
+                "bytes": {k: v / per for k, v in self.bytes.items()},
+                "host_ms": self.host_ms / per}
+
+
+def replicated_tensors(ts) -> dict:
+    """Every weight, Normalizer statistic and adam moment of ``ts``, on the
+    host: what each rank must hold to the bit alike."""
+    out = {f"net.{k}": v.detach().cpu() for k, v in ts.networks.state_dict().items()}
+    for i, p in enumerate(ts.networks.parameters()):
+        for moment in ("exp_avg", "exp_avg_sq", "step"):
+            out[f"opt.{i}.{moment}"] = ts.opt_state.state[p][moment].detach().cpu()
+    return out
+
+
+def primary_contexts() -> list:
+    """Whether this process holds the primary CUDA context of each visible
+    card, from libcuda (cuDevicePrimaryCtxGetState, which opens none)."""
+    import ctypes
+
+    lib = ctypes.CDLL("libcuda.so.1")
+    count, dev = ctypes.c_int(), ctypes.c_int()
+    flags, active = ctypes.c_uint(), ctypes.c_int()
+    check(lib.cuInit(0) == 0 and lib.cuDeviceGetCount(ctypes.byref(count)) == 0,
+          "libcuda answers")
+    out = []
+    for i in range(count.value):
+        check(lib.cuDeviceGet(ctypes.byref(dev), i) == 0, f"cuDeviceGet({i})")
+        check(lib.cuDevicePrimaryCtxGetState(dev, ctypes.byref(flags), ctypes.byref(active)) == 0,
+              f"cuDevicePrimaryCtxGetState({i})")
+        out.append(bool(active.value))
+    return out
+
+
+def nvidia_smi_apps() -> list:
+    """(pid, card index, used MiB) of every compute process nvidia-smi
+    lists."""
+    def query(*args):
+        return [line.split(", ") for line in subprocess.run(
+            ["nvidia-smi", *args, "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True, timeout=60).stdout.strip().splitlines() if line.strip()]
+
+    index = {uuid: int(i) for i, uuid in query("--query-gpu=index,uuid")}
+    return [[int(pid), index.get(uuid, -1), float(mem)]
+            for pid, uuid, mem in query("--query-compute-apps=pid,gpu_uuid,used_memory")]
+
+
+def card_kernel_checks(torch) -> dict:
+    """This rank's kernels against their plain versions on its own card, at
+    its per-rank shapes: GAE at each path's minibatch ([256, 30] and [512,
+    20] x 2 keys, time- and batch-major), the control step at the physics
+    leg's 2048 envs (held factor, rough terrain, DR and push lanes);
+    torch.equal for every output."""
+    from nnx_ppo_tpu_torch.ops.gae import gae_per_key, gae_scan
+
+    lam, gamma = 0.95, 0.99
+    card = torch.cuda.current_device()
+    rows = {}
+    for label, (T, B, n_keys) in GAE_PATH_SHAPES.items():
+        inputs = gae_path_inputs(T, B, n_keys, torch)
+        for batch_major in (False, True):
+            got = gae_per_key(*(batch_major_inputs(inputs) if batch_major else inputs), lam, gamma,
+                              batch_major=batch_major)
+            got = got if isinstance(got, dict) else {"key0": got}
+            equal = all(bool(torch.equal(got[k].T if batch_major else got[k], gae_scan(*key, lam, gamma)))
+                        and got[k].device.index == card for k, key in gae_keys(inputs).items())
+            rows[f"gae [{B}, {T}] x {n_keys} {'batch' if batch_major else 'time'}-major"] = equal
+    plan, args = control_step_case("held, full features, B=2048", torch)
+    got, want = plan.cuda(*args), plan.plain(*args)
+    rows["control_step held, full features, B=2048"] = all(
+        bool(torch.equal(g, w)) and g.device.index == card for g, w in zip(got, want))
+    sync(torch)
+    return rows
+
+
+def card_parity_step(torch, label: str, env, ts, config, optimizer, mesh, out_dir: str):
+    """One ppo_step's rollout and update taken apart: this rank's rollout,
+    its pre-rollout carries, the shard-local plan (drawn as ppo_step draws
+    it, from the replicated generator), the weights and optimizer before
+    the update and the weights after, saved for the one-process reference
+    (``card_reference``). Returns the state with the rollout's advance
+    committed."""
+    from nnx_ppo_tpu_torch.algorithms import rollout
+    from nnx_ppo_tpu_torch.algorithms.ppo import ppo_update
+    from nnx_ppo_tpu_torch.parallel import minibatch_permutations
+    from nnx_ppo_tpu_torch.parallel.mesh import rank_generator
+
+    with torch.no_grad():
+        next_net, next_env, data = rollout.unroll_env(
+            env, ts.env_states, ts.networks, ts.network_states, config.rollout_length,
+            rank_generator(ts.generator, mesh))
+    data = dataclasses.replace(data, metrics={})
+    selectors = minibatch_permutations(ts.generator, config.n_envs, config.n_epochs,
+                                       config.n_minibatches, n_shards=mesh.world_size)
+    saved = {"rollout": data, "carries": ts.network_states, "selectors": selectors,
+             "net": {k: v.detach().clone() for k, v in ts.networks.state_dict().items()},
+             "opt": copy.deepcopy(ts.opt_state.state_dict())}
+    ppo_update(ts.networks, ts.opt_state, ts.network_states, data, config, optimizer,
+               selectors=selectors, mesh=mesh)
+    saved["after"] = {k: v.detach().cpu() for k, v in ts.networks.state_dict().items()}
+    torch.save(saved, os.path.join(out_dir, f"parity_{label}_rank{mesh.rank}.pt"))
+    return ts.replace(network_states=next_net, env_states=next_env,
+                      steps_taken=ts.steps_taken + config.n_envs * config.rollout_length)
+
+
+def card_profile(torch, env, ts, config, optimizer, mesh) -> tuple:
+    """One more ppo_step under torch.profiler on this rank: the NCCL
+    kernels' launches and device ms, the device's busy ms, and the host ms
+    spent in calls that wait for the device (SYNC_CALLS) and inside the
+    collective calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnx_ppo_tpu_torch.algorithms import ppo_step
+
+    sync(torch)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ts, _ = ppo_step(env, ts, config, optimizer, mesh)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    nccl = [e for e in device if "nccl" in e.key.lower()]
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    return ts, {
+        "profiled_step_ms": wall_ms,
+        "device_busy_ms": sum(e.self_device_time_total for e in device) / 1e3,
+        "nccl_kernels": sum(e.count for e in nccl),
+        "nccl_device_ms": sum(e.self_device_time_total for e in nccl) / 1e3,
+        "nccl_kernel_names": sorted({e.key for e in nccl})[:4],
+        "sync_host_ms": sum(e.self_cpu_time_total for e in host if e.key in SYNC_CALLS) / 1e3,
+        "collective_host_ms": sum(e.cpu_time_total for e in host
+                                  if e.key.startswith(("nccl:", "c10d::"))) / 1e3,
+    }
+
+
+def card_checkpoint(torch, label: str, mesh, out_dir: str) -> dict:
+    """train_ppo at world size N with make_checkpoint_fn(mesh=): 2k
+    iterations (anneal_lr; on the flagship an eval at 0, k and 2k on every
+    rank), then the checkpoint at k loaded into a fresh template (another
+    seed) with load_checkpoint(mesh=) and trained to 2k: whether this
+    rank's final state equals the uninterrupted run's to the bit, and the
+    evals it saw."""
+    from nnx_ppo_tpu_torch.algorithms import (
+        EvalConfig, TrainConfig, load_checkpoint, make_checkpoint_fn, new_training_state,
+        train_ppo,
+    )
+
+    env, networks, ppo, _ = card_leg(torch, label, mesh.world_size)
+    per_iter = ppo.n_envs * ppo.rollout_length
+    k = CARD_CHECKPOINT_ITERATIONS
+    evaluation = (EvalConfig(n_envs=256, max_episode_length=100, every_steps=k * per_iter)
+                  if label == "flagship" else EvalConfig(enabled=False))
+    config = TrainConfig(ppo=dataclasses.replace(ppo, total_steps=2 * k * per_iter, anneal_lr=True),
+                         eval=evaluation, checkpoint_every_steps=k * per_iter, seed=0)
+    directory = os.path.join(out_dir, "checkpoints", label)
+    first = train_ppo(env, networks, config, mesh=mesh,
+                      checkpoint_fn=make_checkpoint_fn(os.path.join(directory, "run"), config,
+                                                       mesh=mesh))
+    mesh.barrier()
+    template = new_training_state(env, networks, ppo.n_envs, seed=1, mesh=mesh)
+    restored = load_checkpoint(os.path.join(directory, "run", f"step_{k * per_iter:010d}"),
+                               template, mesh=mesh)
+    check(restored["step"] == k * per_iter, f"checkpoint {label}: step restored")
+    resumed = train_ppo(env, networks, config, initial_state=restored["training_state"], mesh=mesh)
+    mine = os.path.join(directory, f"rank{mesh.rank}")
+    # Without the mesh, each rank saves its own block of the envs.
+    spread = leaf_differences(torch, saved_tensors(torch, first.training_state,
+                                                   os.path.join(mine, "first"))[0],
+                              saved_tensors(torch, resumed.training_state,
+                                            os.path.join(mine, "resumed"))[0])
+    return {"equal": max(spread.values()) == 0.0, "leaves": len(spread),
+            "differing": sorted(n for n, d in spread.items() if d)[:6],
+            "evals": [{k: float(v) for k, v in row.items()} for row in first.eval_history],
+            "steps": int(resumed.total_steps)}
+
+
+def card_main(torch, mesh, counter, out_dir: str) -> dict:
+    """What each rank does at world size N (``--card-worker main``): its
+    kernels against their plain versions, then each of CARD_PATHS for
+    CARD_STEPS ppo_steps (launches and the card of each, collectives, step
+    ms, the replicated tensors), the update of the parity paths taken apart
+    for the one-process reference, a profiled step of the physics leg, and
+    checkpoint / resume on the flagship and the physics leg."""
+    from nnx_ppo_tpu_torch.algorithms import new_training_state, ppo_step
+    from nnx_ppo_tpu_torch.ops.gae import gae_cuda
+    from nnx_ppo_tpu_torch.physics.cuda_step import control_step_cuda
+
+    wrappers = (gae_cuda, control_step_cuda)
+    out = {"kernels": card_kernel_checks(torch), "paths": {}}
+    for label in CARD_PATHS:
+        env, networks, config, optimizer = card_leg(torch, label, mesh.world_size)
+        ts = new_training_state(env, networks, config.n_envs, seed=0, optimizer=optimizer,
+                                mesh=mesh)
+        for w in wrappers:
+            w.launches = 0
+            w.devices.clear()
+        counter.reset()
+        step_ms = []
+        for _ in range(CARD_STEPS):
+            sync(torch)
+            t0 = time.perf_counter()
+            ts, metrics = ppo_step(env, ts, config, optimizer, mesh)
+            sync(torch)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        row = {"envs_per_rank": int(ts.env_states.done.shape[0]), "global_envs": config.n_envs,
+               "launches_per_step": {w.__name__: w.launches / CARD_STEPS for w in wrappers},
+               "launch_cards": {w.__name__: sorted(w.devices) for w in wrappers},
+               "collectives_per_step": counter.read(CARD_STEPS), "step_ms": step_ms,
+               "actor_loss": float(metrics["losses/actor/mean"]),
+               "replicated": replicated_tensors(ts)}
+        if label in CARD_PARITY_PATHS:
+            ts = card_parity_step(torch, label, env, ts, config, optimizer, mesh, out_dir)
+        if label == "physics":
+            ts, out["profile"] = card_profile(torch, env, ts, config, optimizer, mesh)
+        out["paths"][label] = row
+    out["checkpoints"] = {label: card_checkpoint(torch, label, mesh, out_dir)
+                          for label in CARD_PARITY_PATHS}
+    return out
+
+
+def card_reference(torch, out_dir: str, world: int, device) -> dict:
+    """The update of each parity path in one process (this one, world size
+    1, on ``device``): the ranks' rollouts and carries concatenated in rank
+    order, the same shard-local plan, the weights and optimizer as they
+    were before the update, ppo_update without a mesh. Returns, per path,
+    the largest share of the path's limit (CARD_PARITY_RTOL / ATOL, the
+    atol widened by CARD_PARITY_SPREADS[label] times the one process's own
+    reduction-order spread) that the ranks' updated weights read against
+    it, and the shares that the same update reads with one of two faults:
+    one GAE column wrong (env 0's advantages replaced by env 1's, as a
+    kernel that indexed one column wrongly would), and the advantage
+    statistics taken over each rank's quarter of a minibatch (the
+    all-gather of ``ops/welford.py::all_mean_var_std`` left out)."""
+    import types
+
+    from nnx_ppo_tpu_torch.algorithms import ppo as ppo_module
+    from nnx_ppo_tpu_torch.core.struct import tree_map
+
+    shipped, shipped_stats = ppo_module.gae_per_key, ppo_module.all_mean_var_std
+    # What ppo_update reads of a mesh, for one rank: the statistics go
+    # through all_mean_var_std, and the gradient all-reduce is the identity.
+    one_rank = types.SimpleNamespace(world_size=1, rank=0, all_reduce_sum=lambda x: x)
+    rows = {}
+    for label in CARD_PARITY_PATHS:
+        parts = [torch.load(os.path.join(out_dir, f"parity_{label}_rank{r}.pt"),
+                            map_location=device, weights_only=False) for r in range(world)]
+        env, networks, config, optimizer = card_leg(torch, label, world)
+        data = tree_map(lambda *xs: torch.cat(xs, 1) if xs[0].ndim >= 2 else xs[0],
+                        *[p["rollout"] for p in parts])
+        carries = tree_map(lambda *xs: torch.cat(xs, 0), *[p["carries"] for p in parts])
+        selectors = parts[0]["selectors"]
+        env_axis = 0 if ppo_module.resolve_batch_major(config, networks) else 1
+
+        def update(selectors=selectors, gae_per_key=shipped, mean_var_std=None):
+            net = copy.deepcopy(networks).to(device)
+            net.load_state_dict(parts[0]["net"])
+            opt_state = optimizer.init(net.parameters())
+            # A copy: load_state_dict keeps the given moments' tensors, which
+            # the update then changes in place.
+            opt_state.load_state_dict(copy.deepcopy(parts[0]["opt"]))
+            ppo_module.gae_per_key = gae_per_key
+            ppo_module.all_mean_var_std = mean_var_std or shipped_stats
+            try:
+                ppo_module.ppo_update(net, opt_state, carries, data, config, optimizer,
+                                      selectors=selectors,
+                                      mesh=None if mean_var_std is None else one_rank)
+            finally:
+                ppo_module.gae_per_key, ppo_module.all_mean_var_std = shipped, shipped_stats
+            return {k: v.detach() for k, v in net.state_dict().items()
+                    if v.is_floating_point()}
+
+        def one_column_wrong(*args, **kwargs):
+            def wrong(a):
+                a = a.clone()
+                a[0] = a[1]
+                return a
+            return tree_map(wrong, shipped(*args, **kwargs))
+
+        def local_statistics(xs, _mesh):
+            # A minibatch holds each rank's quarter in rank order (the plan
+            # takes an equal slice of every block, block 0's first).
+            def per_rank(x, stat):
+                parts = x.chunk(world, env_axis)
+                return torch.cat([stat(p).expand_as(p) for p in parts], env_axis)
+
+            out = []
+            for x in xs:
+                var = per_rank(x, lambda p: p.var(correction=0))
+                out.append((per_rank(x, torch.mean), var, var.sqrt()))
+            return out
+
+        want = update()
+        # The same update with each minibatch's rows in another order (the
+        # same minibatches, every sum taken in another order): the float32
+        # reduction-order spread of this update, tensor by tensor.
+        witnesses = [update(selectors.flip(1)),
+                     update(selectors.roll(selectors.shape[1] // 2, 1))]
+        spread = {k: max((w[k] - want[k]).abs().max().item() for w in witnesses) for k in want}
+        widen = CARD_PARITY_SPREADS[label]
+
+        def share(a, b, widen=widen):
+            return max(share_of_limit(a[k], b[k], CARD_PARITY_RTOL,
+                                      CARD_PARITY_ATOL + widen * spread[k]) for k in b)
+
+        def largest(a, b):
+            return max(((a[k].double() - b[k].double()).abs().max().item(), k) for k in b)
+
+        got = [{k: p["after"][k].to(device) for k in want} for p in parts]
+        rows[label] = {
+            "global_envs": config.n_envs, "widen": widen,
+            "largest_share": max(share(g, want) for g in got),
+            "fixed_share": max(share(g, want, 0.0) for g in got),
+            "largest_difference": largest(got[0], want),
+            "spread": max((d, k) for k, d in spread.items()),
+            "spread_fixed_share": max(share(w, want, 0.0) for w in witnesses),
+            "one_gae_column_wrong_share": share(update(gae_per_key=one_column_wrong), want),
+            "local_statistics_share": share(update(mean_var_std=local_statistics), want),
+            "ranks_equal": all(torch.equal(g[k], got[0][k]) for g in got for k in want),
+        }
+    return rows
+
+
+def card_scale(torch, mesh, cards: int, out_dir: str, reference: bool) -> dict:
+    """One world size of the scaling runs (``--card-worker scale``): the
+    flagship and the physics leg at their envs per rank (weak), and the
+    physics leg at CARD_STRONG_ENVS envs over the ranks (strong), one
+    untimed and CARD_SCALE_STEPS timed ppo_steps each; rank 0's step ms and
+    train_sps. With ``reference`` (world size 1, once) also the one-process
+    update (``card_reference``) and the physics leg's world-size-``cards``
+    checkpoint loaded here and trained one more iteration."""
+    from nnx_ppo_tpu_torch.algorithms import (
+        EvalConfig, TrainConfig, load_checkpoint, new_training_state, ppo_step, train_ppo,
+    )
+
+    world = mesh.world_size
+    threads = torch.get_num_threads()
+    out = {"rows": {}}
+    # The last row: the weak physics leg again with the host's cores shared
+    # out (PyTorch's intra-op threads default to every core in each rank).
+    for row, label, n_envs, n_threads in (
+            ("flagship weak", "flagship", None, threads),
+            ("physics weak", "physics", None, threads),
+            ("physics strong", "physics", CARD_STRONG_ENVS, threads),
+            ("physics weak, cores shared out", "physics", None,
+             max(1, len(os.sched_getaffinity(0)) // world))):
+        torch.set_num_threads(n_threads)
+        env, networks, config, optimizer = card_leg(torch, label, world)
+        if n_envs is not None:
+            config = dataclasses.replace(config, n_envs=n_envs)
+        ts = new_training_state(env, networks, config.n_envs, seed=0, optimizer=optimizer,
+                                mesh=mesh)
+        ts, _ = ppo_step(env, ts, config, optimizer, mesh)
+        sync(torch)
+        t0 = time.perf_counter()
+        for _ in range(CARD_SCALE_STEPS):
+            ts, _ = ppo_step(env, ts, config, optimizer, mesh)
+        sync(torch)
+        step_ms = (time.perf_counter() - t0) / CARD_SCALE_STEPS * 1e3
+        out["rows"][row] = {"global_envs": config.n_envs, "envs_per_rank": config.n_envs // world,
+                            "threads": n_threads, "step_ms": step_ms,
+                            "train_sps": config.n_envs * config.rollout_length / step_ms * 1e3}
+    torch.set_num_threads(threads)
+    if reference:
+        out["reference"] = card_reference(torch, out_dir, cards, mesh.device)
+        env, networks, ppo, _ = card_leg(torch, "physics", cards)
+        per_iter = ppo.n_envs * ppo.rollout_length
+        k = CARD_CHECKPOINT_ITERATIONS
+        config = TrainConfig(ppo=dataclasses.replace(ppo, total_steps=(k + 1) * per_iter,
+                                                     anneal_lr=True),
+                             eval=EvalConfig(enabled=False), seed=0)
+        template = new_training_state(env, networks, ppo.n_envs, seed=1, mesh=mesh)
+        restored = load_checkpoint(os.path.join(out_dir, "checkpoints", "physics", "run",
+                                                f"step_{k * per_iter:010d}"), template, mesh=mesh)
+        losses = []
+        res = train_ppo(env, networks, config, initial_state=restored["training_state"], mesh=mesh,
+                        log_fn=lambda m, _: losses.append(float(m["losses/actor/mean"])))
+        out["load_at_world_size_1"] = {"global_envs": ppo.n_envs, "steps": int(res.total_steps),
+                                       "actor_loss": losses[-1]}
+    return out
+
+
+def two_rank_worker(torch, mesh) -> dict:
+    """One rank of the two-rank run (``--card-worker two_rank``): the
+    physics leg, then the flagship, TWO_RANK_STEPS ppo_steps each at the
+    paths' global env counts (each rank half of them): its launches, step
+    ms and replicated tensors."""
+    from nnx_ppo_tpu_torch.algorithms import new_training_state, ppo_multi_step
+    from nnx_ppo_tpu_torch.ops.gae import gae_cuda
+    from nnx_ppo_tpu_torch.physics.cuda_step import control_step_cuda
+
+    out = {}
+    for label, leg in (("physics", physics_leg), ("flagship", flagship)):
+        env, networks, config, optimizer = leg(torch)
+        ts = new_training_state(env, networks, config.n_envs, seed=0, optimizer=optimizer,
+                                mesh=mesh)
+        gae_cuda.launches = control_step_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, history = ppo_multi_step(env, ts, config, optimizer, TWO_RANK_STEPS,
+                                     return_history=True, mesh=mesh)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / TWO_RANK_STEPS * 1e3
+        check_finite(history, torch)
+        out[label] = {"launches": {"gae_cuda": gae_cuda.launches,
+                                   "control_step_cuda": control_step_cuda.launches},
+                      "step_ms": step_ms, "n_envs": int(ts.env_states.done.shape[0]),
+                      "global_n_envs": config.n_envs, "state": replicated_tensors(ts),
+                      "actor_loss": float(history["losses/actor/mean"][-1])}
+    return out
+
+
+def card_worker(mode: str, out_dir: str, cards: int) -> int:
+    """One rank of a multi-process run (``chip_smoke.py --card-worker MODE
+    OUT_DIR CARDS``; RANK, LOCAL_RANK, WORLD_SIZE, MASTER_ADDR and
+    MASTER_PORT from the caller): NCCL on card LOCAL_RANK (gloo on card 0
+    for ``two_rank``), the mesh first, so that nothing touches a card
+    before the rank's own is current; then ``card_main``, ``card_scale``
+    or ``two_rank_worker``, and, in ``main``, where the rank's allocations
+    and CUDA contexts are (and rank 0's view of nvidia-smi's compute
+    processes, taken while every rank is alive). Writes
+    ``{mode}_w{world}_rank{rank}.pt`` in ``out_dir``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from nnx_ppo_tpu_torch.ops import cuda_build
+    from nnx_ppo_tpu_torch.parallel import distributed_initialize, make_mesh
+
+    rank, local_rank = int(os.environ["RANK"]), int(os.environ["LOCAL_RANK"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    compiles = []
+    real_compile = cuda_build._compile
+
+    def counted_compile(keys, verbose):
+        compiles.extend(f"{name} {' '.join(flags)}".strip() for name, flags in keys)
+        return real_compile(keys, verbose)
+
+    cuda_build._compile = counted_compile
+    # Two ranks on one card share it over gloo (NCCL refuses two ranks on
+    # one GPU); every other mode runs one rank per card.
+    shared = mode == "two_rank"
+    distributed_initialize(backend="gloo" if shared else "nccl", init_method="env://",
+                           timeout=datetime.timedelta(seconds=600))
+    try:
+        # make_mesh's own choice of card (cuda:LOCAL_RANK) where each rank
+        # has one.
+        card = 0 if shared else local_rank
+        mesh = make_mesh(device="cuda:0" if shared else None)
+        mesh.barrier()  # NCCL sets up its communicator here, outside every timed step
+        out = {"rank": rank, "local_rank": local_rank, "pid": os.getpid(),
+               "device": str(mesh.device), "threads": torch.get_num_threads(),
+               "cpus": len(os.sched_getaffinity(0))}
+        check(mesh.device == torch.device("cuda", card) and torch.cuda.current_device() == card,
+              f"rank {rank}: mesh on {mesh.device}, current card {torch.cuda.current_device()}")
+        counter = CollectiveCounter(dist)
+        if mode == "main":
+            out.update(card_main(torch, mesh, counter, out_dir))
+            # libcuda's view first (it opens no context), then the caching
+            # allocator's per card.
+            out["contexts"] = primary_contexts()
+            out["allocated"] = [torch.cuda.memory_allocated(i)
+                                for i in range(torch.cuda.device_count())]
+            mesh.barrier()
+            if rank == 0:
+                out["compute_apps"] = nvidia_smi_apps()
+            mesh.barrier()
+        elif shared:
+            out.update(two_rank_worker(torch, mesh))
+        else:
+            out.update(card_scale(torch, mesh, cards, out_dir, reference=mode == "scale+reference"))
+        out["compiles"] = compiles
+        torch.save(out, os.path.join(out_dir, f"{mode}_w{mesh.world_size}_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_card_ranks(torch, mode: str, world: int, cards: int, out_dir: str,
+                   timeout: float) -> list:
+    """``world`` ranks of ``card_worker(mode)``, each a process of its own
+    with LOCAL_RANK = RANK; a rank that fails, or outlives ``timeout``,
+    fails the run. Returns each rank's results."""
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+               WORLD_SIZE=str(world))
+    command = [sys.executable, os.path.abspath(__file__), "--card-worker", mode, out_dir,
+               str(cards)]
+    logs = [os.path.join(out_dir, f"{mode}_w{world}_rank{r}.log") for r in range(world)]
+    procs = []
+    try:
+        for r in range(world):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(command, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                                              stdout=log, stderr=subprocess.STDOUT))
+        # Until every rank has exited, one has failed (the others would wait
+        # in a collective) or the time is up.
+        deadline = time.perf_counter() + timeout
+        while (any(p.poll() is None for p in procs) and time.perf_counter() < deadline
+               and not any(p.poll() for p in procs)):
+            time.sleep(0.5)
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+    for r, proc in enumerate(procs):
+        if proc.returncode != 0:
+            with open(logs[r]) as f:
+                tail = f.read()[-4000:]
+            check(False, f"{mode} at world size {world}: rank {r} exited {proc.returncode}:\n{tail}")
+    return [torch.load(os.path.join(out_dir, f"{mode}_w{world}_rank{r}.pt"), weights_only=True)
+            for r in range(world)]
+
+
+def card_examples(torch, n: int, out_dir: str, expect) -> dict:
+    """multihost_dp.py --distributed and joystick_locomotion.py under
+    ``torchrun --standalone --nproc_per_node=n`` (``--example-worker``),
+    each through its main as examples_phase runs it (EXAMPLE_PPO_STEPS
+    steps, one eval): the exit code, and each rank's launches per training
+    call held to expected_example_launches."""
+    from nnx_ppo_tpu_torch.ops.gae import gae_cuda
+    from nnx_ppo_tpu_torch.physics.cuda_scene_step import scene_step_cuda
+    from nnx_ppo_tpu_torch.physics.cuda_step import (
+        control_step_cuda, plane_sampler_cuda, substeps_cuda,
+    )
+
+    wrappers = [gae_cuda, control_step_cuda, plane_sampler_cuda, substeps_cuda, scene_step_cuda]
+    rows = {}
+    for label in ("multihost_dp", "joystick_locomotion"):
+        out_json = os.path.join(out_dir, f"example_{label}.json")
+        command = torchrun_command() + ["--standalone", f"--nproc_per_node={n}",
+                                        os.path.abspath(__file__), "--example-worker", label,
+                                        out_json]
+        t0 = time.perf_counter()
+        proc = subprocess.run(command, capture_output=True, text=True, timeout=600)
+        expect(proc.returncode == 0, f"example {label} under torchrun --nproc_per_node={n} exited "
+              f"{proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+        if proc.returncode != 0:
+            rows[label] = {"exit_code": proc.returncode}
+            continue
+        ranks = []
+        for r in range(n):
+            with open(example_worker_path(out_json, r)) as f:
+                ranks.append(json.load(f))
+        for r, row in enumerate(ranks):
+            expect(len(row["calls"]) == 1, f"example {label} rank {r}: one training call")
+            call = row["calls"][0]
+            expect(call["steps"] == EXAMPLE_PPO_STEPS, f"example {label} rank {r}: {call['steps']} steps")
+            want = expected_example_launches(label, call, wrappers)
+            expect(call["launches"] == want,
+                   f"example {label} rank {r}: launches {call['launches']}, want {want}")
+        rows[label] = {"exit_code": proc.returncode, "wall_s": time.perf_counter() - t0,
+                       "launches_per_rank": [row["calls"][0]["launches"] for row in ranks],
+                       "train_sps_per_rank": [row["calls"][0]["train_sps"] for row in ranks],
+                       "eval": ranks[0]["calls"][0]["eval_history"]}
+    return rows
+
+
+def multi_card_phase(torch, n: int) -> dict:
+    """Data-parallel PPO over ``n`` cards, one process per card, NCCL:
+    ``n`` ranks of ``card_main`` (placement, launches and their cards,
+    the kernels on each rank's card, replicated state, collectives, a
+    profile, checkpoints), the one-process reference and the world-size-1
+    load, the weak and strong scaling at world sizes 1, 2 and n in turns
+    (1, 2, n, n, 2, 1), and the two data-parallel examples under torchrun."""
+    failures = []
+
+    def expect(ok: bool, what: str) -> None:
+        # A failed check fails the run at the end, after every part has run
+        # and printed what it measured.
+        if not ok:
+            failures.append(what)
+            print(f"multi-card check failed: {what}")
+
+    out_dir = os.path.abspath(os.path.join("build", "multi_card"))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t_phase = time.perf_counter()
+    suffix = f"on {n} x {card_line()}"
+    ranks = run_card_ranks(torch, "main", n, n, out_dir, timeout=600)
+    result = {"world_size": n, "ranks": [], "paths": {}}
+
+    # Placement: each rank on its own card, allocations and contexts there only.
+    apps = ranks[0]["compute_apps"]
+    for r in ranks:
+        own = r["local_rank"]
+        row = {k: r[k] for k in ("rank", "pid", "device", "threads", "cpus", "compiles",
+                                 "allocated", "contexts")}
+        row["smi_cards"] = sorted(i for pid, i, _ in apps if pid == r["pid"])
+        row["kernels_equal"] = r["kernels"]
+        expect(r["device"] == f"cuda:{own}", f"rank {r['rank']} on {r['device']}")
+        expect(r["contexts"] == [i == own for i in range(len(r["contexts"]))],
+               f"rank {r['rank']}: CUDA contexts {r['contexts']}, want card {own} only")
+        expect(all((a > 0) == (i == own) for i, a in enumerate(r["allocated"])),
+               f"rank {r['rank']}: memory allocated {r['allocated']}, want card {own} only")
+        expect(row["smi_cards"] in ([], [own]),
+               f"rank {r['rank']}: nvidia-smi lists its pid on cards {row['smi_cards']}")
+        expect(all(r["kernels"].values()),
+               f"rank {r['rank']}: kernels against their plain versions {r['kernels']}")
+        result["ranks"].append(row)
+        print(f"multi-card rank {r['rank']}: pid {r['pid']} on {r['device']}, "
+              f"{r['threads']} threads, {r['cpus']} CPUs; memory allocated per card "
+              f"{r['allocated']}, primary contexts per card {[int(c) for c in r['contexts']]}, "
+              f"nvidia-smi lists its pid on cards "
+              f"{row['smi_cards'] or 'none (another PID namespace)'}; kernels torch.equal to "
+              f"their plain versions on its card: {all(r['kernels'].values())} "
+              f"({', '.join(r['kernels'])}); nvcc runs here: {r['compiles'] or 'none'} {suffix}")
+    per_card = [sum(1 for _, i, _ in apps if i == c) for c in range(n)]
+    result["compute_apps_per_card"] = per_card
+    print(f"multi-card nvidia-smi: compute processes per card {per_card} (one each: every "
+          f"rank's only context on its own card) {apps}")
+    expect(all(c <= 1 for c in per_card), f"one compute process per card: {apps}")
+    built = [c for r in ranks for c in r["compiles"]]
+    expect(len(built) == len(set(built)), f"each library built once over the ranks: {built}")
+
+    for label in CARD_PATHS:
+        rows = [r["paths"][label] for r in ranks]
+        first = rows[0]["replicated"]
+        differing = sorted({k for row in rows[1:] for k in first
+                            if not torch.equal(first[k], row["replicated"][k])})
+        launches = [row["launches_per_step"] for row in rows]
+        cards_used = [row["launch_cards"] for row in rows]
+        step_ms = [sorted(row["step_ms"][1:])[len(row["step_ms"][1:]) // 2] for row in rows]
+        summary = {
+            "envs_per_rank": rows[0]["envs_per_rank"], "global_envs": rows[0]["global_envs"],
+            "launches_per_step": launches, "launch_cards": cards_used,
+            "replicated_equal": not differing, "replicated_tensors": len(first),
+            "collectives_per_step": rows[0]["collectives_per_step"], "step_ms": step_ms,
+            "actor_loss": [row["actor_loss"] for row in rows],
+        }
+        result["paths"][label] = summary
+        c = summary["collectives_per_step"]
+        print(f"multi-card {label} ({summary['envs_per_rank']} envs per rank, "
+              f"{summary['global_envs']} in all, {CARD_STEPS} ppo_steps): launches per rank per "
+              f"step {launches}, on cards {cards_used}; weights, statistics and adam moments "
+              f"equal to the bit on all {n} ranks: {not differing} ({len(differing)} of "
+              f"{len(first)} differ); collectives per step {c['calls']}, bytes per rank "
+              f"{c['bytes']}, host {c['host_ms']:.3f} ms in the calls; step ms per rank "
+              f"{[round(x, 2) for x in step_ms]} {suffix}")
+        expect(not differing, f"{label}: equal to the bit on every rank {differing[:5]}")
+        for r, (row, used) in enumerate(zip(launches, cards_used)):
+            expect(math.isfinite(summary["actor_loss"][r]), f"{label} rank {r}: finite loss")
+            expect(row == CARD_PER_STEP[label], f"{label} rank {r}: launches per step {row}")
+            expect(all(v == ([r] if CARD_PER_STEP[label][k] else []) for k, v in used.items()),
+                   f"{label} rank {r}: launched on cards {used}")
+    profiles = [r["profile"] for r in ranks]
+    result["profile_physics"] = profiles
+    p = profiles[0]
+    print(f"multi-card physics profile, rank 0: {p['nccl_kernels']} NCCL kernels "
+          f"({', '.join(p['nccl_kernel_names'])}), {p['nccl_device_ms']:.3f} device ms of "
+          f"{p['device_busy_ms']:.2f} busy (an NCCL kernel's time includes its wait for the "
+          f"slowest rank); host {p['sync_host_ms']:.2f} ms in calls that wait for the device, "
+          f"{p['collective_host_ms']:.3f} ms in the collective calls; profiled step "
+          f"{p['profiled_step_ms']:.2f} ms {suffix}")
+    for label in CARD_PARITY_PATHS:
+        rows = [r["checkpoints"][label] for r in ranks]
+        equal = all(row["equal"] for row in rows)
+        evals_equal = all(row["evals"] == rows[0]["evals"] for row in rows)
+        result.setdefault("checkpoints", {})[label] = {
+            "resumed_equal": equal, "leaves": rows[0]["leaves"], "evals_equal": evals_equal,
+            "evals": rows[0]["evals"]}
+        print(f"multi-card checkpoint {label}: saved at world size {n} after "
+              f"{CARD_CHECKPOINT_ITERATIONS} of {2 * CARD_CHECKPOINT_ITERATIONS} iterations and "
+              f"resumed at {n}: every rank's state equal to the uninterrupted run's to the bit: "
+              f"{equal} ({rows[0]['leaves']} leaves per rank; {[row['differing'] for row in rows]}); "
+              f"evals {len(rows[0]['evals'])}, equal on every rank: {evals_equal}")
+        expect(equal and evals_equal, f"checkpoint {label} at world size {n}")
+
+    # The reference and the load at world size 1, then the scaling in turns.
+    sizes = [w for w in (1, 2, n) if w <= n]
+    order = sizes + sizes[::-1]
+    runs = {w: [] for w in sizes}
+    for i, w in enumerate(order):
+        mode = "scale+reference" if i == 0 else "scale"
+        runs[w].append(run_card_ranks(torch, mode, w, n, out_dir, timeout=300)[0])
+    first = runs[1][0]
+    for label, row in first["reference"].items():
+        result.setdefault("reference", {})[label] = row
+        limit = (f"rtol {CARD_PARITY_RTOL:g} / atol {CARD_PARITY_ATOL:g}"
+                 + (f", the atol widened per tensor by {row['widen']:g} x the one process's own "
+                    "reduction-order spread" if row["widen"] else ""))
+        print(f"multi-card update against one process, {label} ({row['global_envs']} envs, the "
+              f"ranks' blocks concatenated, the same {n}-shard plan): largest share of the limit "
+              f"({limit}) {row['largest_share']:.4f}; of the fixed rtol / atol alone "
+              f"{row['fixed_share']:.4f} (largest difference {row['largest_difference'][0]:.3g} in "
+              f"{row['largest_difference'][1]}); the one process against itself with each "
+              f"minibatch's rows reordered: largest difference {row['spread'][0]:.3g} in "
+              f"{row['spread'][1]}, {row['spread_fixed_share']:.4f} of the fixed limit; of the "
+              f"limit, one GAE column wrong would read {row['one_gae_column_wrong_share']:.3g}, "
+              f"the advantage statistics of each rank's quarter alone "
+              f"{row['local_statistics_share']:.3g}; ranks equal: {row['ranks_equal']}")
+        expect(row["largest_share"] <= 1.0 and row["ranks_equal"],
+               f"{label}: the {n}-rank update within its limit of one process's")
+        expect(row["one_gae_column_wrong_share"] > 1.0,
+               f"{label}: the limit catches one wrong GAE column")
+        expect(row["local_statistics_share"] > 1.0,
+               f"{label}: the limit catches advantage statistics left unmerged")
+    load = first["load_at_world_size_1"]
+    result["load_at_world_size_1"] = load
+    print(f"multi-card checkpoint physics, saved at world size {n}, loaded at world size 1 "
+          f"({load['global_envs']} envs on one card) and trained one more iteration: step "
+          f"{load['steps']}, actor loss {load['actor_loss']:.5f}")
+    expect(math.isfinite(load["actor_loss"]), "the world-size-1 load trains")
+    scaling = {}
+    for row in first["rows"]:
+        sps = {w: [run["rows"][row]["train_sps"] for run in runs[w]] for w in sizes}
+        mean = {w: sum(v) / len(v) for w, v in sps.items()}
+        weak = "weak" in row
+        # The efficiency from the means, and the range the two runs of each
+        # world size allow (the slowest against the fastest single card, and
+        # the other way round).
+        scaling[row] = {
+            "train_sps": sps,
+            "envs_per_rank": {w: runs[w][0]["rows"][row]["envs_per_rank"] for w in sizes},
+            "threads": {w: runs[w][0]["rows"][row]["threads"] for w in sizes},
+            "efficiency": {w: mean[w] / (w * mean[1]) for w in sizes},
+            "efficiency_range": {w: (min(sps[w]) / (w * max(sps[1])),
+                                     max(sps[w]) / (w * min(sps[1]))) for w in sizes}}
+        print(f"multi-card {row} scaling (train_sps over {CARD_SCALE_STEPS} ppo_steps at world "
+              f"sizes {sizes}, two runs each in the order {order}; envs per rank "
+              f"{scaling[row]['envs_per_rank']}; threads per rank {scaling[row]['threads']}): "
+              + "; ".join(f"{w}: {', '.join(f'{x:.1f}' for x in sps[w])}" for w in sizes)
+              + "; efficiency sps(N) / (N sps(1)) of the means, with the range of the runs "
+              + ", ".join(f"{w}: {scaling[row]['efficiency'][w]:.3f} "
+                          f"({scaling[row]['efficiency_range'][w][0]:.3f}-"
+                          f"{scaling[row]['efficiency_range'][w][1]:.3f})" for w in sizes)
+              + f" ({'weak: envs per rank fixed' if weak else 'strong: global envs fixed'}) {suffix}")
+    result["scaling"] = scaling
+    result["examples"] = card_examples(torch, n, out_dir, expect)
+    for label, row in result["examples"].items():
+        if row["exit_code"] != 0:
+            continue
+        print(f"multi-card example {label} under torchrun --nproc_per_node={n}: exit code "
+              f"{row['exit_code']}, {row['wall_s']:.1f} s; launches per rank "
+              f"{row['launches_per_rank']}; train_sps per rank "
+              f"{[round(x, 1) for x in row['train_sps_per_rank']]} {suffix}")
+    result["seconds"] = time.perf_counter() - t_phase
+    result["failed_checks"] = failures
+    print(f"multi-card phase: {result['seconds']:.1f} s {suffix}")
+    print(json.dumps({"multi_card": result}))
+    check(not failures, f"{len(failures)} multi-card checks: {failures}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR", default=None)
@@ -4160,16 +5001,20 @@ def main() -> int:
     parser.add_argument("--package-root", metavar="DIR", default=None)
     parser.add_argument("--learn-examples", metavar="NAME", nargs="*", default=None,
                         choices=sorted(LEARN_EXAMPLES))
-    parser.add_argument("--rank-worker", nargs=3, metavar=("RANK", "STORE", "OUT_DIR"),
-                        default=None, help=argparse.SUPPRESS)
     parser.add_argument("--example-worker", nargs=2, metavar=("LABEL", "OUT_JSON"),
                         default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--cards", metavar="N", type=int, default=None,
+                        help="run only the multi-card phase, on N cards (N >= 2)")
+    parser.add_argument("--card-worker", nargs=3, metavar=("MODE", "OUT_DIR", "CARDS"),
+                        default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
-    if args.rank_worker:
-        rank, store, out_dir = args.rank_worker
-        return rank_worker(int(rank), store, out_dir)
     if args.example_worker:
         return example_worker(*args.example_worker)
+    if args.card_worker:
+        mode, out_dir, cards = args.card_worker
+        return card_worker(mode, out_dir, int(cards))
+    if args.cards is not None and args.cards < 2:
+        parser.error("--cards takes N >= 2")
     if args.package_root:
         # Import nnx_ppo_tpu_torch from another checkout (--ab-kernels).
         sys.path.insert(0, os.path.abspath(args.package_root))
@@ -4195,6 +5040,21 @@ def main() -> int:
 
     card = card_line()
     print(f"card: {card}")
+    if args.cards is not None:
+        # The ranks open their CUDA contexts; this process opens none until
+        # they have all exited.
+        visible = torch.cuda.device_count()
+        if visible < args.cards:
+            print(f"chip_smoke --cards {args.cards}: torch.cuda.device_count() is {visible}; the "
+                  "multi-card phase needs one card per rank and runs on no fewer", file=sys.stderr)
+            return 1
+        multi_card_phase(torch, args.cards)
+        print(f"run: {time.perf_counter() - t_start:.1f} s")
+        print(f"card: {card}")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                   "kind": torch.cuda.get_device_name(0),
+                                                   "count": torch.cuda.device_count()}}))
+        return 0
     if args.learn_examples is not None:
         wrappers = [gae_cuda, control_step_cuda, plane_sampler_cuda, substeps_cuda,
                     scene_step_cuda]
@@ -4583,6 +5443,8 @@ def main() -> int:
           f"{new_paths['quadruped_2048_fastM_generic']['step_ms']:.2f}")
     print(json.dumps({"kernel_vs_generic": kernel_vs_generic,
                       "engine_card_vs_cpu": engine_card_vs_cpu}))
+    print("multi-card phase: not run (this run drives one card; `python3 chip_smoke.py --cards N` "
+          "runs data-parallel training on N cards, one rank each)")
     print(f"run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernel_rows.values())}))
     print(f"card: {card}")

@@ -14,13 +14,18 @@ import torch
 
 def resolve_device(device: str | torch.device) -> torch.device:
     """``torch.device(device)``, or ``RuntimeError`` when it is a CUDA
-    device and no GPU is present."""
+    device and no GPU is present. Once CUDA is initialized, a bare
+    ``"cuda"`` is given the index of the current card (the rank's, under
+    a mesh), so that it compares equal to the tensors made on it; before,
+    it stays bare, and reading the index would initialize CUDA."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device={str(device)!r} was asked for but no CUDA device is "
             "present; pass device='cpu' to run on the CPU"
         )
+    if device.type == "cuda" and device.index is None and torch.cuda.is_initialized():
+        device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 

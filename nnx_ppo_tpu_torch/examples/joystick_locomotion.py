@@ -96,14 +96,16 @@ def build(args: argparse.Namespace, device):
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = make_parser().parse_args(argv)
-    device = "cpu" if args.cpu else "cuda"
-    env, networks, config = build(args, device)
+    device = resolve_device("cpu" if args.cpu else "cuda")
 
     mesh = None
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        # Started by torchrun with several processes: one rank each.
+        # Started by torchrun with several processes: one rank each, built
+        # on the rank's own card (the mesh makes it current).
         distributed_initialize(backend="gloo" if args.cpu else "nccl")
         mesh = make_mesh(device="cpu" if args.cpu else None)
+        device = mesh.device
+    env, networks, config = build(args, device)
 
     def log_fn(metrics, step):
         tracked = metrics.get("episode_reward/tracking/mean")

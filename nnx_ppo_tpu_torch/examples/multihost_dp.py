@@ -81,8 +81,7 @@ def build(args: argparse.Namespace, device):
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = make_parser().parse_args(argv)
-    device = "cpu" if args.cpu else "cuda"
-    env, networks, config = build(args, device)
+    resolve_device("cpu" if args.cpu else "cuda")  # raises before any group without a GPU
     backend = "gloo" if args.cpu else "nccl"
     if args.distributed:
         distributed_initialize(backend=backend)
@@ -91,7 +90,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         distributed_initialize(backend=backend, store=torch.distributed.HashStore(),
                                rank=0, world_size=1)
     try:
-        mesh = make_mesh(device="cpu" if args.cpu else None)  # 1-D 'data' axis over the ranks
+        # 1-D 'data' axis over the ranks; on a card the rank's own becomes
+        # current, and everything is built on it.
+        mesh = make_mesh(device="cpu" if args.cpu else None)
+        env, networks, config = build(args, mesh.device)
         print(f"mesh: {mesh.shape} ({mesh.world_size} devices)")
         result = train_ppo(
             env,

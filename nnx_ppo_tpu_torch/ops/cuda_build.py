@@ -14,11 +14,25 @@ unchanged one is reused. What ptxas reports of each kernel (registers,
 stack frame, spills, static shared memory) is kept beside the library and
 read with :func:`ptxas_info`. Nothing is built at import time: the first
 caller builds.
+
+Processes that start together (one per card under ``torchrun``) build
+each library once: the process that builds it holds an ``flock`` on a
+``.lock`` file beside the library, and the others wait for it and load
+what it built.
+The operating system releases the lock when its holder exits, so a
+build that was cut off leaves no stale lock behind.
+
+Each kernel's wrapper counts its launches (:func:`counted`,
+:func:`count_launch`): ``wrapper.launches`` in all, and
+``wrapper.devices[i]`` on card ``i``.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -78,19 +92,46 @@ def library_path(name: str, flags: Sequence[str] = ()) -> Path:
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
+def _try_lock(held: contextlib.ExitStack, key: tuple[str, tuple[str, ...]]) -> bool:
+    """Take the build lock of ``key``'s library without waiting, for as
+    long as ``held`` is open; False where another process holds it."""
+    lock = open(library_path(*key).with_suffix(".lock"), "a")
+    try:
+        fcntl.flock(lock, fcntl.LOCK_EX | fcntl.LOCK_NB)
+    except BlockingIOError:
+        lock.close()
+        return False
+    held.callback(lock.close)  # closing the file releases the lock
+    return True
+
+
 def build(specs: Sequence[Spec], verbose: bool = False) -> dict[tuple[str, tuple[str, ...]], Path]:
     """Compile every kernel in ``specs`` that is not built yet, one
-    ``nvcc`` process per library, all started together. What nvcc and
+    ``nvcc`` process per library, all started together, each under its
+    build lock; a library whose lock another process holds is waited for
+    and then loaded (or built here, if that build failed). What nvcc and
     ptxas (``-v``: registers, stack, spills) say goes into the library's
     ``.log`` beside it; ``verbose`` also prints it."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    keys = [_normalize(spec) for spec in specs]
+    keys = list(dict.fromkeys(_normalize(spec) for spec in specs))
+    todo = [key for key in keys if not library_path(*key).exists()]
+    while todo:
+        with contextlib.ExitStack() as held:
+            mine = [key for key in todo if _try_lock(held, key)]
+            _compile([key for key in mine if not library_path(*key).exists()], verbose)
+        todo = [key for key in todo if not library_path(*key).exists()]
+        if todo:
+            # Another process builds it: wait for its lock, then look again.
+            with open(library_path(*todo[0]).with_suffix(".lock"), "a") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+    return {key: library_path(*key) for key in keys}
+
+
+def _compile(keys: Sequence[tuple[str, tuple[str, ...]]], verbose: bool) -> None:
+    """Run nvcc for each of ``keys`` at once; raise if any fails."""
     procs = {}
     for key in keys:
         name, flags = key
-        target = library_path(name, flags)
-        if target.exists() or key in procs:
-            continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-Xptxas", "-v", "-o", tmp,
@@ -110,7 +151,20 @@ def build(specs: Sequence[Spec], verbose: bool = False) -> dict[tuple[str, tuple
                 print(f"nvcc {name}.cu {' '.join(flags)}:\n{text.strip()}")
     if failures:
         raise RuntimeError("nvcc failed for " + "\n".join(failures))
-    return {key: library_path(*key) for key in keys}
+
+
+def counted(wrapper) -> None:
+    """Give a kernel's wrapper its launch counts: ``wrapper.launches``
+    (all) and ``wrapper.devices`` (a Counter by card index)."""
+    wrapper.launches = 0
+    wrapper.devices = collections.Counter()
+
+
+def count_launch(wrapper, device) -> None:
+    """One launch of ``wrapper``'s kernel on CUDA ``device``; called where
+    the kernel launches, and nowhere else."""
+    wrapper.launches += 1
+    wrapper.devices[device.index] += 1
 
 
 def load(name: str, flags: Sequence[str] = ()) -> ctypes.CDLL:

@@ -21,8 +21,8 @@ result carries no gradient.
   version for CPU tensors, the kernel for CUDA tensors.
 
 Every launch of the kernel, from either entry, counts one in
-``gae_cuda.launches``. There is no fallback: a CUDA tensor that the
-kernel cannot take raises.
+``gae_cuda.launches`` and in ``gae_cuda.devices[card index]``. There is
+no fallback: a CUDA tensor that the kernel cannot take raises.
 
 The plain version casts ``done`` and ``truncation`` to float32; the
 kernel reads them as they come, bool or float32 (other dtypes raise), so
@@ -161,14 +161,17 @@ def _launch(keys: list, lambda_: float, gamma: float, tile_rows: int = 0,
         packed.extend((r.data_ptr(), v.data_ptr(), last.data_ptr(), d.data_ptr(), tr.data_ptr(),
                        outs[k].data_ptr(), ld_r, ld_v, ld_d, ld_t))
     stream = torch.cuda.current_stream(device)
-    err = _gae_forward()(
-        packed.buffer_info()[0], n, T, B, gamma, lambda_, done_dtype == torch.bool,
-        trunc_dtype == torch.bool, batch_major, GAE_COLUMNS, tile_rows, device.index,
-        stream.cuda_stream,
-    )
+    # The entry point sets the calling thread's device to the tensors'; the
+    # guard gives the caller's current device back after it.
+    with torch.cuda.device(device):
+        err = _gae_forward()(
+            packed.buffer_info()[0], n, T, B, gamma, lambda_, done_dtype == torch.bool,
+            trunc_dtype == torch.bool, batch_major, GAE_COLUMNS, tile_rows, device.index,
+            stream.cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"gae kernel launch failed: cudaError_t {err}")
-    gae_cuda.launches += 1
+    cuda_build.count_launch(gae_cuda, device)
     return outs
 
 
@@ -188,7 +191,7 @@ def gae_cuda(
                    gamma, batch_major=batch_major)[0]
 
 
-gae_cuda.launches = 0
+cuda_build.counted(gae_cuda)
 
 
 def gae_per_key(

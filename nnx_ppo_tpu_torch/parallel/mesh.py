@@ -29,7 +29,12 @@ host (:meth:`Mesh.all_reduce_sum`, :meth:`Mesh.all_gather`).
 
 Multi-process bring-up: start one process per device (``torchrun
 --nproc_per_node=N`` sets each one's address, rank and world size), call
-:func:`distributed_initialize` in each, then :func:`make_mesh`.
+:func:`distributed_initialize` in each, then :func:`make_mesh`, before
+anything else touches a card. On a card the mesh makes its device the
+process's current one (``torch.cuda.set_device``), so that a bare
+``"cuda"``, a device guard's restore and NCCL's own device guess all
+mean the rank's card: the process opens a CUDA context on that card
+only.
 """
 
 from __future__ import annotations
@@ -109,7 +114,8 @@ def make_mesh(
     world size: a mesh never shrinks or grows the world quietly.
     ``device`` defaults to ``cuda:LOCAL_RANK`` (modulo the visible cards;
     ``torchrun`` sets ``LOCAL_RANK``), which raises without a card; pass
-    ``device="cpu"`` for CPU ranks."""
+    ``device="cpu"`` for CPU ranks. A CUDA device becomes the process's
+    current device."""
     if not dist.is_available() or not dist.is_initialized():
         raise RuntimeError(
             f"make_mesh({n_devices}) needs a process group: call "
@@ -126,11 +132,14 @@ def make_mesh(
         local_rank = int(os.environ.get("LOCAL_RANK", rank))
         n_cards = torch.cuda.device_count()
         device = torch.device("cuda", local_rank % n_cards) if n_cards else "cuda"
+    device = resolve_device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
     return Mesh(
         group=dist.group.WORLD,
         rank=rank,
         world_size=world_size,
-        device=resolve_device(device),
+        device=device,
         backend=str(dist.get_backend()),
         axis_name=axis_name,
     )

@@ -246,15 +246,18 @@ class SceneStepPlan:
             ins = [x.detach().to(torch.float32).contiguous()
                    for x in (qpos_cat, qvel_cat, tau_cat)]
         stream = torch.cuda.current_stream(device)
-        err = self._entry_point(
-            *(x.data_ptr() for x in ins),
-            qpos_out.data_ptr(), qvel_out.data_ptr(), normals_out.data_ptr(),
-            B, ctypes.addressof(self._params), self.threads_per_block,
-            stream.device.index, stream.cuda_stream,
-        )
+        # The entry point sets the calling thread's device to the tensors';
+        # the guard gives the caller's current device back after it.
+        with torch.cuda.device(device):
+            err = self._entry_point(
+                *(x.data_ptr() for x in ins),
+                qpos_out.data_ptr(), qvel_out.data_ptr(), normals_out.data_ptr(),
+                B, ctypes.addressof(self._params), self.threads_per_block,
+                stream.device.index, stream.cuda_stream,
+            )
         if err != 0:
             raise RuntimeError(f"scene_step kernel launch failed: cudaError_t {err}")
-        scene_step_cuda.launches += 1
+        cuda_build.count_launch(scene_step_cuda, device)
         return qpos_out, qvel_out, normals_out
 
     def __call__(self, qpos_cat, qvel_cat, tau_cat):
@@ -528,7 +531,7 @@ def scene_step_cuda(models, pairs, qpos_cat, qvel_cat, tau_cat, dt: float, n_sub
 
 
 # Counted in SceneStepPlan.cuda, where the kernel launches.
-scene_step_cuda.launches = 0
+cuda_build.counted(scene_step_cuda)
 
 
 def make_scene_control_step_runner(models, pairs, dt: float, n_substeps: int,

@@ -511,13 +511,16 @@ class ControlStepPlan:
             ins = [x.detach().to(torch.float32).contiguous() for x in (qpos, qvel, target)]
             fourth_in = None if fourth is None else fourth.detach().to(torch.float32).contiguous()
         stream = torch.cuda.current_stream(device)
-        err = self._step_entry_points[entry](
-            *(x.data_ptr() for x in ins),
-            None if fourth_in is None else fourth_in.data_ptr(),
-            qpos_out.data_ptr(), qvel_out.data_ptr(), normals_out.data_ptr(),
-            B, ctypes.addressof(self._params), self.threads_per_block,
-            stream.device.index, stream.cuda_stream,
-        )
+        # The entry point sets the calling thread's device to the tensors';
+        # the guard gives the caller's current device back after it.
+        with torch.cuda.device(device):
+            err = self._step_entry_points[entry](
+                *(x.data_ptr() for x in ins),
+                None if fourth_in is None else fourth_in.data_ptr(),
+                qpos_out.data_ptr(), qvel_out.data_ptr(), normals_out.data_ptr(),
+                B, ctypes.addressof(self._params), self.threads_per_block,
+                stream.device.index, stream.cuda_stream,
+            )
         if err != 0:
             raise RuntimeError(f"{entry} kernel launch failed: cudaError_t {err}")
         return qpos_out, qvel_out, normals_out
@@ -540,10 +543,12 @@ class ControlStepPlan:
             qpos = qpos.to(torch.float32).contiguous()
         forward, _, table, fixed = self._sampler_launch(device)
         stream = torch.cuda.current_stream(device)
-        err = forward(qpos.data_ptr(), table, planes.data_ptr(), B, *fixed, stream.cuda_stream)
+        with torch.cuda.device(device):  # as in _launch_step
+            err = forward(qpos.data_ptr(), table, planes.data_ptr(), B, *fixed,
+                          stream.cuda_stream)
         if err != 0:
             raise RuntimeError(f"plane_sampler kernel launch failed: cudaError_t {err}")
-        plane_sampler_cuda.launches += 1
+        cuda_build.count_launch(plane_sampler_cuda, device)
         return planes
 
     def cuda(self, qpos, qvel, target, extra=None):
@@ -553,7 +558,7 @@ class ControlStepPlan:
             extra = self._with_planes(extra, self.sample_planes_cuda(qpos))
         out = self._launch_step("control_step_forward", qpos, qvel, target, extra, B)
         if B:
-            control_step_cuda.launches += 1
+            cuda_build.count_launch(control_step_cuda, qpos.device)
         return out
 
     def substeps_cuda(self, qpos, qvel, target, chol, n_launches: int = 1):
@@ -569,7 +574,7 @@ class ControlStepPlan:
                 "substeps_forward", qpos, qvel, target, packed, B
             )
             if B:
-                substeps_cuda.launches += 1
+                cuda_build.count_launch(substeps_cuda, qpos.device)
         return qpos, qvel, normals
 
     def __call__(self, qpos, qvel, target, extra=None):
@@ -799,9 +804,9 @@ def substeps_cuda(model: Model, qpos, qvel, target, chol, kp: float, dt: float,
 
 # Counted in ControlStepPlan.cuda / .sample_planes_cuda / .substeps_cuda,
 # where each kernel launches.
-control_step_cuda.launches = 0
-plane_sampler_cuda.launches = 0
-substeps_cuda.launches = 0
+cuda_build.counted(control_step_cuda)
+cuda_build.counted(plane_sampler_cuda)
+cuda_build.counted(substeps_cuda)
 
 
 def make_control_step_runner(

@@ -1131,3 +1131,64 @@ def test_world_size_1_on_nccl_equals_the_run_without_a_mesh(cuda, tmp_path):
     for key in want_metrics:
         assert torch.equal(torch.as_tensor(got_metrics[key]), torch.as_tensor(want_metrics[key])), key
     assert torch.equal(got.env_states.obs, want.env_states.obs)
+
+
+@pytest.fixture
+def two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs two CUDA devices, {torch.cuda.device_count()} visible")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+@pytest.mark.gpu
+def test_a_launch_on_another_card_leaves_the_current_device(two_cards):
+    """The kernels' entry points set the calling thread's device to the
+    tensors'; the wrappers give the caller's current device back. GAE and
+    the control step launched on card 1 from a process whose current card
+    is 0: their outputs on card 1, equal to the plain version there, each
+    launch counted on card 1, and card 0 still current."""
+    first, second = two_cards
+    torch.cuda.set_device(first)
+    before = gae_cuda.devices[1], control_step_cuda.devices[1]
+    args = _inputs(20, 512, 0, second)
+    got = gae_cuda(*args, 0.95, 0.99)
+    assert torch.cuda.current_device() == 0
+    assert got.device == second and torch.equal(got, gae_scan(*args, 0.95, 0.99))
+    model = make_quadruped()
+    plan = ControlStepPlan(model, 60.0, 0.002, 10, False)
+    arrays = standing_states(model, default_qpos(model), 64, seed=3)
+    states = [torch.tensor(arrays[k], device=second) for k in ("qpos", "qvel", "target")]
+    out = plan.cuda(*states)
+    assert torch.cuda.current_device() == 0
+    want = plan.plain(*states)
+    for g, w in zip(out, want):
+        assert g.device == second and torch.equal(g, w)
+    assert (gae_cuda.devices[1], control_step_cuda.devices[1]) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
+def test_make_mesh_makes_the_ranks_card_current(two_cards, tmp_path, monkeypatch):
+    """A one-process NCCL group started as local rank 1: the mesh's device
+    is card 1, card 1 is current, and a bare ``"cuda"`` resolves to it (a
+    state built on ``device="cuda"`` under the mesh is accepted)."""
+    import torch.distributed as dist
+
+    from nnx_ppo_tpu_torch.core.device import resolve_device
+    from nnx_ppo_tpu_torch.parallel import distributed_initialize, make_mesh
+
+    _, second = two_cards
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    previous = torch.cuda.current_device()
+    distributed_initialize(backend="nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                           rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        assert mesh.device == second and torch.cuda.current_device() == 1
+        assert resolve_device("cuda") == second
+        env = EpisodeWrapper(CartpoleBalance(), 500)
+        net = make_mlp_actor_critic(5, 1, [16], [16], 0)
+        ts = new_training_state(env, net, 8, seed=0, device="cuda", mesh=mesh)
+        assert ts.generator.device == second and ts.env_states.obs.device == second
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.set_device(previous)

@@ -1,17 +1,18 @@
-"""Two-process data parallelism of nnx_ppo_tpu_torch on gloo (mirrors
-``tests/test_multiprocess.py``, ``tests/test_parallel.py``'s sharded parity
-and ``tests/test_checkpoint_topology.py``).
+"""Multi-process data parallelism of nnx_ppo_tpu_torch on gloo, at world
+sizes 2 and 4 (mirrors ``tests/test_multiprocess.py``,
+``tests/test_parallel.py``'s sharded parity and
+``tests/test_checkpoint_topology.py``).
 
-One pair of worker processes (rank 0 and 1, a ``FileStore`` in
-``tmp_path``, one thread each, no JAX) runs every scenario; this process
-computes the JAX references on its virtual CPU devices and exchanges
-arrays with the workers through ``.npz`` files. A rank that fails fails
-every test here.
+One group of worker processes per world size (a ``FileStore`` in
+``tmp_path``, one thread each, no JAX) runs every scenario of that size;
+this process computes the JAX references on its virtual CPU devices and
+exchanges arrays with the workers through ``.npz`` files. A rank that
+fails fails every test of its world size.
 
-* ``ppo_step`` at world size 2 against JAX's ``ppo_step`` on
-  ``make_mesh(2)`` at E=2, M=4: the same converted weights, JAX's rollout
-  injected (its draws cannot be made by a ``torch.Generator``), JAX's
-  ``n_shards=2`` permutations. Parameters rtol 1e-4 / atol 2e-6 (8 adam
+* ``ppo_step`` at world sizes 2 and 4 against JAX's ``ppo_step`` on
+  ``make_mesh(2)`` / ``make_mesh(4)`` at E=2, M=4: the same converted
+  weights, JAX's rollout injected (its draws cannot be made by a
+  ``torch.Generator``), JAX's ``n_shards`` permutations. Parameters rtol 1e-4 / atol 2e-6 (8 adam
   steps, whose normalized updates amplify the float32 rounding of
   near-zero gradients, as in ``test_torch_ppo.py``); the rest as stated.
   The two ranks' parameters, moments, statistics and metrics are equal
@@ -25,9 +26,15 @@ every test here.
   same injected rollout and plan.
 * Checkpoints from world size 2 to 1 and from 1 to 2.
 * The quadruped physics leg (the control step's plain version) at world
-  size 2.
+  sizes 2 and 4.
+* The multi-chip dry run's first program at world size 4
+  (``__graft_entry__.py:79-99``: Normalizer, then ``Dense`` -> ``LSTM`` ->
+  ``Dense`` -> ``NormalTanhSampler`` actor and an MLP critic, the fused
+  replay, 8 envs per rank, T=4, E=2, M=2) against JAX's ``ppo_step`` on
+  ``make_mesh(4)``, JAX's rollout and permutations injected.
 """
 
+import inspect
 import os
 import subprocess
 import sys
@@ -37,7 +44,7 @@ import numpy as np
 import optax
 import pytest
 import torch
-from test_torch_networks import carried_across
+from test_torch_networks import carried_across, np_leaves
 from test_torch_ppo import port_transition
 
 from nnx_ppo_tpu.algorithms import PPOConfig as JaxPPOConfig
@@ -47,6 +54,14 @@ from nnx_ppo_tpu.algorithms import rollout as jax_rollout
 from nnx_ppo_tpu.algorithms.ppo import ppo_step as jax_ppo_step
 from nnx_ppo_tpu.algorithms.types import LoggingLevel as JaxLoggingLevel
 from nnx_ppo_tpu.core.struct import partition_params
+from nnx_ppo_tpu.envs import CartpoleBalance as JaxCartpoleBalance
+from nnx_ppo_tpu.networks import LSTM as JaxLSTM
+from nnx_ppo_tpu.networks import Dense as JaxDense
+from nnx_ppo_tpu.networks import NormalTanhSampler as JaxNormalTanhSampler
+from nnx_ppo_tpu.networks import Normalizer as JaxNormalizer
+from nnx_ppo_tpu.networks import PPOAdapter as JaxPPOAdapter
+from nnx_ppo_tpu.networks import Sequential as JaxSequential
+from nnx_ppo_tpu.networks import make_mlp as jax_make_mlp
 from nnx_ppo_tpu.networks import make_mlp_actor_critic as jax_make_mlp_actor_critic
 from nnx_ppo_tpu.parallel import make_mesh as jax_make_mesh
 from nnx_ppo_tpu.parallel.permutation import minibatch_permutations as jax_permutations
@@ -64,8 +79,18 @@ from nnx_ppo_tpu_torch.algorithms import (
 )
 from nnx_ppo_tpu_torch.algorithms import distillation as port_distillation
 from nnx_ppo_tpu_torch.algorithms.ppo import ppo_step
+from nnx_ppo_tpu_torch.convert import load_jax_leaves
 from nnx_ppo_tpu_torch.core.struct import path_name, tree_flatten_with_path
-from nnx_ppo_tpu_torch.networks import make_mlp_actor_critic
+from nnx_ppo_tpu_torch.networks import (
+    LSTM,
+    Dense,
+    NormalTanhSampler,
+    Normalizer,
+    PPOAdapter,
+    Sequential,
+    make_mlp,
+    make_mlp_actor_critic,
+)
 from nnx_ppo_tpu_torch.parallel import minibatch_permutations
 from nnx_ppo_tpu_torch.test_dummies import MoveToCenterEnv
 from nnx_ppo_tpu_torch.wrappers import EpisodeWrapper
@@ -85,6 +110,7 @@ import torch.distributed as dist
 
 torch.set_num_threads(1)
 rank, world, store, work = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+SCENARIOS = sys.argv[5].split(",")
 N, T, E, M = 32, 4, 2, 4
 
 import nnx_ppo_tpu_torch.parallel.permutation as permutation
@@ -149,6 +175,27 @@ def result(net, opt, metrics, **extra):
     return out
 
 
+def injected_step(name, env, net, cfg, a):
+    # ppo_step on JAX's rollout and permutations (``a``), saved as
+    # ``{name}_{rank}.npz`` with the collectives it made.
+    opt = make_optimizer(cfg.learning_rate)
+    n = cfg.n_envs
+    ts = new_training_state(env, net, n, seed=0, optimizer=opt, mesh=mesh)
+    with torch.no_grad():
+        _, _, template = rollout.unroll_env(env, ts.env_states, ts.networks,
+                                            ts.network_states, cfg.rollout_length,
+                                            torch.Generator())
+    block = filled(dataclasses.replace(template, metrics={}), a, "rollout.")
+    rollout.unroll_env = lambda *args: (ts.network_states, ts.env_states, block)
+    permutation.minibatch_permutations = lambda *args: torch.from_numpy(a["selectors"]).long()
+    CALLS.clear()
+    ts, metrics = ppo_step(env, ts, cfg, opt, mesh)
+    calls = np.asarray(CALLS)
+    np.savez(f"{work}/{name}_{rank}.npz", **result(ts.networks, ts.opt_state, metrics,
+             calls=calls, steps=np.asarray(ts.steps_taken),
+             n_envs=np.asarray(ts.env_states.done.shape[0])))
+
+
 def ppo():
     a = np.load(work + "/ppo_in.npz")
     env = EpisodeWrapper(MoveToCenterEnv(), 50)
@@ -156,19 +203,21 @@ def ppo():
                     a, "net.")
     cfg = PPOConfig(n_envs=N, rollout_length=T, n_epochs=E, n_minibatches=M,
                     logging_level=LoggingLevel.LOSSES | LoggingLevel.CRITIC_EXTRA)
-    opt = make_optimizer(cfg.learning_rate)
-    ts = new_training_state(env, net, N, seed=0, optimizer=opt, mesh=mesh)
-    with torch.no_grad():
-        _, _, template = rollout.unroll_env(env, ts.env_states, ts.networks,
-                                            ts.network_states, T, torch.Generator())
-    block = filled(dataclasses.replace(template, metrics={}), a, "rollout.")
-    rollout.unroll_env = lambda *args: (ts.network_states, ts.env_states, block)
-    permutation.minibatch_permutations = lambda *args: torch.from_numpy(a["selectors"]).long()
-    CALLS.clear()
-    ts, metrics = ppo_step(env, ts, cfg, opt, mesh)
-    calls = np.asarray(CALLS)
-    np.savez(f"{work}/ppo_{rank}.npz", **result(ts.networks, ts.opt_state, metrics, calls=calls,
-             steps=np.asarray(ts.steps_taken), n_envs=np.asarray(ts.env_states.done.shape[0])))
+    injected_step("ppo", env, net, cfg, a)
+
+
+def lstm():
+    from nnx_ppo_tpu_torch.envs import CartpoleBalance
+    from nnx_ppo_tpu_torch.networks import (LSTM, Dense, NormalTanhSampler, Normalizer,
+                                            PPOAdapter, Sequential, make_mlp)
+
+    a = np.load(work + "/lstm_in.npz")
+    env = EpisodeWrapper(CartpoleBalance(), max_len=50)
+    net = net_state(dry_run_net(torch, LSTM, Dense, NormalTanhSampler, Normalizer, PPOAdapter,
+                                Sequential, make_mlp), a, "net.")
+    cfg = PPOConfig(n_envs=8 * world, rollout_length=4, n_epochs=2, n_minibatches=2,
+                    fused_replay=True)
+    injected_step("lstm", env, net, cfg, a)
 
 
 def distill():
@@ -249,10 +298,13 @@ def physics():
              qpos=ts.env_states.data["qpos"].numpy(), steps=np.asarray(ts.steps_taken))
 
 
+# DRY_RUN_NET (the source of dry_run_net below)
+
+
 ORIGINALS = (rollout.unroll_env, distillation.distillation_unroll_env,
              permutation.minibatch_permutations)
 try:
-    for scenario in (ppo, distill, checkpoints, physics):
+    for scenario in [globals()[name] for name in SCENARIOS]:
         scenario()
         # Undo the injections of the scenario.
         (rollout.unroll_env, distillation.distillation_unroll_env,
@@ -263,35 +315,88 @@ finally:
 """
 
 
+def dry_run_net(torch, LSTM, Dense, NormalTanhSampler, Normalizer, PPOAdapter, Sequential,
+                make_mlp):
+    """The multi-chip dry run's first net (``__graft_entry__.py:79-92``)
+    for CartpoleBalance (5 obs, 1 action), built from the port's modules
+    (the workers' weights are then JAX's)."""
+    g = torch.Generator().manual_seed(0)
+    actor = Sequential.create([
+        Dense.create(5, 32, g, torch.relu), LSTM.create(32, 32, g), Dense.create(32, 2, g),
+        NormalTanhSampler.create(entropy_weight=1e-2),
+    ])
+    return Sequential.create([
+        Normalizer.create(5),
+        PPOAdapter.create(action=actor, value=make_mlp([5, 32, 1], g, activation_last_layer=False)),
+    ])
+
+
 def _save_tree(arrays, prefix, tree):
     for path, leaf in tree_flatten_with_path(tree):
         arrays[prefix + path_name(path)] = leaf.detach().numpy()
 
 
-def _ppo_reference(work):
-    """JAX's ppo_step on make_mesh(2), and the worker's inputs: the
-    converted weights, JAX's rollout and its n_shards=2 permutations."""
+def _injected_reference(work, name, env, jax_net, port_net, config, world):
+    """JAX's ppo_step on make_mesh(world), and the workers' inputs
+    ``{name}_in.npz``: the converted weights, JAX's rollout and its
+    ``n_shards=world`` permutations (the draws its ppo_step makes)."""
+    n, T_, E_, M_ = config.n_envs, config.rollout_length, config.n_epochs, config.n_minibatches
+    ts = jax_new_training_state(env, jax_net, n, seed=0)
+    reset_key, perm_key, _ = jax.random.split(ts.rng_key, 3)
+    _, _, rollout_data = jax.jit(jax_rollout.unroll_env, static_argnums=(0, 4))(
+        env, ts.env_states, ts.networks, ts.network_states, T_, reset_key)
+    selectors = jax_permutations(perm_key, n, E_, M_, n_shards=world)
+    mesh = jax_make_mesh(world)
+    ts_mesh = jax_new_training_state(env, jax_net, n, seed=0, mesh=mesh)
+    new_ts, metrics = jax.jit(jax_ppo_step, static_argnums=(0, 2, 3, 4))(
+        env, ts_mesh, config, jax_make_optimizer(config.learning_rate), mesh)
+    net = carried_across(jax_net, port_net)
+    arrays = {"net." + k: v.numpy() for k, v in net.state_dict().items()}
+    _save_tree(arrays, "rollout.", port_transition(rollout_data))
+    arrays["selectors"] = np.asarray(selectors)
+    np.savez(os.path.join(work, f"{name}_in.npz"), **arrays)
+    return new_ts, metrics
+
+
+def _ppo_reference(work, world):
     env = JaxEpisodeWrapper(JaxMoveToCenterEnv(), 50)
     jax_net = jax_make_mlp_actor_critic(2, 2, [16, 16], [16, 16], jax.random.key(0),
                                         normalize_obs=True)
     config = JaxPPOConfig(n_envs=N, rollout_length=T, n_epochs=E, n_minibatches=M,
                           logging_level=LEVEL)
-    ts = jax_new_training_state(env, jax_net, N, seed=0)
-    reset_key, perm_key, _ = jax.random.split(ts.rng_key, 3)
-    _, _, rollout_data = jax.jit(jax_rollout.unroll_env, static_argnums=(0, 4))(
-        env, ts.env_states, ts.networks, ts.network_states, T, reset_key)
-    selectors = jax_permutations(perm_key, N, E, M, n_shards=2)
-    mesh = jax_make_mesh(2)
-    ts_mesh = jax_new_training_state(env, jax_net, N, seed=0, mesh=mesh)
-    new_ts, metrics = jax.jit(jax_ppo_step, static_argnums=(0, 2, 3, 4))(
-        env, ts_mesh, config, jax_make_optimizer(config.learning_rate), mesh)
-    net = carried_across(jax_net, make_mlp_actor_critic(2, 2, [16, 16], [16, 16], 0,
-                                                        normalize_obs=True))
-    arrays = {"net." + k: v.numpy() for k, v in net.state_dict().items()}
-    _save_tree(arrays, "rollout.", port_transition(rollout_data))
-    arrays["selectors"] = np.asarray(selectors)
-    np.savez(os.path.join(work, "ppo_in.npz"), **arrays)
-    return new_ts, metrics, port_transition(rollout_data), np.asarray(selectors)
+    port_net = make_mlp_actor_critic(2, 2, [16, 16], [16, 16], 0, normalize_obs=True)
+    return _injected_reference(work, "ppo", env, jax_net, port_net, config, world)
+
+
+def _jax_dry_run_net():
+    """``__graft_entry__.py:79-92``, the JAX package's modules and keys."""
+    k = jax.random.key(0)
+    actor = JaxSequential.create([
+        JaxDense.create(5, 32, jax.random.fold_in(k, 0), jax.nn.relu),
+        JaxLSTM.create(32, 32, jax.random.fold_in(k, 1)),
+        JaxDense.create(32, 2, jax.random.fold_in(k, 2)),
+        JaxNormalTanhSampler.create(jax.random.fold_in(k, 3), entropy_weight=1e-2),
+    ])
+    return JaxSequential.create([
+        JaxNormalizer.create(5),
+        JaxPPOAdapter.create(action=actor, value=jax_make_mlp([5, 32, 1], jax.random.fold_in(k, 4),
+                                                              activation_last_layer=False)),
+    ])
+
+
+def _port_dry_run_net():
+    return dry_run_net(torch, LSTM, Dense, NormalTanhSampler, Normalizer, PPOAdapter, Sequential,
+                       make_mlp)
+
+
+def _lstm_reference(work, world):
+    """The dry run's first program (``__graft_entry__.py:79-99``) at 8 envs
+    per rank."""
+    env = JaxEpisodeWrapper(JaxCartpoleBalance(), max_len=50)
+    config = JaxPPOConfig(n_envs=8 * world, rollout_length=4, n_epochs=2, n_minibatches=2,
+                          fused_replay=True)
+    return _injected_reference(work, "lstm", env, _jax_dry_run_net(), _port_dry_run_net(), config,
+                               world)
 
 
 def _distill_inputs(work, monkeypatch):
@@ -335,24 +440,23 @@ def _single_process_checkpoint(work):
     return ts
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """Every scenario's references here, then one pair of ranks."""
-    work = tmp_path_factory.mktemp("ranks")
-    monkeypatch = pytest.MonkeyPatch()
-    refs = {
-        "ppo": _ppo_reference(str(work)),
-        "distill": _distill_inputs(str(work), monkeypatch),
-        "ckpt_w1": _single_process_checkpoint(str(work)),
-    }
+# scenario -> the name of the .npz files it writes
+FILES = {"ppo": "ppo", "distill": "distill", "checkpoints": "ckpt", "physics": "physics",
+         "lstm": "lstm"}
+
+
+def _run_ranks(work, world, scenarios):
+    """``world`` worker processes running ``scenarios``; every rank's
+    results by file name."""
     script = work / "worker.py"
-    script.write_text(_WORKER)
+    script.write_text(_WORKER.replace("# DRY_RUN_NET (the source of dry_run_net below)",
+                                      inspect.getsource(dry_run_net)))
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     env.pop("XLA_FLAGS", None)
-    procs = [subprocess.Popen([sys.executable, str(script), str(rank), "2",
-                               str(work / "store"), str(work)],
+    procs = [subprocess.Popen([sys.executable, str(script), str(rank), str(world),
+                               str(work / "store"), str(work), ",".join(scenarios)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                              env=env) for rank in range(2)]
+                              env=env) for rank in range(world)]
     outs = []
     try:
         for p in procs:
@@ -361,17 +465,45 @@ def runs(tmp_path_factory):
         for p in procs:
             p.kill()
     for rank, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {rank} failed:\n{out[-4000:]}"
-    load = lambda name: [dict(np.load(work / f"{name}_{r}.npz")) for r in range(2)]  # noqa: E731
-    return refs, {name: load(name) for name in ("ppo", "distill", "ckpt", "physics")}, work
+        assert p.returncode == 0, f"rank {rank} of {world} failed:\n{out[-4000:]}"
+    return {FILES[s]: [dict(np.load(work / f"{FILES[s]}_{r}.npz")) for r in range(world)]
+            for s in scenarios}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """World size 2: every scenario's references here, then one pair of
+    ranks."""
+    work = tmp_path_factory.mktemp("ranks")
+    monkeypatch = pytest.MonkeyPatch()
+    refs = {
+        "ppo": _ppo_reference(str(work), 2),
+        "distill": _distill_inputs(str(work), monkeypatch),
+        "ckpt_w1": _single_process_checkpoint(str(work)),
+    }
+    return refs, _run_ranks(work, 2, ["ppo", "distill", "checkpoints", "physics"]), work
+
+
+@pytest.fixture(scope="module")
+def runs_4(tmp_path_factory):
+    """World size 4: the PPO step and the dry run's LSTM program against
+    JAX's on make_mesh(4), and the physics leg; four ranks."""
+    work = tmp_path_factory.mktemp("ranks4")
+    refs = {"ppo": _ppo_reference(str(work), 4), "lstm": _lstm_reference(str(work), 4)}
+    return refs, _run_ranks(work, 4, ["ppo", "physics", "lstm"]), work
+
+
+def _runs_at(request, world):
+    return request.getfixturevalue("runs" if world == 2 else "runs_4")
 
 
 def _assert_ranks_equal(results):
-    r0, r1 = results
-    assert r0.keys() == r1.keys()
-    for key in r0:
-        if not key.startswith(("calls", "qpos", "obs", "loaded_obs")):
-            np.testing.assert_array_equal(r0[key], r1[key], err_msg=key)
+    r0 = results[0]
+    for r in results[1:]:
+        assert r0.keys() == r.keys()
+        for key in r0:
+            if not key.startswith(("calls", "qpos", "obs", "loaded_obs")):
+                np.testing.assert_array_equal(r0[key], r[key], err_msg=key)
 
 
 def _adam_moments(opt_state):
@@ -380,15 +512,16 @@ def _adam_moments(opt_state):
     return jax.tree.leaves(adam.mu), jax.tree.leaves(adam.nu)
 
 
-def test_two_rank_ppo_step_matches_jaxs_on_a_mesh_of_two(runs):
+@pytest.mark.parametrize("world", [2, 4])
+def test_two_rank_ppo_step_matches_jaxs_on_a_mesh_of_two(world, request):
     """Tolerances: parameters rtol 1e-4 / atol 2e-6 (see the module
     docstring); adam's first moments rtol 1e-4 / atol 1e-7 and second
     moments rtol 1e-3 / atol 1e-12 (squares of gradients whose float32
     rounding differs: the ranks' halves are summed, JAX's whole minibatch
     reduced at once); Normalizer statistics rtol 1e-5 / atol 1e-6; metrics
     rtol 1e-4 / atol 1e-5."""
-    refs, results, _ = runs
-    new_ts, jax_metrics, _, _ = refs["ppo"]
+    refs, results, _ = _runs_at(request, world)
+    new_ts, jax_metrics = refs["ppo"]
     got = results["ppo"][0]
     params, rest = partition_params(new_ts.networks)
     mu, nu = _adam_moments(new_ts.opt_state)
@@ -412,17 +545,21 @@ def test_two_rank_ppo_step_matches_jaxs_on_a_mesh_of_two(runs):
             np.testing.assert_allclose(got["metric." + key], np.asarray(value), rtol=1e-4,
                                        atol=1e-5, err_msg=key)
             compared += 1
-    assert compared >= 8 and int(got["steps"]) == N * T and int(got["n_envs"]) == N // 2
+    assert compared >= 8 and int(got["steps"]) == N * T and int(got["n_envs"]) == N // world
 
 
-def test_two_ranks_hold_the_same_bits(runs):
+@pytest.mark.parametrize("world", [2, 4])
+def test_two_ranks_hold_the_same_bits(world, request):
     """Parameters, optimizer moments, Normalizer statistics and metrics
-    are equal to the bit on both ranks after a step (each path)."""
-    for name in ("ppo", "distill", "physics"):
-        _assert_ranks_equal(runs[1][name])
+    are equal to the bit on every rank after a step (each path)."""
+    results = _runs_at(request, world)[1]
+    for name in results:
+        if name != "ckpt":
+            _assert_ranks_equal(results[name])
 
 
-def test_collectives_per_step_and_no_rollout_data_crosses_ranks(runs):
+@pytest.mark.parametrize("world", [2, 4])
+def test_collectives_per_step_and_no_rollout_data_crosses_ranks(world, request):
     """Per minibatch one gradient all-reduce (every parameter, one
     buffer), then one all-gather of the advantage and R² statistics (4
     numbers each of 3 tensors); after the updates one all-gather for the
@@ -430,7 +567,7 @@ def test_collectives_per_step_and_no_rollout_data_crosses_ranks(runs):
     sampled tensors) and one for the Normalizer (count, mean and M2 of 2
     features); nothing else, and no gather as large as one rank's rollout
     of one leaf."""
-    results = runs[1]["ppo"]
+    results = _runs_at(request, world)[1]["ppo"]
     n_params = sum(v.size for k, v in results[0].items()
                    if k.startswith("mu."))
     for r in results:
@@ -439,7 +576,7 @@ def test_collectives_per_step_and_no_rollout_data_crosses_ranks(runs):
         gathers = [n for kind, n in calls if kind == 1]
         assert reduces == [n_params] * (E * M)
         assert gathers == [12] * (E * M) + [4 * E * M + 2 * 4, 5]
-        assert max(gathers) < T * (N // 2) * 2  # one rank's obs: [T, B/2, 2]
+        assert max(gathers) < T * (N // world) * 2  # one rank's obs: [T, B/world, 2]
         assert [kind for kind, _ in calls[:2 * E * M]] == [1, 0] * (E * M)
 
 
@@ -497,12 +634,56 @@ def test_checkpoint_from_world_size_1_to_2(runs):
             np.testing.assert_array_equal(results["ckpt"][0][key], results["ckpt"][1][key])
 
 
-def test_physics_leg_runs_at_world_size_2(runs):
+@pytest.mark.parametrize("world", [2, 4])
+def test_physics_leg_runs_at_world_size_2(world, request):
     """The quadruped with DR, pushes and rough terrain on the control
-    step's plain version: one step at 2 x 4 envs, finite losses, the
-    parameters equal on both ranks, each rank with its own envs."""
-    r0, r1 = runs[1]["physics"]
+    step's plain version: one step at 8 envs over 2 or 4 ranks, finite
+    losses, the parameters equal on every rank, each rank with its own
+    envs."""
+    ranks = _runs_at(request, world)[1]["physics"]
+    r0 = ranks[0]
     for key in ("metric.losses/actor/mean", "metric.losses/critic/tracking/mean"):
         assert np.isfinite(r0[key]), key
-    assert r0["qpos"].shape == (4, 19) and not np.array_equal(r0["qpos"], r1["qpos"])
+    assert r0["qpos"].shape == (8 // world, 19)
+    assert all(not np.array_equal(r0["qpos"], r["qpos"]) for r in ranks[1:])
     assert int(r0["steps"]) == 8 * 2
+
+
+def test_dry_run_lstm_program_matches_jaxs_on_a_mesh_of_four(runs_4):
+    """The multi-chip dry run's first program at world size 4 against
+    JAX's ``ppo_step`` on ``make_mesh(4)``: JAX's weights, rollout and
+    permutations; the updated weights and adam moments compared by name
+    after carrying JAX's across. Tolerances as the MLP step's (parameters
+    rtol 1e-4 / atol 2e-6, first moments rtol 1e-4 / atol 1e-7, second
+    rtol 1e-3 / atol 1e-12: four adam steps, each rank's quarter of a
+    minibatch reduced apart and the gradients averaged, against JAX's one
+    reduction; the LSTM's replay sums over T=4 steps in either order),
+    Normalizer statistics rtol 1e-5 / atol 1e-6, metrics rtol 1e-4 / atol
+    1e-5."""
+    refs, results, _ = runs_4
+    new_ts, jax_metrics = refs["lstm"]
+    got = results["lstm"][0]
+    want = carried_across(new_ts.networks, _port_dry_run_net())
+    for k, v in want.state_dict().items():
+        np.testing.assert_allclose(got["net." + k], v.numpy(), rtol=1e-4, atol=2e-6, err_msg=k)
+    mu, nu = _adam_moments(new_ts.opt_state)
+    params, _ = partition_params(new_ts.networks)
+    for moment, tree, rtol, atol in (("mu", mu, 1e-4, 1e-7), ("nu", nu, 1e-3, 1e-12)):
+        leaves = jax.tree.leaves(params)
+        assert len(leaves) == len(tree)
+        as_net = _port_dry_run_net()
+        load_jax_leaves(as_net, np_leaves(jax.tree.unflatten(jax.tree.structure(params), tree)))
+        for i, (name, p) in enumerate(as_net.named_parameters()):
+            np.testing.assert_allclose(got[f"{moment}.{i}"], p.detach().numpy(), rtol=rtol,
+                                       atol=atol, err_msg=f"{moment} {name}")
+    norm = partition_params(new_ts.networks)[1].layers[0]
+    np.testing.assert_allclose(got["net.layers.0.mean"], np.asarray(norm.mean), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got["net.layers.0.M2"], np.asarray(norm.M2), rtol=1e-5, atol=1e-6)
+    assert float(got["net.layers.0.counter"]) == float(norm.counter) == 32 * 4
+    compared = 0
+    for key, value in jax_metrics.items():
+        if "metric." + key in got:
+            np.testing.assert_allclose(got["metric." + key], np.asarray(value), rtol=1e-4,
+                                       atol=1e-5, err_msg=key)
+            compared += 1
+    assert compared >= 4 and int(got["steps"]) == 32 * 4 and int(got["n_envs"]) == 8
