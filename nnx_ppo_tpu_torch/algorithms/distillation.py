@@ -35,7 +35,6 @@ import functools
 from typing import Any, Callable, Optional, Union
 
 import torch
-from torch.profiler import record_function
 
 from nnx_ppo_tpu_torch.algorithms import rollout
 from nnx_ppo_tpu_torch.algorithms.config import (
@@ -73,6 +72,7 @@ from nnx_ppo_tpu_torch.parallel.mesh import (
     place_batched,
     rank_generator,
 )
+from nnx_ppo_tpu_torch.utils.profiling import span
 
 
 def default_distillation_config() -> DistillationTrainConfig:
@@ -275,7 +275,7 @@ def distillation_step(
     ``.opt_state`` are updated in place; the teacher is used as given (in
     eval mode for the distillation target to be its mean). Runs inside a
     profiler range named ``distillation_step``."""
-    with record_function("distillation_step"):
+    with span("distillation_step"):
         ds = distillation_state
         n_local = config.n_envs // (1 if mesh is None else mesh.world_size)
         if ds.env_states.done.shape[0] != n_local:

@@ -58,7 +58,6 @@ from typing import Any, Callable, Optional, Union
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from nnx_ppo_tpu_torch.algorithms import rollout
 from nnx_ppo_tpu_torch.algorithms.config import PPOConfig, TrainConfig, TrainResult, VideoData
@@ -76,6 +75,7 @@ from nnx_ppo_tpu_torch.parallel.mesh import (
     shard_training_state,
 )
 from nnx_ppo_tpu_torch.parallel.permutation import minibatch_plan, shard_local_selectors
+from nnx_ppo_tpu_torch.utils.profiling import span
 
 Schedule = Callable[[int], float]
 
@@ -369,7 +369,7 @@ def ppo_update(
     given) the global shard-local plan. Returns the loss metrics
     stacked over the updates (leading dim E·M). Runs inside a profiler
     range named ``ppo_update``."""
-    with record_function("ppo_update"):
+    with span("ppo_update"):
         batch_major = resolve_batch_major(config, networks)
         view = ReplayMinibatch.from_rollout(rollout_data, batch_major, resolve_store_dtype(config))
 
@@ -419,6 +419,9 @@ def minibatch_updates(
     ``config`` gives ``n_envs``, ``n_epochs``, ``n_minibatches`` and
     ``shuffle_minibatches``. Returns the loss metrics stacked over the
     updates (leading dim E·M), with ``grad_norm`` if ``log_grad_norm``.
+    Each minibatch's ``loss_fn``, backward and optimizer step run inside
+    profiler ranges named ``update.loss``, ``update.backward`` and
+    ``update.optimizer``.
 
     With a ``mesh`` (``view`` and ``network_states`` this rank's block):
     the plan is JAX's shard-local one over the global ``n_envs``, drawn
@@ -452,13 +455,16 @@ def minibatch_updates(
         minibatch = view.gather(sel, take_seq, take_batch)
         net_state_subset = tree_map(lambda x: take_batch(x, sel), network_states)
         opt_state.zero_grad(set_to_none=True)
-        loss, loss_metrics = loss_fn(net_state_subset, minibatch)
-        loss.backward()
+        with span("update.loss"):
+            loss, loss_metrics = loss_fn(net_state_subset, minibatch)
+        with span("update.backward"):
+            loss.backward()
         average_gradients(networks.parameters(), mesh)
         if log_grad_norm:
             grads = [p.grad for p in networks.parameters() if p.grad is not None]
             loss_metrics["grad_norm"] = global_norm(grads)
-        optimizer.step(opt_state)
+        with span("update.optimizer"):
+            optimizer.step(opt_state)
         per_update.append(tree_map(torch.Tensor.detach, loss_metrics))
     return tree_stack(per_update)
 
@@ -479,7 +485,7 @@ def ppo_step(
     ``config.n_envs`` the global env count, and metrics and step count
     global. Runs inside a profiler range named ``ppo_step`` (JAX's trace
     shows the jitted function by that name)."""
-    with record_function("ppo_step"):
+    with span("ppo_step"):
         ts = training_state
         n_local = config.n_envs // (1 if mesh is None else mesh.world_size)
         if ts.env_states.done.shape[0] != n_local:

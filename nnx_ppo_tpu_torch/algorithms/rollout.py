@@ -18,11 +18,11 @@ from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from nnx_ppo_tpu_torch.algorithms.types import Transition
 from nnx_ppo_tpu_torch.core.struct import tree_leaves, tree_map, tree_stack, tree_where
 from nnx_ppo_tpu_torch.networks.types import ModuleState, StatefulModule
+from nnx_ppo_tpu_torch.utils.profiling import span
 
 
 def single_transition(
@@ -32,30 +32,32 @@ def single_transition(
     generator: torch.Generator,
 ) -> tuple[tuple[ModuleState, Any], Transition]:
     """One batched env step: net forward -> env.step -> auto-reset both
-    the env state and the net carry where ``done``."""
+    the env state and the net carry where ``done``. Everything after the
+    net forward runs inside a profiler range named ``rollout.env``."""
     network_state, env_state = carry
     out = networks(network_state, env_state.obs, None, generator)
     ppo_output = out.output
-    next_env_state = env.step(env_state, ppo_output.actions, generator)
-    done = next_env_state.done != 0
-    truncated = next_env_state.info.get("truncated")
-    if truncated is None:
-        truncated = torch.zeros_like(done)
-    transition = Transition(
-        obs=env_state.obs,
-        network_output=ppo_output,
-        rewards=next_env_state.reward,
-        done=done,
-        truncated=truncated.to(torch.bool),
-        next_obs=next_env_state.obs,
-        metrics={"env": next_env_state.metrics, "net": out.metrics},
-        rollout_extras=out.rollout_extras,
-    )
+    with span("rollout.env"):
+        next_env_state = env.step(env_state, ppo_output.actions, generator)
+        done = next_env_state.done != 0
+        truncated = next_env_state.info.get("truncated")
+        if truncated is None:
+            truncated = torch.zeros_like(done)
+        transition = Transition(
+            obs=env_state.obs,
+            network_output=ppo_output,
+            rewards=next_env_state.reward,
+            done=done,
+            truncated=truncated.to(torch.bool),
+            next_obs=next_env_state.obs,
+            metrics={"env": next_env_state.metrics, "net": out.metrics},
+            rollout_extras=out.rollout_extras,
+        )
 
-    reset_states = env.reset(done.shape[0], generator)
-    next_env_state = tree_where(done, reset_states, next_env_state)
-    reset_network_states = networks.reset_state(out.next_state)
-    next_network_state = tree_where(done, reset_network_states, out.next_state)
+        reset_states = env.reset(done.shape[0], generator)
+        next_env_state = tree_where(done, reset_states, next_env_state)
+        reset_network_states = networks.reset_state(out.next_state)
+        next_network_state = tree_where(done, reset_network_states, out.next_state)
     return (next_network_state, next_env_state), transition
 
 
@@ -70,7 +72,7 @@ def unroll_env(
     """Run :func:`single_transition` for ``unroll_length`` steps and
     stack the transitions time-major ``[T, B, ...]``. Runs inside a
     profiler range named ``unroll_env``."""
-    with record_function("unroll_env"):
+    with span("unroll_env"):
         carry = (network_state, env_state)
         transitions = []
         for _ in range(unroll_length):

@@ -1,25 +1,41 @@
 """Profiling helpers. Port of ``nnx_ppo_tpu/utils/profiling.py`` (51
 lines): :func:`trace` over ``torch.profiler`` where JAX's is over
-``jax.profiler``, and the :class:`Throughput` meter.
+``jax.profiler``, and :func:`span`, the training step's named ranges.
+JAX's ``Throughput`` meter has no counterpart: ``train_ppo`` computes
+``throughput/train_sps`` itself.
 
-A JAX trace shows its jitted functions by name. The port's counterpart
-is one ``torch.profiler.record_function`` range at the entry of each of
-``ppo_step``, ``unroll_env``, ``ppo_update`` (the whole minibatch loop,
-the update phase inside JAX's ``ppo_step``) and ``distillation_step``,
-named after its function, so a trace splits a training step into its
-rollout and its update.
+A JAX trace shows its jitted functions by name. The port marks its
+training step with :func:`span` ranges at the layer boundaries:
+``ppo_step``; ``unroll_env`` (the rollout) and inside it, once per env
+step, ``rollout.env`` (``env.step`` through the auto-reset's selects);
+``ppo_update`` (the whole minibatch loop, the update phase inside JAX's
+``ppo_step``) and inside it, once per minibatch, ``update.loss``
+(replay, bootstrap, GAE, loss), ``update.backward`` and
+``update.optimizer`` (clipping and Adam); ``distillation_step``, whose
+minibatch loop has the same three ``update.*`` ranges. They exist only
+while a profiler runs.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
-from typing import Any, Iterator, Optional
+from typing import Iterator
 
 import torch
-from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+from torch.profiler import ProfilerActivity, profile, record_function, tensorboard_trace_handler
 
-from nnx_ppo_tpu_torch.core.struct import tree_leaves
+# Reentrant and stateless, so one instance serves every span.
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str) -> contextlib.AbstractContextManager:
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    profiler is enabled on this thread; otherwise a shared no-op context,
+    so that an unprofiled step pays no dispatcher call, allocation or
+    launch for its ranges."""
+    if torch._C._autograd._profiler_enabled():
+        return record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
@@ -42,34 +58,3 @@ def trace(log_dir: str) -> Iterator[profile]:
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
         yield prof
-
-
-def _synchronize(barrier: Any) -> None:
-    """Wait for the devices of ``barrier``'s CUDA tensors (a tensor or a
-    tree of tensors)."""
-    for device in {x.device for x in tree_leaves(barrier) if torch.is_tensor(x) and x.is_cuda}:
-        torch.cuda.synchronize(device)
-
-
-class Throughput:
-    """Steady-state env-steps/s meter with synchronize barriers (the
-    reference's ``throughput/train_sps`` methodology)."""
-
-    def __init__(self, steps_per_iter: int):
-        self.steps_per_iter = steps_per_iter
-        self._t0: Optional[float] = None
-        self._iters = 0
-
-    def start(self, barrier: Any = None) -> None:
-        if barrier is not None:
-            _synchronize(barrier)
-        self._t0 = time.perf_counter()
-        self._iters = 0
-
-    def tick(self) -> None:
-        self._iters += 1
-
-    def stop(self, barrier: Any) -> float:
-        _synchronize(barrier)
-        elapsed = time.perf_counter() - self._t0
-        return self.steps_per_iter * self._iters / elapsed
