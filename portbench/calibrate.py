@@ -5,8 +5,8 @@ for one cell, in one process:
         [--reorder-seeds 4,5] [--control-seeds 4,5,6] [--fault-seeds 7,8,9] [--out FILE]
 
 * for each of ``--seeds``: the port's training state from the seed, its
-  first three ``ppo_step`` calls and the reference's comparison, as a
-  run makes them (no window): the lower readings;
+  checked ``ppo_step`` calls (``check.plan``) and the reference's
+  comparison, as a run makes them (no window): the lower readings;
 * for each of ``--reorder-seeds``: the reference in the configuration's
   precision with every product's sums in another order (``/split``), in
   the program's place: what a sound change of a GEMM's algorithm reads,
@@ -17,10 +17,15 @@ for one cell, in one process:
   readings;
 * for each of ``--fault-seeds`` and each fault a training cell can have
   on one card: half of each minibatch left out with the means taken
-  over the rest, and one env's advantages altered where they are made,
-  planted in the reference put in the program's place. (A step that
-  leaves its state unchanged reads 1 by ``change_gap``'s measure and
-  needs no run.)
+  over the rest, one env's advantages altered where they are made, and,
+  where the network carries state, the carry not reset where an episode
+  ends, planted in the reference put in the program's place. (A step
+  that leaves its state unchanged reads 1 by ``change_gap``'s measure
+  and needs no run.)
+
+``--workload`` names a cell of ``BENCHMARK.json`` or, for a
+configuration that has no cell yet, ``<config>.<traffic>`` of the
+files under ``configs/`` and ``traffic/``.
 
 Each reading is one JSON line (on standard output, and appended to
 ``--out``): the kind, the seed, every number compared, and, for the
@@ -41,6 +46,7 @@ from portbench import cells, check
 from portbench.reference.precision import CONTROL_OF
 
 FAULTS = ("half_batch", "advantage")
+CARRY_FAULTS = ("carry_reset",)
 
 
 def program_reading(cell: dict, seed: int, device) -> dict:
@@ -50,7 +56,7 @@ def program_reading(cell: dict, seed: int, device) -> dict:
     ref_module = cells.load_module("reference", cell["entry"]["config"])
     weights = program.make_weights(ref_module.parameters(cell["config"]), seed, device)
     prog = program.Program(cell, seed, device, weights)
-    snaps, losses = prog.check_steps(3)
+    snaps, losses = prog.check_steps(*check.plan(cell))
     del prog
     detail: dict = {}
     gaps = check.compare(snaps, losses, seed, check.Reference(cell, device), detail)
@@ -66,7 +72,7 @@ def stand_in_reading(cell: dict, seed: int, device, kind: str, precision=None,
     ref_module = cells.load_module("reference", cell["entry"]["config"])
     weights = program.make_weights(ref_module.parameters(cell["config"]), seed, device)
     stand_in = check.Reference(cell, device, precision=precision, fault=fault)
-    snaps, losses = check.reference_as_program(stand_in, seed, weights, 3)
+    snaps, losses = check.reference_as_program(stand_in, seed, weights, *check.plan(cell))
     detail: dict = {}
     gaps = check.compare(snaps, losses, seed, check.Reference(cell, device), detail)
     return {"kind": kind, "seed": seed, "gaps": gaps, **detail}
@@ -82,8 +88,9 @@ def readings(cell: dict, device, seeds=(), control_seeds=(), fault_seeds=(), reo
         yield stand_in_reading(cell, seed, device, "reordered", precision=f"{dtype}/split")
     for seed in control_seeds:
         yield stand_in_reading(cell, seed, device, f"control_{control}", precision=control)
+    faults = FAULTS + (CARRY_FAULTS if check.Reference(cell, device).carried else ())
     for seed in fault_seeds:
-        for fault in FAULTS:
+        for fault in faults:
             yield stand_in_reading(cell, seed, device, f"fault_{fault}", fault=fault)
 
 
@@ -103,7 +110,13 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cell = cells.cell(cells.benchmark(Path.cwd()), args.workload)
+    bench = cells.benchmark(Path.cwd())
+    if args.workload in {w["name"] for w in bench["workloads"]}:
+        cell = cells.cell(bench, args.workload)
+    else:
+        config, traffic = args.workload.split(".", 1)
+        cell = cells.assemble(bench, {"name": args.workload, "config": config,
+                                      "traffic": traffic, "chips": 1}, {})
     device = torch.device(args.device)
     for reading in readings(cell, device, seeds(args.seeds), seeds(args.control_seeds),
                             seeds(args.fault_seeds), seeds(args.reorder_seeds)):

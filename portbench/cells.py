@@ -7,8 +7,11 @@ metric's reader and each kernel's count, so that a later change adds a
 cell, a configuration, a mix or a metric by adding files alone:
 
 * ``configs/<config>.json``: the sizes as run (the ``file`` of
-  ``BENCHMARK.json``), with ``configs/<config>.py`` building the port's
-  objects from them and ``reference/<config>.py`` the plain reference;
+  ``BENCHMARK.json``), and optionally the ``check`` block of checked
+  steps and followed updates (``check.plan``), with
+  ``configs/<config>.py`` building the port's objects from them (and,
+  for a network that carries state, ``carry_state``) and
+  ``reference/<config>.py`` the plain reference;
 * ``traffic/<traffic>.json``: envs, rollout length, epochs,
   minibatches and world size;
 * ``limits/<cell>.json``: the limit of each number compared;

@@ -23,15 +23,28 @@ and ``normalized_input(obs)`` (see ``quadruped_rough.py``); a task has
 ``cartpole.py``). The state that one iteration starts from is a dict
 ``{"params", "adam_m", "adam_v", "adam_count", "stats", "env",
 "generator"}``; the iteration returns the same keys, ``"controls"``,
-``"updates"`` and ``"loss"``, the mean over the updates of the total
-loss.
+``"updates"`` and ``"loss"``, the mean over the updates it ran of the
+total loss.
+
+A network that carries state (``cartpole_gru.py``) also has
+``initial_carry(B, device)`` and ``reset_carry(carry, done)``, and takes
+and returns the carry: ``rollout(params, stats, obs, gen, carry) ->
+(action, loglik, extras, next_carry)``, ``replay(..., carry, done) ->
+(loglik, values, reg, final_carry)``, ``values(..., carry)``. The state
+then holds ``"carry"``, the carry at the iteration's start; the rollout
+threads it through its ``T`` steps, reset where ``done``, and keeps the
+start carry in the record, so that each minibatch replays its rows from
+the carry they started with and bootstraps the last value from the
+replay's final carry. The iteration returns the carry after the rollout.
 
 Where another implementation's states are given (``follow``), each
 control step of the rollout starts from that implementation's env state
 and generator, and each update from its parameters and moments: one
 step's result is then compared with the other's at a time, so a rounding
 that differs once is not carried on and grown by the chaos of the
-physics or of Adam.
+physics or of Adam. The carry is not taken from the other at each
+control step (it is compared at the iteration's end), and an update that
+``follow`` leaves out is not run.
 """
 
 from __future__ import annotations
@@ -64,23 +77,30 @@ def gae(rewards, values, last_value, done, truncated, lam: float, gamma: float):
     return torch.stack(out[::-1], dim=1)
 
 
-def rollout(task, net, params, stats, env, T: int, gen, physics=None, follow=None):
+def rollout(task, net, params, stats, env, T: int, gen, physics=None, follow=None, carry=None,
+            fault=None):
     """``T`` steps of every env. Returns the final env state, the record
     the update reads, batch-major ``[B, T, ...]``, and ``"controls"``:
     after each control step, the env state (reset where done) and the
     generator's state. Where ``follow`` gives another implementation's
     ``T`` control steps (``{"env"}``: the state that entered the step;
     ``{"generator"}``: the generator after the step's resets), each step
-    after the first starts from its state and generator."""
+    after the first starts from its state and generator. With a
+    ``carry``, the record also holds it as ``"carry"`` and the carry
+    after the last step as ``"final_carry"``."""
     rec = {"obs": [], "extras": [], "loglik": [], "rewards": [], "done": [], "truncated": []}
     observed, controls = [], []
     B = env["done"].shape[0]
+    start = carry
     for t in range(T):
         if follow is not None and t > 0:
             env = follow[t]["env"]
             gen.set_state(follow[t - 1]["generator"])
         obs = task.obs(env)
-        action, loglik, extras = net.rollout(params, stats, obs, gen)
+        if start is None:
+            action, loglik, extras = net.rollout(params, stats, obs, gen)
+        else:
+            action, loglik, extras, carry = net.rollout(params, stats, obs, gen, carry)
         nxt = task.step(env, action, gen, physics)
         done = nxt["done"] != 0
         rec["obs"].append(obs)
@@ -94,6 +114,8 @@ def rollout(task, net, params, stats, env, T: int, gen, physics=None, follow=Non
         fresh = task.reset(B, gen)
         env = {k: torch.where(done.reshape((B,) + (1,) * (v.ndim - 1)), fresh[k], v)
                for k, v in nxt.items()}
+        if start is not None and fault != "carry_reset":
+            carry = net.reset_carry(carry, done)
         controls.append({"env": env, "generator": gen.get_state()})
 
     def stack(items):
@@ -109,6 +131,8 @@ def rollout(task, net, params, stats, env, T: int, gen, physics=None, follow=Non
     # What the normalizer folds in, time-major [T, B, f].
     out["history"] = torch.stack(observed) if observed[0] is not None else None
     out["controls"] = controls
+    if start is not None:
+        out["carry"], out["final_carry"] = start, carry
     return env, out
 
 
@@ -122,9 +146,17 @@ def take(tree, rows):
 
 def minibatch_loss(net, params, stats, mb, ppo: dict, fault=None):
     """The loss of one minibatch ``mb`` (rows of the rollout record)."""
-    loglik, values, reg = net.replay(params, stats, mb["obs"], mb["extras"])
-    with torch.no_grad():
-        last_values = net.values(params, stats, mb["last_next_obs"])
+    if "carry" in mb:
+        # Not reset where done, where that fault is planted.
+        done = torch.zeros_like(mb["done"]) if fault == "carry_reset" else mb["done"]
+        loglik, values, reg, final = net.replay(params, stats, mb["obs"], mb["extras"],
+                                                carry=mb["carry"], done=done)
+        with torch.no_grad():
+            last_values = net.values(params, stats, mb["last_next_obs"], carry=final)
+    else:
+        loglik, values, reg = net.replay(params, stats, mb["obs"], mb["extras"])
+        with torch.no_grad():
+            last_values = net.values(params, stats, mb["last_next_obs"])
     keys = list(values)
     adv = {k: gae(mb["rewards"][k], values[k].detach(), last_values[k], mb["done"],
                   mb["truncated"], ppo["gae_lambda"], ppo["discounting_factor"]) for k in keys}
@@ -171,12 +203,13 @@ def ppo_iteration(task, net, state: dict, ppo: dict, physics=None, fault=None,
                   follow=None, follow_controls=None) -> dict:
     """One iteration from ``state`` (see the module docstring). Each
     update starts from the last one's parameters and moments, or, where
-    ``follow`` gives them (a list of ``{"params", "m", "v"}``, one per
-    update, as another implementation left them), from those; each
-    control step likewise where ``follow_controls`` gives them (see
-    :func:`rollout`). Returns the state after it with ``"controls"`` and
-    ``"updates"``, each update's loss, gradients, parameters and
-    moments."""
+    ``follow`` is given (a dict from an update's index to the
+    ``{"params", "m", "v"}`` that another implementation started it
+    from, or None for the iteration's own start), only the updates it
+    names run, each from those; each control step likewise where
+    ``follow_controls`` gives them (see :func:`rollout`). Returns the
+    state after it with ``"controls"`` and ``"updates"``, by index: each
+    update's loss, gradients, parameters and moments."""
     gen = state["generator"]
     params, m, v = state["params"], state["adam_m"], state["adam_v"]
     count = state["adam_count"]
@@ -184,23 +217,29 @@ def ppo_iteration(task, net, state: dict, ppo: dict, physics=None, fault=None,
     B, T = ppo["n_envs"], ppo["rollout_length"]
     with torch.no_grad():
         env, rec = rollout(task, net, params, stats, state["env"], T, gen, physics,
-                           follow_controls)
+                           follow_controls, state.get("carry"), fault)
     controls = rec.pop("controls")
+    carry = rec.pop("final_carry", None)
     E, M = ppo["n_epochs"], ppo["n_minibatches"]
     perms = torch.stack([torch.randperm(B, generator=gen, device=gen.device)
                          for _ in range(E)]).reshape(E * M, B // M)
     history = rec.pop("history")
-    updates = []
+    updates = {}
     for j, rows in enumerate(perms):
-        if follow is not None and j > 0:
-            before = follow[j - 1]
-            params, m, v = before["params"], before["m"], before["v"]
+        if follow is not None:
+            if j not in follow:
+                continue
+            if follow[j] is not None:
+                params, m, v = follow[j]["params"], follow[j]["m"], follow[j]["v"]
         done = update(net, params, m, v, count + j, stats, take(rec, rows), ppo, fault)
-        updates.append(done)
+        updates[j] = done
         params, m, v = done["params"], done["m"], done["v"]
     if stats:
         stats = fold_moments(stats, history)
-    return {"params": params, "adam_m": m, "adam_v": v, "adam_count": count + len(perms),
-            "stats": stats, "env": env, "generator": gen, "controls": controls,
-            "updates": updates,
-            "loss": torch.stack([u["loss"] for u in updates]).mean()}
+    out = {"params": params, "adam_m": m, "adam_v": v, "adam_count": count + len(perms),
+           "stats": stats, "env": env, "generator": gen, "controls": controls,
+           "updates": updates,
+           "loss": torch.stack([u["loss"] for u in updates.values()]).mean()}
+    if carry is not None:
+        out["carry"] = carry
+    return out

@@ -4,12 +4,13 @@
 
 from the root of a checkout. In order: build the cell's env, networks
 (weights made on the card from the seed), optimizer and training state;
-drive its first three ``ppo_step`` calls, snapshotting the state between
-them (they are also the warm-up: every kernel is built and every shape
-run); time a window of whole ``ppo_step`` calls for ``--seconds``; with
-``--trace 1`` time each step of the window on its own and then profile
-two more steps; free the program's state; follow the first three steps
-with the plain reference (``check.py``); print the comparisons on
+drive its first ``ppo_step`` calls (three, unless the configuration's
+``check`` block says otherwise: ``check.plan``), snapshotting the state
+between them (they are also the warm-up: every kernel is built and every
+shape run); time a window of whole ``ppo_step`` calls for ``--seconds``;
+with ``--trace 1`` time each step of the window on its own and then
+profile two more steps; free the program's state; follow the checked
+steps with the plain reference (``check.py``); print the comparisons on
 standard error and one JSON line on standard output.
 
 ``--trace 0`` reports the cell's end-to-end metrics, ``--trace 1`` its
@@ -29,7 +30,6 @@ import math  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
-CHECK_STEPS = 3
 PROFILED_STEPS = 2
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "nnx_ppo_tpu")
 
@@ -104,7 +104,7 @@ def run_cell(cell: dict, seed: int, seconds: float, traced: bool, device) -> dic
     weights = program.make_weights(ref_module.parameters(cell["config"]), seed, device)
     prog = program.Program(cell, seed, device, weights)
     del weights
-    snaps, losses = prog.check_steps(CHECK_STEPS)
+    snaps, losses = prog.check_steps(*check.plan(cell))
     sync(device)
     setup_s = time.perf_counter() - T_START
 

@@ -44,6 +44,7 @@ def test_a_run_loads_no_jax(cell):
 def test_the_reference_loads_nothing_of_the_port():
     code = ("import json, sys\n"
             "import portbench.reference.quadruped_rough, portbench.reference.mlp_wide_bf16\n"
+            "import portbench.reference.cartpole_gru\n"
             "import portbench.reference.ppo, portbench.check\n"
             "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))\n")
     loaded = _modules(code)
