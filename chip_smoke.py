@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--profile DIR] [--learn N] [--variants] [--phases]
     python3 chip_smoke.py --ab-kernels [--package-root DIR]
+    python3 chip_smoke.py --hybrid
     python3 chip_smoke.py --learn-examples [NAME ...]
     python3 chip_smoke.py --cards N
 
@@ -222,7 +223,20 @@ and the timing of GAE and the plane sampler at the paths' shapes
 (wrapper, profiler, CUDA graph), printing an ``ab_kernels`` JSON line; ``--package-root DIR``
 imports nnx_ppo_tpu_torch from DIR instead, so that another checkout (the
 parent commit's, unpacked with ``git archive``) is timed by the same
-script in the same chip call.
+script in the same chip call. ``--hybrid`` runs only the device line, the
+SSM step kernel's phase and the hybrid trunk's path (below).
+
+The hybrid trunk (granite-4.0-h-micro's period of nine Mamba-2 layers and
+one attention layer at its published widths, the benchmark's
+granite_h_micro.e64t128) has a kernel phase and a path of its own in the
+default run: the step-form SSM kernel against its plain version at 64
+envs, 64 heads of 64 x 128, and at a ragged 33 envs (the new state equal
+to the bit, y within its stated bound), timed three ways with its least
+time by bytes; then hybrid_granite_h_micro, two ppo_steps at 64 envs,
+T=128, 4 x 4 minibatches, the counts set to 0 before the second: one SSM
+kernel launch per Mamba layer in each replay of the trunk's no-gradient
+step graph, at each of the 128 control steps and at each minibatch's
+bootstrap value (9 x 144 = 1,296), and 16 of GAE.
 """
 
 from __future__ import annotations
@@ -1609,6 +1623,172 @@ def scene_step_kernel_phase(torch, variants: bool) -> dict:
             for label, name in (("pusher", "pusher, B=4096"), ("reacher", "reacher, B=4096"))
         }
     return result
+
+
+# One period of granite-4.0-h-micro (Mamba-2 layers and one attention
+# layer, huggingface.co/ibm-granite/granite-4.0-h-micro config.json) at its
+# published widths: the benchmark's granite_h_micro.e64t128 trunk.
+HYBRID = dict(hidden=2048, intermediate=8192, heads=64, head_dim=64, d_state=128, d_conv=4,
+              chunk=256, q_heads=32, kv_heads=8, multiplier=0.015625, residual=0.22,
+              embedding=12.0, eps=1e-5, capacity=500,
+              layers=["mamba"] * 5 + ["attention"] + ["mamba"] * 4)
+HYBRID_ENVS = 64
+HYBRID_T = 128
+
+
+def ssm_step_bytes(E: int, H: int, P: int, N: int) -> int:
+    """Bytes one launch of the SSM step kernel reads and writes: the state
+    read and written once, x, y, dt, B, C, A and D (float32)."""
+    return 4 * (2 * E * H * P * N + 2 * E * H * P + E * H + 2 * E * N + 2 * H)
+
+
+def ssm_step_kernel_phase(torch) -> dict:
+    """The hybrid trunk's step-form SSM kernel against its plain version on
+    the card, at the trunk's shapes (64 envs, 64 heads of 64 x 128) and at
+    a ragged 33 envs: the new state equal to the bit (the same products
+    and sums in the same order); ``y`` within ``2 N u (sum |s' C| + |D
+    x|)`` (``u = 2^-24``), the kernel folding the sum over the ``N`` state
+    columns in another order than ``torch.sum``. Then timed at 64 envs."""
+    from nnx_ppo_tpu_torch.ops.ssm_step import ssm_step_cuda, ssm_step_plain
+
+    H, P, N = HYBRID["heads"], HYBRID["head_dim"], HYBRID["d_state"]
+    cases = {}
+    for E in (HYBRID_ENVS, 33):
+        g = torch.Generator(device="cuda").manual_seed(E)
+
+        def rand(*shape):
+            return torch.randn(shape, generator=g, device="cuda")
+
+        args = (rand(E, H, P, N), rand(E, H, P), torch.nn.functional.softplus(rand(E, H)),
+                -torch.exp(0.5 * rand(H)), rand(E, N), rand(E, N), rand(H))
+        before = ssm_step_cuda.launches
+        new, y = ssm_step_cuda(*args)
+        torch.cuda.synchronize()
+        check(ssm_step_cuda.launches == before + 1, "the wrapper counted its launch")
+        want_new, want_y = ssm_step_plain(*args)
+        check(torch.equal(new, want_new), f"ssm_step E={E}: the new state equal to the bit")
+        terms = ((want_new * args[5][:, None, None, :]).abs().sum(-1)
+                 + (args[6][:, None] * args[1]).abs())
+        share = ((y - want_y).abs() / (2 * N * 2.0**-24 * terms)).max().item()
+        check(share <= 1.0, f"ssm_step E={E}: y within its bound ({share:.3g} of it)")
+        print(f"ssm_step E={E}, {H} heads of {P} x {N}: the new state equal to the bit, y at "
+              f"{share:.3g} of its bound (equal to the bit: {torch.equal(y, want_y)})")
+        cases[E] = args
+        del new, y, want_new, want_y, terms
+    args = cases[HYBRID_ENVS]
+    times = kernel_times(lambda: ssm_step_cuda(*args), "ssm_step_kernel", torch, n_wrapper=100,
+                         n_profile=50, n_graph=20)
+    n_bytes = ssm_step_bytes(HYBRID_ENVS, H, P, N)
+    bound, bound_by = bound_ms(n_bytes, 5 * HYBRID_ENVS * H * P * N)
+    print(f"ssm_step E={HYBRID_ENVS}: kernel {1e3 * times['kernel_device_ms']:.2f} us (profiler), "
+          f"graph {1e3 * times['graph_ms']:.2f} us, wrapper {1e3 * times['wrapper_ms']:.2f} us; "
+          f"least {1e3 * bound:.2f} us by {bound_by} ({n_bytes} B), "
+          f"{100 * bound / times['kernel_device_ms']:.1f}% of it")
+    return {
+        "name": "ssm_step",
+        "route": "cuda",
+        "source": "nnx_ppo_tpu_torch/csrc/ssm_step.cu",
+        "replaces": None,  # no TPU counterpart: the JAX package has no state-space layer
+        "launches": None,
+        "shape": [HYBRID_ENVS, H, P, N],
+        "bytes": n_bytes,
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "roofline": bound / times["kernel_device_ms"],
+        "library_ms": None,  # no single PyTorch call computes the step
+        **times,
+    }
+
+
+def hybrid_leg(torch):
+    """granite-4.0-h-micro's period (:data:`HYBRID`) as the trunk shared by
+    a PPO actor and critic, as the benchmark's granite_h_micro.e64t128 runs
+    it: a normalizer, Dense(5 -> 2048) with no bias, HybridTrunk,
+    PPOAdapter(Dense(2048 -> 2) -> NormalTanhSampler, Dense(2048 -> 1));
+    bf16-rounded operands; cart-pole with a 500-step limit, 64 envs,
+    T=128, 4 x 4 minibatches of 16 whole rows, Adam 1e-4."""
+    from nnx_ppo_tpu_torch.algorithms import PPOConfig, make_optimizer
+    from nnx_ppo_tpu_torch.envs import CartpoleBalance
+    from nnx_ppo_tpu_torch.networks import (
+        Dense,
+        HybridTrunk,
+        NormalTanhSampler,
+        Normalizer,
+        PPOAdapter,
+        Sequential,
+    )
+    from nnx_ppo_tpu_torch.wrappers import EpisodeWrapper
+
+    h, dtype = HYBRID, "bfloat16"
+    env = EpisodeWrapper(CartpoleBalance(), max_len=500)
+    g = torch.Generator().manual_seed(0)
+    trunk = HybridTrunk.create(
+        h["hidden"], h["layers"], g, intermediate=h["intermediate"],
+        mamba=dict(n_heads=h["heads"], head_dim=h["head_dim"], d_state=h["d_state"],
+                   d_conv=h["d_conv"], chunk_size=h["chunk"]),
+        attention=dict(n_heads=h["q_heads"], n_kv_heads=h["kv_heads"], capacity=h["capacity"],
+                       multiplier=h["multiplier"]),
+        residual_multiplier=h["residual"], embedding_multiplier=h["embedding"], eps=h["eps"],
+        compute_dtype=dtype,
+    )
+    actor = Sequential.create([
+        Dense.create(h["hidden"], 2 * env.action_size, g, compute_dtype=dtype),
+        NormalTanhSampler.create(entropy_weight=1e-3, min_std=0.1),
+    ])
+    networks = Sequential.create([
+        Normalizer.create(env.observation_size),
+        Dense.create(env.observation_size, h["hidden"], g, use_bias=False, compute_dtype=dtype),
+        trunk,
+        PPOAdapter.create(action=actor, value=Dense.create(h["hidden"], 1, g, compute_dtype=dtype)),
+    ])
+    config = PPOConfig(n_envs=HYBRID_ENVS, rollout_length=HYBRID_T, n_epochs=4, n_minibatches=4,
+                       learning_rate=1e-4)
+    return env, networks, config, make_optimizer(config.learning_rate)
+
+
+def hybrid_path_phase(torch, kernels: list) -> dict:
+    """Two ppo_steps of :func:`hybrid_leg`: the first builds the kernels
+    and captures the trunk's no-gradient step as a CUDA graph at each of
+    its two shapes; the second, with every kernel's count (``kernels``,
+    and the SSM step kernel's) set to 0 just before, launches the SSM step
+    kernel once per Mamba layer in each of the graph's replays (every
+    control step of the rollout, and each minibatch's bootstrap of the
+    value from its replay's final carry) and GAE once per minibatch."""
+    from nnx_ppo_tpu_torch.algorithms import new_training_state, ppo_step
+    from nnx_ppo_tpu_torch.ops.ssm_step import ssm_step_cuda
+
+    env, networks, config, optimizer = hybrid_leg(torch)
+    n_mamba = HYBRID["layers"].count("mamba")
+    updates = config.n_epochs * config.n_minibatches
+    layout = print_layout("hybrid_granite_h_micro", config, networks)
+    t0 = time.perf_counter()
+    ts = new_training_state(env, networks, config.n_envs, seed=0, optimizer=optimizer,
+                            device="cuda")
+    del networks
+    ts, metrics = ppo_step(env, ts, config, optimizer)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    for k in (*kernels, ssm_step_cuda):
+        k.launches = 0
+    t0 = time.perf_counter()
+    ts, metrics = ppo_step(env, ts, config, optimizer)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in (*kernels, ssm_step_cuda)}
+    want = dict({k.__name__: 0 for k in kernels}, gae_cuda=updates,
+                ssm_step_cuda=n_mamba * (config.rollout_length + updates))
+    check(launches == want, f"hybrid launches {launches}, expected {want}")
+    check_finite({k: v for k, v in metrics.items() if k.startswith("losses/")}, torch)
+    cache = float(metrics["counters/attention_cache_length"])
+    check(1.0 <= cache <= HYBRID["capacity"], f"attention cache length {cache}")
+    print(f"hybrid_granite_h_micro ({layout}): launches {launches}; step {step_s:.3f} s "
+          f"(first, with set-up, {first_s:.1f} s), train_sps "
+          f"{config.n_envs * config.rollout_length / step_s:.1f}; mean cache length {cache:.1f}; "
+          f"device peak {torch.cuda.max_memory_allocated()} B")
+    del ts, metrics
+    torch.cuda.empty_cache()  # the later paths, and the ranks sharing the card, need it back
+    return {"layout": layout, "launches": launches, "first_call_s": first_s, "step_s": step_s,
+            "attention_cache_length": cache}
 
 
 def flagship(torch):
@@ -4998,6 +5178,8 @@ def main() -> int:
     parser.add_argument("--variants", action="store_true")
     parser.add_argument("--phases", action="store_true")
     parser.add_argument("--ab-kernels", action="store_true")
+    parser.add_argument("--hybrid", action="store_true",
+                        help="run only the SSM step kernel's phase and the hybrid trunk's path")
     parser.add_argument("--package-root", metavar="DIR", default=None)
     parser.add_argument("--learn-examples", metavar="NAME", nargs="*", default=None,
                         choices=sorted(LEARN_EXAMPLES))
@@ -5069,6 +5251,23 @@ def main() -> int:
                                                    "kind": torch.cuda.get_device_name(0),
                                                    "count": torch.cuda.device_count()}}))
         return 0
+    if args.hybrid:
+        t0 = time.perf_counter()
+        cuda_build.build(["gae", "ssm_step"])
+        print(f"build: {time.perf_counter() - t0:.2f} s")
+        wrappers = [gae_cuda, control_step_cuda, plane_sampler_cuda, substeps_cuda,
+                    scene_step_cuda]
+        ssm_kernel = ssm_step_kernel_phase(torch)
+        hybrid_path = hybrid_path_phase(torch, wrappers)
+        ssm_kernel["launches_by_path"] = {"hybrid_granite_h_micro":
+                                          hybrid_path["launches"]["ssm_step_cuda"]}
+        print(json.dumps({"ssm_step": ssm_kernel, "hybrid_granite_h_micro": hybrid_path}))
+        print(f"run: {time.perf_counter() - t_start:.1f} s")
+        print(f"card: {card}")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                   "kind": torch.cuda.get_device_name(0),
+                                                   "count": torch.cuda.device_count()}}))
+        return 0
     if args.ab_kernels:
         print(json.dumps({"ab_kernels": ab_kernels_phase(torch)}))
         print(f"card: {card}")
@@ -5093,8 +5292,8 @@ def main() -> int:
     specs.update(example_kernel_specs())
     # With --profile, also print what ptxas says of each kernel
     # (registers, stack, spills).
-    cuda_build.build(["gae", *sorted(specs)], verbose=bool(args.profile))
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a, {1 + len(specs)} libraries "
+    cuda_build.build(["gae", "ssm_step", *sorted(specs)], verbose=bool(args.profile))
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a, {2 + len(specs)} libraries "
           "at once)")
 
     wrappers = [gae_cuda, control_step_cuda, plane_sampler_cuda, substeps_cuda, scene_step_cuda]
@@ -5104,8 +5303,10 @@ def main() -> int:
     sampler_kernel = plane_sampler_kernel_phase(torch)
     substeps_kernel = substeps_kernel_phase(torch, bool(args.profile))
     scene_kernel = scene_step_kernel_phase(torch, args.variants)
+    ssm_kernel = ssm_step_kernel_phase(torch)
     one_env = one_env_kernel_phase(torch, wrappers)
     print(f"kernel phases: {time.perf_counter() - t_kernels:.1f} s")
+    hybrid_path = hybrid_path_phase(torch, wrappers)
     t_paths = time.perf_counter()
 
     flagship_path = flagship_path_phase(torch, wrappers, args.profile)
@@ -5376,6 +5577,12 @@ def main() -> int:
         kernel["launches"] = sum(kernel["launches_by_path"].values())
         kernel["one_env"] = one_env.get(wrapper_name, {})
         check(kernel["launches"] > 0, f"{kernel['name']} was launched on a main path")
+    # The SSM step kernel runs on the hybrid trunk's path alone.
+    ssm_kernel["launches_by_path"] = {"hybrid_granite_h_micro":
+                                      hybrid_path["launches"]["ssm_step_cuda"]}
+    ssm_kernel["launches"] = sum(ssm_kernel["launches_by_path"].values())
+    check(ssm_kernel["launches"] > 0, "ssm_step was launched on a main path")
+    kernel_rows["ssm_step_cuda"] = ssm_kernel
 
     print(
         f"flagship ({flagship_path['layout']}): {FLAGSHIP_STEPS_CHECKED + FLAGSHIP_STEPS_TIMED} "

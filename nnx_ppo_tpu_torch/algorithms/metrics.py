@@ -50,6 +50,19 @@ def compute_metrics(
     return summarize_metrics(loss_metrics, samples, percentile_levels, mesh)
 
 
+def rollout_counters(net_metrics: Any) -> dict[str, torch.Tensor]:
+    """The counters a network's modules emit in their step's metrics, under
+    a ``"counters"`` key (``networks/hybrid.py``: the attention cache's
+    length), from the rollout's metrics stacked ``[T, B]``: each at the
+    last step, averaged over the envs (this rank's, under a mesh), as
+    ``counters/<name>``. Device tensors, never read here."""
+    return {
+        "counters/" + name.rsplit("/counters/", 1)[1]: x[-1].float().mean()
+        for name, x in _flatten("net", net_metrics)
+        if "/counters/" in name
+    }
+
+
 def summarize_metrics(
     loss_metrics: dict[str, Any],
     samples: list[tuple[str, torch.Tensor]],

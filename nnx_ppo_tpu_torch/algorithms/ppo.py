@@ -61,7 +61,11 @@ import torch
 
 from nnx_ppo_tpu_torch.algorithms import rollout
 from nnx_ppo_tpu_torch.algorithms.config import PPOConfig, TrainConfig, TrainResult, VideoData
-from nnx_ppo_tpu_torch.algorithms.metrics import compute_metrics, log_weight_stats
+from nnx_ppo_tpu_torch.algorithms.metrics import (
+    compute_metrics,
+    log_weight_stats,
+    rollout_counters,
+)
 from nnx_ppo_tpu_torch.algorithms.types import LoggingLevel, TrainingState, Transition
 from nnx_ppo_tpu_torch.core.device import resolve_device
 from nnx_ppo_tpu_torch.core.struct import tree_leaves, tree_map, tree_stack
@@ -519,6 +523,7 @@ def ppo_step(
             mesh=mesh,
         )
         metrics["total_steps"] = total_steps
+        metrics.update(rollout_counters(rollout_data.metrics.get("net", {})))
         if LoggingLevel.WEIGHTS in config.logging_level:
             log_weight_stats(metrics, ts.networks, config.logging_percentiles)
 
@@ -668,6 +673,10 @@ def ppo_loss(
         loss_metrics["losses/actor"] = actor_losses
         loss_metrics["losses/critic"] = critic_losses
         loss_metrics["losses/regularization"] = regularization_loss
+        if not view.batch_major and not networks.replay_time_static:
+            # Episode ends before a row's last step: resets inside the
+            # replayed rows, which a carrying network's replay applies.
+            loss_metrics["counters/episode_boundaries"] = view.done[:-1].sum().float()
     if LoggingLevel.ACTOR_EXTRA in logging_level:
         loss_metrics["losses/clipping_fraction"] = tree_map(
             lambda new_ll, old_ll: (

@@ -33,7 +33,9 @@ def single_transition(
 ) -> tuple[tuple[ModuleState, Any], Transition]:
     """One batched env step: net forward -> env.step -> auto-reset both
     the env state and the net carry where ``done``. Everything after the
-    net forward runs inside a profiler range named ``rollout.env``."""
+    net forward runs inside a profiler range named ``rollout.env``, and
+    the carry's reset and select inside it in one named
+    ``rollout.carry_reset``."""
     network_state, env_state = carry
     out = networks(network_state, env_state.obs, None, generator)
     ppo_output = out.output
@@ -56,8 +58,9 @@ def single_transition(
 
         reset_states = env.reset(done.shape[0], generator)
         next_env_state = tree_where(done, reset_states, next_env_state)
-        reset_network_states = networks.reset_state(out.next_state)
-        next_network_state = tree_where(done, reset_network_states, out.next_state)
+        with span("rollout.carry_reset"):
+            reset_network_states = networks.reset_state(out.next_state)
+            next_network_state = tree_where(done, reset_network_states, out.next_state)
     return (next_network_state, next_env_state), transition
 
 

@@ -1,7 +1,8 @@
 """Network modules. Port of ``nnx_ppo_tpu/networks``, with every public
 name of it: feed-forward, recurrent, delay and variational layers,
 containers and utilities, samplers, the normalizer, the PPO adapter and
-the factories. The population graph is in ``networks.graph``."""
+the factories; and, with no JAX counterpart, the hybrid trunk of Mamba-2
+and attention layers (``hybrid.py``). The population graph is in ``networks.graph``."""
 
 from nnx_ppo_tpu_torch.networks.adapter import PPOAdapter
 from nnx_ppo_tpu_torch.networks.containers import Concat, Parallel, Sequential, Splitter
@@ -12,6 +13,14 @@ from nnx_ppo_tpu_torch.networks.factories import (
     make_mlp_layers,
 )
 from nnx_ppo_tpu_torch.networks.feedforward import Dense
+from nnx_ppo_tpu_torch.networks.hybrid import (
+    GroupedQueryAttention,
+    HybridBlock,
+    HybridTrunk,
+    Mamba2Mixer,
+    RMSNorm,
+    SwiGLU,
+)
 from nnx_ppo_tpu_torch.networks.normalizer import Normalizer
 from nnx_ppo_tpu_torch.networks.recurrent import GRU, LSTM
 from nnx_ppo_tpu_torch.networks.sampling_layers import ActionSampler, NormalTanhSampler
@@ -35,7 +44,13 @@ __all__ = [
     "Delay",
     "Dense",
     "GRU",
+    "GroupedQueryAttention",
+    "HybridBlock",
+    "HybridTrunk",
     "LSTM",
+    "Mamba2Mixer",
+    "RMSNorm",
+    "SwiGLU",
     "VariationalBottleneck",
     "Filter",
     "Flattener",

@@ -160,11 +160,12 @@ def counted(wrapper) -> None:
     wrapper.devices = collections.Counter()
 
 
-def count_launch(wrapper, device) -> None:
-    """One launch of ``wrapper``'s kernel on CUDA ``device``; called where
-    the kernel launches, and nowhere else."""
-    wrapper.launches += 1
-    wrapper.devices[device.index] += 1
+def count_launch(wrapper, device, n: int = 1) -> None:
+    """``n`` launches of ``wrapper``'s kernel on CUDA ``device``; called
+    where the kernel launches (or a CUDA graph that holds it replays), and
+    nowhere else."""
+    wrapper.launches += n
+    wrapper.devices[device.index] += n
 
 
 def load(name: str, flags: Sequence[str] = ()) -> ctypes.CDLL:

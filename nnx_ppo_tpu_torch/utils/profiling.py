@@ -7,13 +7,16 @@ JAX's ``Throughput`` meter has no counterpart: ``train_ppo`` computes
 A JAX trace shows its jitted functions by name. The port marks its
 training step with :func:`span` ranges at the layer boundaries:
 ``ppo_step``; ``unroll_env`` (the rollout) and inside it, once per env
-step, ``rollout.env`` (``env.step`` through the auto-reset's selects);
+step, ``rollout.env`` (``env.step`` through the auto-reset's selects;
+inside it ``rollout.carry_reset``, the network carry's reset and select);
 ``ppo_update`` (the whole minibatch loop, the update phase inside JAX's
 ``ppo_step``) and inside it, once per minibatch, ``update.loss``
 (replay, bootstrap, GAE, loss), ``update.backward`` and
 ``update.optimizer`` (clipping and Adam); ``distillation_step``, whose
-minibatch loop has the same three ``update.*`` ranges. They exist only
-while a profiler runs.
+minibatch loop has the same three ``update.*`` ranges; and, where a
+network has them, ``net.mamba``, ``net.attention`` and ``net.mlp``
+around each hybrid layer's mixer and MLP (``networks/hybrid.py``). They
+exist only while a profiler runs.
 """
 
 from __future__ import annotations
